@@ -16,16 +16,25 @@ prints no result line):
      computes the same function, that call, with CUDA events (warmed up,
      in turns forward and back); compute each kernel's bound (the larger
      of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s f32);
-  5. drive the three paths through the public API, with every launch
-     counter reset just before each and read just after:
+  5. drive the paths through the public API, with every launch counter
+     reset just before each and read just after:
        A. api.track_video, 1080x1920 T=9, K=1024, the headline graph
           (fi_level_fused=True): K5 on the levels under its gate;
        B. api.track_video, 720x1280 T=17, K=1024, pair_path_config()
           (bench cfg3's pair-batched graph);
        C. api.track_videos, 4 clips of 1080x1920 T=9, K=1024, the main
           path with pair_batch;
+       D. api.track_video with no config (the reference's RunConfig():
+          exact warp, K8 on every level iteration), 1080x1920 T=9;
+       D2. RunConfig() at pe_fused=False (K11 + K3 per level), T=5;
+       E. bench's temporal warm-1 stage, 1080x1920 T=9, K=1024;
+       F. bench cfg5 through api.smooth (RTS, pair-batched), 480x854
+          T=33;
+       G. bench cfg2's pixel-KF stage through api.flow_sequence(smooth=
+          True), 480x854 T=33;
      check the launch counts, the outputs against the plain functions,
-     the per-frame path and the CPU path, and report frames/s.
+     the CPU smoothers, the per-frame path and the CPU path, and report
+     frames/s.
 The last three lines are the per-kernel JSON summary, the card's name and
 power limit exactly as nvidia-smi prints them, and the JSON result
 {"ok": true, "device": {...}}.
@@ -49,6 +58,8 @@ import torch
 H, W, T, K = 1080, 1920, 9, 1024           # path A, and each clip of C
 H_B, W_B, T_B = 720, 1280, 17              # path B (bench cfg3)
 N_CLIPS = 4                                # path C
+T_D2 = 5                                   # path D2
+H_F, W_F, T_F = 480, 854, 33               # paths F and G (cfg5, cfg2)
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, data sheet
 F32_FLOPS_PER_S = 67e12                    # f32 outside the tensor cores
 FAILURES: list = []
@@ -198,22 +209,25 @@ def check_k1(dev, results):
     from kalman_hydra_tpu_torch.kernels.ekf import (ekf_fused_step,
                                                     ekf_fused_step_plain)
     from kalman_hydra_tpu_torch.models import dynamics
-    cfg = EkfConfig(state_dim=6)
-    F, Q = dynamics.transition(cfg), dynamics.process_noise(cfg)
     g = torch.Generator().manual_seed(1)
-    x = (torch.randn(K, 6, generator=g) * 5).to(dev)
-    P = rand_spd(g, K, 6, dev)
-    y = (torch.randn(K, 2, generator=g) * 2).to(dev)
-    Hs = [torch.as_tensor(dynamics.position_H(cfg), device=dev)]
-    Hs.append((Hs[0] + 0.1 * torch.randn(K, 2, 6, generator=g).to(dev))
-              .contiguous())
-    err = 0.0
-    for H_ in Hs:
-        got = ekf_fused_step(x, P, y, H_, F, Q, cfg.r)
-        ref = ekf_fused_step_plain(x, P, y, H_, F, Q, cfg.r)
-        err = max(err, *(max_err(a, b) for a, b in zip(got, ref)))
-    log(f"  K1 K={K} n=6, H (2,n) and (K,2,n): max_abs_err {err:.3e} "
-        "(bar 1e-4)")
+    errs = {}
+    for n in (4, 6):           # RunConfig()'s CV filter; the main path's CA
+        cfg = EkfConfig(state_dim=n)
+        F, Q = dynamics.transition(cfg), dynamics.process_noise(cfg)
+        x = (torch.randn(K, n, generator=g) * 5).to(dev)
+        P = rand_spd(g, K, n, dev)
+        y = (torch.randn(K, 2, generator=g) * 2).to(dev)
+        Hs = [torch.as_tensor(dynamics.position_H(cfg), device=dev)]
+        Hs.append((Hs[0] + 0.1 * torch.randn(K, 2, n, generator=g).to(dev))
+                  .contiguous())
+        errs[n] = 0.0
+        for H_ in Hs:
+            got = ekf_fused_step(x, P, y, H_, F, Q, cfg.r)
+            ref = ekf_fused_step_plain(x, P, y, H_, F, Q, cfg.r)
+            errs[n] = max(errs[n], *(max_err(a, b) for a, b in zip(got, ref)))
+        log(f"  K1 K={K} n={n}, H (2,n) and (K,2,n): max_abs_err "
+            f"{errs[n]:.3e} (bar 1e-4)")
+    err = max(errs.values())
     assert err < 1e-4
     ms = time_turns({
         "plain": lambda: ekf_fused_step_plain(x, P, y, Hs[0], F, Q, cfg.r),
@@ -406,6 +420,88 @@ def check_k5(dev, clip, cfg, results):
     results["flow_level"]["k2_route_ms"] = tot["k2"]
 
 
+def update_flops(taps: int, gaussian: bool = False) -> int:
+    """FLOPs per pixel that one K8 call needs: ~39 for the damped normal
+    equations, ~21 for the solve, and the two window passes over M's 5
+    planes counted as in fi_flops (the gather is outside K8)."""
+    return 60 + (20 * taps if gaussian else 20)
+
+
+@phase("K8 flow_update")
+def check_k8(dev, clip, cfg, results):
+    """K8 at each of the six 1080p level shapes, on path D's frame 0 -> 1
+    pyramids (RunConfig(): f32 planes) and the exact gather, box and
+    Gaussian windows, zero and random +-2 px prior flows: against the
+    plain version (< 1e-4). Timed per level with the box window; the
+    kernels line keeps one frame pair's 6 x `iterations` calls."""
+    from kalman_hydra_tpu_torch.kernels.flow_update import (
+        flow_update, flow_update_plain)
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    from kalman_hydra_tpu_torch.ops.farneback import (polyexp_pyramid,
+                                                      warp_poly_planar)
+    f = cfg.flow
+    grays = [grayscale_u8(torch.from_numpy(clip[i]).to(dev)) for i in (0, 1)]
+    pyrs = [polyexp_pyramid(gr, f) for gr in grays]
+    g = torch.Generator().manual_seed(8)
+    taps = 2 * (f.winsize // 2) + 1
+    worst = 0.0
+    tot = dict(kernel=0.0, plain=0.0)
+    nbytes = flops = 0
+    for R0, R1 in zip(*pyrs):
+        lh, lw = R0.shape[1:]
+        line = []
+        for fname, fl in (("zero", torch.zeros(2, lh, lw, device=dev)),
+                          ("+-2px", (torch.rand(2, lh, lw, generator=g) * 4
+                                     - 2).to(dev))):
+            R1w = warp_poly_planar(R1, fl)
+            for gw in (False, True):
+                e = max_err(flow_update(R0, R1w, fl, f.winsize, gw),
+                            flow_update_plain(R0, R1w, fl, f.winsize, gw))
+                worst = max(worst, e)
+                line.append(f"{fname}{'/gauss' if gw else ''} {e:.2e}")
+        log(f"  K8 {lh}x{lw}: " + ", ".join(line))
+        ms = time_turns({
+            "plain": lambda: flow_update_plain(R0, R1w, fl, f.winsize),
+            "kernel": lambda: flow_update(R0, R1w, fl, f.winsize)})
+        log(f"  K8 {lh}x{lw} time: kernel {ms['kernel']:.4f} ms, plain "
+            f"{ms['plain']:.4f} ms")
+        for k in tot:
+            tot[k] += f.iterations * ms[k]
+        nbytes += f.iterations * lh * lw * (4 * 10 + 8 + 8)
+        flops += f.iterations * lh * lw * update_flops(taps)
+    log(f"  K8 max_abs_err {worst:.3e} (bar 1e-4, every level, box and "
+        f"Gaussian, zero and +-2 px flows); one frame pair's "
+        f"{f.iterations} x {len(pyrs[0])} calls {tot['kernel']:.4f} ms")
+    assert worst < 1e-4
+    record(results, "flow_update", worst, tot["kernel"], tot["plain"],
+           nbytes, flops)
+
+
+@phase("K11 coarse_level_images")
+def check_k11(dev, gray, cfg, results):
+    """K11 on a 1080p frame: the five coarse level images against the
+    plain stage-by-stage blur + resize (bar 1e-2, the reference's)."""
+    from kalman_hydra_tpu_torch.kernels.level_image import (
+        coarse_level_images, coarse_level_images_plain, level_tables)
+    f = cfg.flow
+    args = (gray, f.levels, f.pyr_scale)
+    got = coarse_level_images(*args)
+    ref = coarse_level_images_plain(*args)
+    errs = [max_err(a, b) for a, b in zip(got, ref)]
+    log(f"  K11 levels {[tuple(a.shape) for a in got]}: max_abs_err per "
+        f"level {['%.3e' % e for e in errs]} (bar 1e-2); measured max "
+        f"{max(errs):.3e}")
+    assert len(got) == len(ref) == 5 and max(errs) < 1e-2
+    ms = time_turns({"plain": lambda: coarse_level_images_plain(*args),
+                     "kernel": lambda: coarse_level_images(*args)}, reps=10)
+    tabs = level_tables(H, W, f.levels, f.pyr_scale, 0)
+    px = sum(lh * lw for (lh, lw, *_t) in tabs)
+    fl = sum(2 * lh * W * iv.shape[1] + 2 * lh * lw * ih.shape[1]
+             for (lh, lw, iv, _wv, ih, _wh) in tabs)
+    record(results, "coarse_level_images", max(errs), ms["kernel"],
+           ms["plain"], H * W * 4 + px * 4, fl)
+
+
 @phase("K6 flow_iter_pairs")
 def check_k6(dev, clip_b, cfg, results):
     """K6 at 720p on the fine-level planes of the path-B clip: 16 pairs of
@@ -539,28 +635,38 @@ def check_k7(dev, clip_b, clips_c, cfg, results):
                N * k4_flops(h, w, f))
 
 
-def path_a_expected(cfg) -> dict:
-    """Path A's launches at (H, W, T), from K5's own gate."""
+def per_frame_expected(cfg, h, w, t) -> dict:
+    """Launches of a per-frame run of t frames at h x w, from the plan and
+    K5's own gate: per frame one pyramid (K4 + K3, or K11 + K3 on every
+    level at pe_fused=False); per step each level runs `iterations` K8
+    (exact warp), one K5 (fast warp under the gate) or `iterations` K2,
+    and one K1."""
     from kalman_hydra_tpu_torch import kernels
     from kalman_hydra_tpu_torch.kernels.flow_level import fits
     from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
+    plan = farneback_levels(h, w, f.levels, f.pyr_scale)
     e = dict.fromkeys(kernels.WRAPPERS, 0)
-    for (_k, lh, lw, _s, _ks) in farneback_levels(H, W, f.levels,
-                                                  f.pyr_scale):
-        if f.fi_level_fused and fits(lh, lw, 2 if f.bf16_poly else 4):
-            e["flow_level"] += T - 1
+    for (_k, lh, lw, _s, _ks) in plan:
+        if f.fast_warp <= 0:
+            e["flow_update"] += f.iterations * (t - 1)
+        elif f.fi_level_fused and fits(lh, lw, 2 if f.bf16_poly else 4):
+            e["flow_level"] += t - 1
         else:
-            e["flow_iter"] += f.iterations * (T - 1)
-    e.update(ekf_fused_step=T - 1, poly_expansion_planar=T,
-             coarse_polyexp_fused=T)
+            e["flow_iter"] += f.iterations * (t - 1)
+    if f.pe_fused:
+        e.update(poly_expansion_planar=t, coarse_polyexp_fused=t)
+    else:
+        e.update(poly_expansion_planar=t * len(plan), coarse_level_images=t)
+    e["ekf_fused_step"] = t - 1
     return e
 
 
 def pair_expected(cfg, h, w, clips, t) -> dict:
     """Launches of a pair-batched run over `clips` clips of t frames: one
     K7b and one K7a for all frames, one K6 per level iteration, and K1
-    once per step of each clip (the clips are filtered in turn)."""
+    once per step of each clip (the clips are filtered in turn; clips=0
+    for flow alone)."""
     from kalman_hydra_tpu_torch import kernels
     from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
@@ -600,9 +706,14 @@ def same_tracks(a, b, what):
     err = np.abs(a.positions - b.positions).max()
     same = bool((a.alive == b.alive).all() and
                 (a.track_id == b.track_id).all())
+    sm = ("" if a.smoothed is None else
+          f"; smoothed {np.abs(a.smoothed - b.smoothed).max():.3e} px")
     log(f"  {what}: max |pos diff| {err:.3e} px (bar 1e-3); alive and "
-        f"track_id identical: {same}")
+        f"track_id identical: {same}{sm}")
     assert err < 1e-3 and same
+    assert (a.smoothed is None) == (b.smoothed is None)
+    if a.smoothed is not None:
+        assert np.abs(a.smoothed - b.smoothed).max() < 1e-3
 
 
 def clip_seconds(fn, reps=3):
@@ -619,66 +730,113 @@ def clip_seconds(fn, reps=3):
 def path_a(dev, clip, cfg, counts_by_path):
     from kalman_hydra_tpu_torch import api
     tr = drive("A", lambda: api.track_video(clip, cfg, device=dev),
-               path_a_expected(cfg), counts_by_path)
+               per_frame_expected(cfg, H, W, T), counts_by_path)
     check_tracks(tr, T, K)
 
 
 def plain_flow(g0, g1, f):
     """Frame-pair flow (H, W, 2) composed from the kernels' plain versions
-    only, as ops.farneback composes the kernels."""
+    only, as ops.farneback composes the kernels (the exact gather is plain
+    torch in both)."""
     from kalman_hydra_tpu_torch.kernels.flow_iter import flow_iter_plain
-    from kalman_hydra_tpu_torch.kernels.level_image import \
-        coarse_polyexp_fused_plain
+    from kalman_hydra_tpu_torch.kernels.flow_update import flow_update_plain
+    from kalman_hydra_tpu_torch.kernels.level_image import (
+        coarse_level_images_plain, coarse_polyexp_fused_plain)
     from kalman_hydra_tpu_torch.kernels.polyexp import \
         poly_expansion_planar_plain
+    from kalman_hydra_tpu_torch.ops.farneback import warp_poly_planar
     from kalman_hydra_tpu_torch.ops.pyramid import (gaussian_blur_level,
                                                     resize_linear)
     dt = torch.bfloat16 if f.bf16_poly else torch.float32
-    pyrs = [coarse_polyexp_fused_plain(g, f.levels, f.pyr_scale, f.poly_n,
-                                       f.poly_sigma, dt)
-            + [poly_expansion_planar_plain(gaussian_blur_level(g, f, k=0),
-                                           f.poly_n, f.poly_sigma, dt)]
-            for g in (g0, g1)]
+    n, s = f.poly_n, f.poly_sigma
+
+    def pyramid(g):
+        img0 = gaussian_blur_level(g, f, k=0)
+        if not f.pe_fused:
+            return [poly_expansion_planar_plain(i, n, s, dt) for i in
+                    coarse_level_images_plain(g, f.levels, f.pyr_scale)
+                    + [img0]]
+        return (coarse_polyexp_fused_plain(g, f.levels, f.pyr_scale, n, s,
+                                           dt)
+                + [poly_expansion_planar_plain(img0, n, s, dt)])
+
     flow = None
-    for R0, R1 in zip(*pyrs):
+    for R0, R1 in zip(pyramid(g0), pyramid(g1)):
         lh, lw = R0.shape[1:]
         flow = (torch.zeros((2, lh, lw), device=R0.device) if flow is None
                 else resize_linear(flow, lh, lw) * (1.0 / f.pyr_scale))
         for _ in range(f.iterations):
-            flow = flow_iter_plain(R0, R1, flow, f.winsize, f.fast_warp,
-                                   f.gaussian_win)
+            if f.fast_warp <= 0:
+                flow = flow_update_plain(R0.float(),
+                                         warp_poly_planar(R1, flow), flow,
+                                         f.winsize, f.gaussian_win)
+            else:
+                flow = flow_iter_plain(R0, R1, flow, f.winsize, f.fast_warp,
+                                       f.gaussian_win)
     return flow.movedim(0, -1)
 
 
 @phase("flow pair vs plain functions on the card")
-def flow_vs_plain(dev, clip, cfg):
+def flow_vs_plain(dev, clip, cfgs):
+    """The frame 0 -> 1 flow through the kernels against the composition
+    of their plain versions, for each path's flow settings."""
     from kalman_hydra_tpu_torch.ops.color import grayscale_u8
     from kalman_hydra_tpu_torch.ops.farneback import (
         farneback_from_pyramids, polyexp_pyramid)
     g0, g1 = (grayscale_u8(torch.from_numpy(clip[i]).to(dev))
               for i in (0, 1))
-    flows = [farneback_from_pyramids(polyexp_pyramid(g0, cfg.flow),
-                                     polyexp_pyramid(g1, cfg.flow), cfg.flow),
-             plain_flow(g0, g1, cfg.flow)]
-    epe = torch.linalg.vector_norm(flows[0] - flows[1], dim=-1)
-    mag = torch.linalg.vector_norm(flows[1], dim=-1).mean().item()
-    log(f"  frame 0->1 flow (K5 + K2 route), kernels vs plain: mean EPE "
-        f"{epe.mean().item():.3e} px (bar 1e-3), max {epe.max().item():.3e}"
-        f" px; mean |flow| {mag:.3f} px")
-    assert epe.mean().item() < 1e-3
+    for label, cfg in cfgs.items():
+        flows = [farneback_from_pyramids(polyexp_pyramid(g0, cfg.flow),
+                                         polyexp_pyramid(g1, cfg.flow),
+                                         cfg.flow),
+                 plain_flow(g0, g1, cfg.flow)]
+        epe = torch.linalg.vector_norm(flows[0] - flows[1], dim=-1)
+        mag = torch.linalg.vector_norm(flows[1], dim=-1).mean().item()
+        log(f"  path {label} frame 0->1 flow, kernels vs plain: mean EPE "
+            f"{epe.mean().item():.3e} px (bar 1e-3), max "
+            f"{epe.max().item():.3e} px; mean |flow| {mag:.3f} px")
+        assert epe.mean().item() < 1e-3
 
 
-@phase("small clips: CUDA path vs CPU path (per-frame and pair-batched)")
+def small_configs(cfg, pair_cfg) -> dict:
+    """The configurations held card against CPU at 128x160 T=5, K=32: the
+    main and pair paths cut to 3 levels, and configurations (a), (c), (d)
+    and (e) of tests/test_torch_default_path.py and test_torch_smooth.py:
+    RunConfig() itself, pe_fused=False, temporal_init + init_velocity at
+    both warps, and smoothing, monolithic and fixed-lag."""
+    from kalman_hydra_tpu_torch.config import (FlowConfig, RunConfig,
+                                               SmoothConfig, TrackConfig)
+    out = {}
+    for name, c in (("main path", cfg), ("pair path", pair_cfg)):
+        out[name] = c.replace(
+            flow=dataclasses.replace(c.flow, levels=3),
+            tracks=dataclasses.replace(c.tracks, num_tracks=32,
+                                       corner_pool=256, reinit_every=2))
+    base = RunConfig(tracks=TrackConfig(num_tracks=32))
+    warm = dataclasses.replace(base.tracks, init_velocity=True)
+    out.update({
+        "(a) RunConfig()": base,
+        "(c) pe_fused=False": base.replace(flow=FlowConfig(pe_fused=False)),
+        "(d) warm, exact warp": base.replace(
+            flow=FlowConfig(temporal_init=True), tracks=warm),
+        "(d) warm, fast_warp=8 fused": base.replace(
+            flow=FlowConfig(temporal_init=True, fast_warp=8,
+                            fi_level_fused=True), tracks=warm),
+        "(e) RTS": base.replace(smooth=SmoothConfig(enabled=True)),
+        "(e) fixed lag 2": base.replace(
+            smooth=SmoothConfig(enabled=True, lag=2)),
+    })
+    return out
+
+
+@phase("small clips: CUDA path vs CPU path (per-frame, pair-batched, "
+       "default, warm starts, smoothing)")
 def small_vs_cpu(dev, cfg, pair_cfg):
     from kalman_hydra_tpu_torch import api
     from kalman_hydra_tpu_torch.io.synthetic import moving_blob_clip
     clip, _ = moving_blob_clip(num_frames=5, height=128, width=160,
                                num_points=8, seed=0)
-    for name, c in (("per-frame", cfg), ("pair-batched", pair_cfg)):
-        small = c.replace(
-            flow=dataclasses.replace(c.flow, levels=3),
-            tracks=dataclasses.replace(c.tracks, num_tracks=32,
-                                       corner_pool=256, reinit_every=2))
+    for name, small in small_configs(cfg, pair_cfg).items():
         same_tracks(api.track_video(clip, small, device=dev),
                     api.track_video(clip, small, device="cpu"),
                     f"128x160 T=5 K=32 {name}: cuda vs cpu")
@@ -692,7 +850,7 @@ def throughput_a(dev, clip, cfg, name):
     # the unfused graph's own dispatch (K2 on every level, K5 never); its
     # counts stay out of the kernels line, which reads paths A, B and C
     drive("A unfused", lambda: api.track_video(clip, cfgs[False], device=dev),
-          path_a_expected(cfgs[False]), {})
+          per_frame_expected(cfgs[False], H, W, T), {})
     times = {False: [], True: []}
     for fused in (False, True, True, False, False, True):
         times[fused] += clip_seconds(
@@ -740,6 +898,105 @@ def path_c(dev, clips_c, cfg_c, counts_by_path, name):
         f"-> {N_CLIPS * (T - 1) / med:.2f} frames/s ({N_CLIPS} clips of "
         f"1080p, T={T}, K={K}; {name})")
     return med
+
+
+def per_frame_fps(label, fn, steps, name) -> float:
+    """Median clip time of 3 warm runs of fn (`steps` frame steps); prints
+    frames/s beside the card."""
+    ts = clip_seconds(fn)
+    med = statistics.median(ts)
+    log(f"  path {label} clip times {['%.4f' % t for t in ts]} s; median "
+        f"{med:.4f} s -> {steps / med:.2f} frames/s ({name})")
+    return med
+
+
+@phase("path D (api.track_video with no config: RunConfig(), 1080p T=9)")
+def path_d(dev, clip, counts_by_path, name):
+    """The reference's default end to end: the exact warp (K8 on every
+    level iteration), f32 planes, the 4-state filter, 256 tracks, a fresh
+    corner pool every frame."""
+    from kalman_hydra_tpu_torch import api
+    from kalman_hydra_tpu_torch.config import RunConfig
+    tr = drive("D", lambda: api.track_video(clip, device=dev),
+               per_frame_expected(RunConfig(), H, W, T), counts_by_path)
+    check_tracks(tr, T, RunConfig().tracks.num_tracks)
+    return per_frame_fps("D", lambda: api.track_video(clip, device=dev),
+                         T - 1, f"1080p, T={T}, K=256; {name}")
+
+
+@phase("path D2 (RunConfig() with pe_fused=False, 1080p T=5)")
+def path_d2(dev, clip, cfg_d2, counts_by_path, name):
+    from kalman_hydra_tpu_torch import api
+    clip = clip[:T_D2]
+    tr = drive("D2", lambda: api.track_video(clip, cfg_d2, device=dev),
+               per_frame_expected(cfg_d2, H, W, T_D2), counts_by_path)
+    check_tracks(tr, T_D2, cfg_d2.tracks.num_tracks)
+    return per_frame_fps("D2", lambda: api.track_video(clip, cfg_d2,
+                                                       device=dev),
+                         T_D2 - 1, f"1080p, T={T_D2}, K=256; {name}")
+
+
+@phase("path E (bench's temporal warm-1 stage, 1080p T=9 K=1024)")
+def path_e(dev, clip, cfg_e, counts_by_path, name):
+    from kalman_hydra_tpu_torch import api
+    tr = drive("E", lambda: api.track_video(clip, cfg_e, device=dev),
+               per_frame_expected(cfg_e, H, W, T), counts_by_path)
+    check_tracks(tr, T, K)
+    return per_frame_fps("E", lambda: api.track_video(clip, cfg_e,
+                                                      device=dev),
+                         T - 1, f"1080p, T={T}, K={K}; {name}")
+
+
+@phase("path F (bench cfg5 through api.smooth, 480x854 T=33)")
+def path_f(dev, clip_f, cfg_f, counts_by_path, name):
+    """RTS-smoothed tracks on the pair-batched path; `smoothed` held
+    against models.rts run on the CPU over the card's own filter
+    history."""
+    from kalman_hydra_tpu_torch import api, pipeline
+    from kalman_hydra_tpu_torch.models import dynamics
+    from kalman_hydra_tpu_torch.models.rts import rts_smooth, segment_breaks
+    tr = drive("F", lambda: api.smooth(clip_f, cfg_f, device=dev),
+               pair_expected(cfg_f, H_F, W_F, 1, T_F), counts_by_path)
+    check_tracks(tr, T_F, cfg_f.tracks.num_tracks)
+    outs = {k: v.cpu() for k, v in pipeline.track_arrays(
+        pipeline.upload(clip_f, dev), cfg_f, with_history=True).items()}
+    xs, _ = rts_smooth(dynamics.transition(cfg_f.ekf), outs["x_filt"],
+                       outs["P_filt"], outs["x_pred"], outs["P_pred"],
+                       breaks=segment_breaks(outs["track_id"],
+                                             outs["alive"]))
+    e_cpu = np.abs(xs[..., 0:2].numpy() - tr.smoothed).max()
+    e_run = np.abs(outs["smoothed"].numpy() - tr.smoothed).max()
+    moved = np.abs(tr.smoothed - tr.positions)[tr.alive].mean()
+    log(f"  smoothed vs models.rts on the CPU over the card's history: "
+        f"max {e_cpu:.3e} px (bar 1e-3); vs a second card run "
+        f"{e_run:.3e} px; mean |smoothed - filtered| {moved:.3f} px")
+    assert e_cpu < 1e-3 and e_run < 1e-3
+    return per_frame_fps("F", lambda: api.smooth(clip_f, cfg_f, device=dev),
+                         T_F - 1, f"480x854, T={T_F}, K=256; {name}")
+
+
+@phase("path G (bench cfg2's pixel-KF stage through api.flow_sequence, "
+       "480x854 T=33)")
+def path_g(dev, clip_f, cfg_g, counts_by_path, name):
+    """Pair-batched flow of every frame pair, per-pixel KF smoothed; held
+    against models.pixel_ekf on the CPU over the card's raw flows."""
+    from kalman_hydra_tpu_torch import api
+    from kalman_hydra_tpu_torch.models.pixel_ekf import smooth_flow_sequence
+    sm = drive("G", lambda: api.flow_sequence(clip_f, cfg_g, smooth=True,
+                                              device=dev),
+               pair_expected(cfg_g, H_F, W_F, 0, T_F), counts_by_path)
+    raw = api.flow_sequence(clip_f, cfg_g, device=dev)
+    assert sm.shape == raw.shape == (T_F - 1, H_F, W_F, 2)
+    assert np.isfinite(sm).all()
+    ref = smooth_flow_sequence(torch.from_numpy(raw)).numpy()
+    err = np.abs(sm - ref).max()
+    log(f"  smoothed flows vs models.pixel_ekf on the CPU over the card's "
+        f"raw flows: max {err:.3e} px (bar 1e-4); mean |raw flow| "
+        f"{np.linalg.norm(raw, axis=-1).mean():.3f} px")
+    assert err < 1e-4
+    return per_frame_fps("G", lambda: api.flow_sequence(
+        clip_f, cfg_g, smooth=True, device=dev), T_F - 1,
+        f"frame pairs/s, 480x854, T={T_F}; {name}")
 
 
 def profile_path(label, fn, steps, trace_path, clip_s):
@@ -806,14 +1063,44 @@ _KERNELS = {   # wrapper: (CUDA source, TPU entry point it replaces)
     "poly_expansion_planar_batch": ("polyexp.cu", "polyexp_pallas.py:218"),
     "coarse_polyexp_fused_batch": ("level_image.cu",
                                    "level_image_pallas.py:246"),
+    "flow_update": ("flow_update.cu", "flow_update_pallas.py:105"),
+    "coarse_level_images": ("level_image.cu", "level_image_pallas.py:306"),
 }
+
+
+def path_configs(pipeline) -> dict:
+    """The port's configurations of paths A-G (D is RunConfig() itself):
+    D2 is RunConfig() at pe_fused=False; E bench's temporal warm-1 stage
+    (bench.py:718-722); F bench cfg5 (bench.py:842-858, 4-state filter,
+    levels 3, fast_warp 8, bf16, K=256, RTS, pair-batched); G bench
+    cfg2's pixel-KF stage (bench.py:554-563, fast_warp 8, bf16,
+    pair-batched)."""
+    from kalman_hydra_tpu_torch.config import (FlowConfig, RunConfig,
+                                               SmoothConfig, TrackConfig)
+    cfg = pipeline.main_path_config(num_tracks=K)
+    return {
+        "A": cfg,
+        "B": pipeline.pair_path_config(num_tracks=K),
+        "C": cfg.replace(pair_batch=True),
+        "D": RunConfig(),
+        "D2": RunConfig(flow=FlowConfig(pe_fused=False)),
+        "E": cfg.replace(flow=dataclasses.replace(
+            cfg.flow, iterations=1, temporal_init=True)),
+        "F": RunConfig(flow=FlowConfig(levels=3, fast_warp=8,
+                                       bf16_poly=True),
+                       tracks=TrackConfig(num_tracks=256, reinit_every=1),
+                       smooth=SmoothConfig(enabled=True), impl="pallas",
+                       pair_batch=True),
+        "G": RunConfig(flow=FlowConfig(fast_warp=8, bf16_poly=True),
+                       impl="pallas", pair_batch=True),
+    }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="TRACE_JSON", default=None,
-                    help="also profile one warm run of each path and write "
-                         "its Chrome trace beside this name (_A, _B, _C)")
+                    help="also profile one warm run of paths A-D and write "
+                         "each Chrome trace beside this name (_A ... _D)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this check "
@@ -841,15 +1128,15 @@ def main() -> int:
         f"(nvcc {_build.build_seconds if _build.build_seconds else 0:.1f} "
         "s)")
 
-    cfg = pipeline.main_path_config(num_tracks=K)
-    pair_cfg = pipeline.pair_path_config(num_tracks=K)
-    cfg_c = cfg.replace(pair_batch=True)
+    cfgs = path_configs(pipeline)
+    cfg, pair_cfg = cfgs["A"], cfgs["B"]
     t0 = time.perf_counter()
     clip = blob_clip(T, H, W)
     clip_b = blob_clip(T_B, H_B, W_B)
     clips_c = np.stack([blob_clip(T, H, W, seed=s) for s in range(N_CLIPS)])
-    log(f"clips {clip.shape}, {clip_b.shape}, {clips_c.shape} made in "
-        f"{time.perf_counter() - t0:.1f} s")
+    clip_f = blob_clip(T_F, H_F, W_F)
+    log(f"clips {clip.shape}, {clip_b.shape}, {clips_c.shape}, "
+        f"{clip_f.shape} made in {time.perf_counter() - t0:.1f} s")
     gray = grayscale_u8(torch.from_numpy(clip[0]).to(dev))
 
     results: dict = {}
@@ -861,19 +1148,28 @@ def main() -> int:
     check_k5(dev, clip, cfg, results)
     check_k6(dev, clip_b, pair_cfg, results)
     check_k7(dev, clip_b, clips_c, cfg, results)
+    check_k8(dev, clip, cfgs["D"], results)
+    check_k11(dev, gray, cfgs["D2"], results)
     path_a(dev, clip, cfg, counts_by_path)
-    flow_vs_plain(dev, clip, cfg)
+    flow_vs_plain(dev, clip, {k: cfgs[k] for k in ("A", "D", "D2", "E")})
     small_vs_cpu(dev, cfg, pair_cfg)
     walls = {"A": throughput_a(dev, clip, cfg, name),
              "B": path_b(dev, clip_b, pair_cfg, counts_by_path, name),
-             "C": path_c(dev, clips_c, cfg_c, counts_by_path, name)}
+             "C": path_c(dev, clips_c, cfgs["C"], counts_by_path, name),
+             "D": path_d(dev, clip, counts_by_path, name),
+             "D2": path_d2(dev, clip, cfgs["D2"], counts_by_path, name),
+             "E": path_e(dev, clip, cfgs["E"], counts_by_path, name),
+             "F": path_f(dev, clip_f, cfgs["F"], counts_by_path, name),
+             "G": path_g(dev, clip_f, cfgs["G"], counts_by_path, name)}
     if args.profile:
         from kalman_hydra_tpu_torch import api
         runs = {"A": (lambda: api.track_video(clip, cfg, device=dev), T - 1),
                 "B": (lambda: api.track_video(clip_b, pair_cfg, device=dev),
                       T_B - 1),
-                "C": (lambda: api.track_videos(clips_c, cfg_c, device=dev),
-                      N_CLIPS * (T - 1))}
+                "C": (lambda: api.track_videos(clips_c, cfgs["C"],
+                                               device=dev),
+                      N_CLIPS * (T - 1)),
+                "D": (lambda: api.track_video(clip, device=dev), T - 1)}
         trace = Path(args.profile)
         for label, (fn, steps) in runs.items():
             profile_path(label, fn, steps, str(trace.with_name(
@@ -899,6 +1195,8 @@ def main() -> int:
                      "bound_ms": r.get("bound_ms"),
                      "bound_by": r.get("bound_by"),
                      "library_ms": r.get("library_ms")})
+    if set(_KERNELS) != set(kernels.WRAPPERS):
+        FAILURES.append("the kernels line does not list every wrapper")
     if FAILURES:
         log(f"chip_smoke FAILED phases: {FAILURES}")
         return 1

@@ -2,7 +2,8 @@
 
 The tracker has no learned weights: its whole state is the track pool
 (TrackState) plus the per-frame carry (previous gray frame, the cached
-polyexp pyramid, the corner pool, the step counter). Given one
+polyexp pyramid, the corner pool, the step counter, the fixed-lag
+smoother's window and the temporal warm start's previous flow). Given one
 configuration (the port's own RunConfig, which a reference config
 becomes through `RunConfig.from_json(cfg.to_json())`), that state is
 everything both packages need to compute the same next step. The
@@ -52,14 +53,19 @@ def tracks_to_numpy(tracks: TrackState) -> dict:
 
 def carry_to_torch(carry, device) -> Carry:
     """The reference's Carry (tracks, prev_gray, prev_rpyr, corner_cache,
-    frame_idx; NumPy-convertible leaves) -> the port's Carry."""
+    frame_idx, lag_buf, prev_flow; NumPy-convertible leaves) -> the
+    port's Carry."""
     return Carry(
         tracks=tracks_to_torch(carry.tracks, device),
         prev_gray=array_to_torch(carry.prev_gray, device),
         prev_rpyr=tuple(array_to_torch(R, device) for R in carry.prev_rpyr),
         corner_cache=tuple(array_to_torch(a, device)
                            for a in (carry.corner_cache or ())),
-        frame_idx=int(np.asarray(carry.frame_idx)))
+        frame_idx=int(np.asarray(carry.frame_idx)),
+        lag_buf=tuple(array_to_torch(a, device)
+                      for a in (carry.lag_buf or ())),
+        prev_flow=(None if carry.prev_flow is None
+                   else array_to_torch(carry.prev_flow, device)))
 
 
 def carry_to_numpy(carry: Carry) -> dict:
@@ -70,4 +76,7 @@ def carry_to_numpy(carry: Carry) -> dict:
         "corner_cache": tuple(tensor_to_numpy(a)
                               for a in carry.corner_cache),
         "frame_idx": carry.frame_idx,
+        "lag_buf": tuple(tensor_to_numpy(a) for a in carry.lag_buf),
+        "prev_flow": (None if carry.prev_flow is None
+                      else tensor_to_numpy(carry.prev_flow)),
     }

@@ -47,6 +47,34 @@ __device__ __forceinline__ void vlerp(const PT* __restrict__ R1,
            ay * load(R1 + p * plane + rb);
 }
 
+// Step 2 at (r, c), given the warped R1 planes q[5] there: the
+// averaged-matrix normal equations, damped, into M (5, h, w). Shared by
+// the select-sum warp (m_at) and the exact warp (K8, csrc/flow_update.cu).
+template <typename PT>
+__device__ __forceinline__ void normal_eqs_at(const PT* __restrict__ R0,
+                                              const float q[5], float dx,
+                                              float dy, int h, int w, int r,
+                                              int c, float* M) {
+  const long plane = (long)h * w;
+  const long o = (long)r * w + c;
+  float a_xx = (load(R0 + 2 * plane + o) + q[2]) * 0.5f;
+  float a_yy = (load(R0 + 3 * plane + o) + q[3]) * 0.5f;
+  float axy = (load(R0 + 4 * plane + o) + q[4]) * 0.25f;
+  float db_x = (load(R0 + o) - q[0]) * 0.5f + a_xx * dx + axy * dy;
+  float db_y = (load(R0 + plane + o) - q[1]) * 0.5f + axy * dx + a_yy * dy;
+  const float damp = damp1(r, h) * damp1(c, w);
+  a_xx *= damp;
+  a_yy *= damp;
+  axy *= damp;
+  db_x *= damp;
+  db_y *= damp;
+  M[o] = a_xx * a_xx + axy * axy;
+  M[plane + o] = (a_xx + a_yy) * axy;
+  M[2 * plane + o] = a_yy * a_yy + axy * axy;
+  M[3 * plane + o] = a_xx * db_x + axy * db_y;
+  M[4 * plane + o] = axy * db_x + a_yy * db_y;
+}
+
 // Phase 1 at (r, c): warp R1 by `flow` (2, h, w), write M (5, h, w).
 template <typename PT>
 __device__ __forceinline__ void m_at(const PT* __restrict__ R0,
@@ -67,23 +95,7 @@ __device__ __forceinline__ void m_at(const PT* __restrict__ R0,
 #pragma unroll
   for (int p = 0; p < 5; ++p)
     q[p] = (1.f - ax) * va[p] + ax * vb[p];   // warped R1 plane p
-
-  float a_xx = (load(R0 + 2 * plane + o) + q[2]) * 0.5f;
-  float a_yy = (load(R0 + 3 * plane + o) + q[3]) * 0.5f;
-  float axy = (load(R0 + 4 * plane + o) + q[4]) * 0.25f;
-  float db_x = (load(R0 + o) - q[0]) * 0.5f + a_xx * dx + axy * dy;
-  float db_y = (load(R0 + plane + o) - q[1]) * 0.5f + axy * dx + a_yy * dy;
-  const float damp = damp1(r, h) * damp1(c, w);
-  a_xx *= damp;
-  a_yy *= damp;
-  axy *= damp;
-  db_x *= damp;
-  db_y *= damp;
-  M[o] = a_xx * a_xx + axy * axy;
-  M[plane + o] = (a_xx + a_yy) * axy;
-  M[2 * plane + o] = a_yy * a_yy + axy * axy;
-  M[3 * plane + o] = a_xx * db_x + axy * db_y;
-  M[4 * plane + o] = axy * db_x + a_yy * db_y;
+  normal_eqs_at(R0, q, dx, dy, h, w, r, c, M);
 }
 
 // Phase 2 at (r, c): Mv[p, r, c] = sum_k wts[k] * M[p, clamp(r + k - bw), c]

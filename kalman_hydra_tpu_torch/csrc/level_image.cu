@@ -1,5 +1,6 @@
 // K4 and K7b: coarse Farneback level images + their polynomial expansion,
-// for one frame (K4) or a stack of N frames (K7b).
+// for one frame (K4) or a stack of N frames (K7b); K11 (at the end): the
+// level images alone.
 //
 // Replaces kalman_hydra_tpu/kernels/level_image_pallas.py::
 // coarse_polyexp_fused (_levels_polyexp_kernel) and
@@ -95,4 +96,31 @@ KH_API int kh_level_polyexp(const void* img, int frames, int h, int w,
                             ho - 2 * n, wo - 2 * n,
                             static_cast<const float*>(taps_host), n,
                             out_bf16, frames, out, s);
+}
+
+// K11: one coarse level image of one frame, with no polyexp. Replaces
+// level_image_pallas.py::farneback_images_pallas (_levels_kernel), whose
+// two MXU band products V_k . img . H_k^T per level are the same composed
+// weights as above at padding 0 (level_tables(..., n=0) is the unpadded
+// _band_mats). Bound on Hopper: memory; a 1080p frame's five coarse levels
+// must read the 8.3 MB image and write 2.8 MB (3.3 us at 3.35 TB/s), and
+// the image is re-read from L2 per level. img (h, w) f32; vertical table
+// (lh, tv), horizontal table (lw, th); scratch tmp (lh, w) f32; out
+// (lh, lw) f32.
+KH_API int kh_level_images(const void* img, int h, int w, const void* iv,
+                           const void* wv, int tv, int lh, const void* ih,
+                           const void* wh, int th, int lw, void* tmp,
+                           void* out, void* stream) {
+  if (lh <= 0 || lw <= 0 || lh > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  level_vpass<<<dim3(kh::cdiv(w, kThreads), lh, 1), kThreads, 0, s>>>(
+      static_cast<const float*>(img), h, w, static_cast<const int*>(iv),
+      static_cast<const float*>(wv), tv, static_cast<float*>(tmp));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  level_hpass<<<dim3(kh::cdiv(lw, kThreads), lh, 1), kThreads, 0, s>>>(
+      static_cast<const float*>(tmp), w, static_cast<const int*>(ih),
+      static_cast<const float*>(wh), th, lw, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,8 @@
 | flow_iter.flow_iter_pairs (K6) | csrc/flow_iter.cu | flow_iter_pallas.py::flow_iter_pairs |
 | polyexp.poly_expansion_planar_batch (K7a) | csrc/polyexp.cu | polyexp_pallas.py::poly_expansion_planar_batch |
 | level_image.coarse_polyexp_fused_batch (K7b) | csrc/level_image.cu | level_image_pallas.py::coarse_polyexp_fused_batch |
+| flow_update.flow_update (K8) | csrc/flow_update.cu | flow_update_pallas.py::flow_update |
+| level_image.coarse_level_images (K11) | csrc/level_image.cu | level_image_pallas.py::farneback_images_pallas |
 
 Each wrapper dispatches by device: a CPU tensor takes the plain PyTorch
 version beside it, a CUDA tensor launches the kernel or raises. Each
@@ -22,7 +24,9 @@ from __future__ import annotations
 from .ekf import ekf_fused_step
 from .flow_iter import flow_iter, flow_iter_pairs
 from .flow_level import flow_level
-from .level_image import coarse_polyexp_fused, coarse_polyexp_fused_batch
+from .flow_update import flow_update
+from .level_image import (coarse_level_images, coarse_polyexp_fused,
+                          coarse_polyexp_fused_batch)
 from .polyexp import poly_expansion_planar, poly_expansion_planar_batch
 
 WRAPPERS = {
@@ -34,6 +38,8 @@ WRAPPERS = {
     "flow_iter_pairs": flow_iter_pairs,
     "poly_expansion_planar_batch": poly_expansion_planar_batch,
     "coarse_polyexp_fused_batch": coarse_polyexp_fused_batch,
+    "flow_update": flow_update,
+    "coarse_level_images": coarse_level_images,
 }
 
 

@@ -52,13 +52,16 @@ def window_weights(winsize: int, gaussian: bool):
     return np.full(n, np.float32(1.0 / n), np.float32), 1.0
 
 
-def _damp(n: int, device) -> torch.Tensor:
-    i = np.arange(n)
-    d = np.minimum(i, n - 1 - i)
-    s = np.where(d < len(_BORDER_SCALE),
-                 _BORDER_SCALE[np.minimum(d, len(_BORDER_SCALE) - 1)],
-                 np.float32(1.0)).astype(np.float32)
-    return torch.as_tensor(s, device=device)
+def border_damp(h: int, w: int, device) -> torch.Tensor:
+    """(h, w) f32 multiplicative taper of the normal equations."""
+    def axis(n):
+        i = np.arange(n)
+        d = np.minimum(i, n - 1 - i)
+        s = np.where(d < len(_BORDER_SCALE),
+                     _BORDER_SCALE[np.minimum(d, len(_BORDER_SCALE) - 1)],
+                     np.float32(1.0)).astype(np.float32)
+        return torch.as_tensor(s, device=device)
+    return axis(h)[:, None] * axis(w)[None, :]
 
 
 def flow_iter_plain(R0, R1, flow, winsize: int, max_disp: int,
@@ -83,20 +86,27 @@ def flow_iter_plain(R0, R1, flow, winsize: int, max_disp: int,
     cb = torch.clamp(cols + xf.to(torch.int64) + 1, 0, w - 1)
     R1w = ((1 - ax) * v.gather(2, ca.expand(5, h, w))
            + ax * v.gather(2, cb.expand(5, h, w)))
+    return solve_warped(R0, R1w, flow, *window_weights(winsize,
+                                                       bool(gaussian)))
 
+
+def solve_warped(R0, R1w, flow, wts, post: float) -> torch.Tensor:
+    """Steps 2-4 of an iteration, given R1 already warped: the damped
+    normal equations, the window `wts` (then `post`) over M with a
+    replicate border, the 2x2 solve. The plain arithmetic of K2 and K8."""
+    _, h, w = R0.shape
+    dx, dy = flow[0], flow[1]
     a_xx = (R0[2] + R1w[2]) * 0.5
     a_yy = (R0[3] + R1w[3]) * 0.5
     axy = (R0[4] + R1w[4]) * 0.25
     db_x = (R0[0] - R1w[0]) * 0.5 + a_xx * dx + axy * dy
     db_y = (R0[1] - R1w[1]) * 0.5 + axy * dx + a_yy * dy
-    damp = _damp(h, dev)[:, None] * _damp(w, dev)[None, :]
+    damp = border_damp(h, w, R0.device)
     a_xx, a_yy, axy, db_x, db_y = (t * damp
                                    for t in (a_xx, a_yy, axy, db_x, db_y))
     M = torch.stack([a_xx * a_xx + axy * axy, (a_xx + a_yy) * axy,
                      a_yy * a_yy + axy * axy, a_xx * db_x + axy * db_y,
                      axy * db_x + a_yy * db_y])
-
-    wts, post = window_weights(winsize, bool(gaussian))
     bw = len(wts) // 2
     Mp = pad1d(M, bw, bw, 1, "replicate")
     Mv = sum(float(wk) * Mp[:, k:k + h, :] for k, wk in enumerate(wts))

@@ -1,5 +1,6 @@
 """K4 and K7b wrappers: coarse Farneback level images + polyexp of one
-frame or of a frame stack (csrc/level_image.cu).
+frame or of a frame stack; K11: the level images alone
+(csrc/level_image.cu).
 
 K4 replaces kalman_hydra_tpu/kernels/level_image_pallas.py::
 coarse_polyexp_fused. For every coarse plan entry (k >= 1, coarsest
@@ -18,6 +19,13 @@ version too), which builds the level images stage by stage
 (ops.pyramid.farneback_images: full-res blur, then resize) — an
 independent route to the same values. CUDA tensors launch the kernel per
 level, or raise.
+
+K11 (`coarse_level_images`) replaces ::farneback_images_pallas: the same
+level images at padding 0 (the reference's unpadded _band_mats), with no
+polyexp, each (lh, lw) f32, coarse levels only (level 0, the 3-tap blur,
+stays plain torch as the reference leaves it to XLA). Its plain version
+is `coarse_level_images_plain`, the coarse entries of
+ops.pyramid.farneback_images.
 """
 
 from __future__ import annotations
@@ -174,3 +182,35 @@ def coarse_polyexp_fused_batch(imgs: torch.Tensor, levels: int,
 
 
 coarse_polyexp_fused_batch.launches = 0
+
+
+def coarse_level_images_plain(img: torch.Tensor, levels: int,
+                              pyr_scale: float):
+    return farneback_images(img, levels, pyr_scale)[:-1]      # k >= 1
+
+
+def coarse_level_images(img: torch.Tensor, levels: int, pyr_scale: float):
+    """(H, W) image -> list of (lh, lw) f32 level images, coarse levels
+    only, coarsest first."""
+    if img.device.type == "cpu":
+        return coarse_level_images_plain(img, levels, pyr_scale)
+    _build.require(img, "img", (torch.float32,), 2)
+    h, w = img.shape
+    P, I = _build.P, _build.I
+    fn = _build.function("kh_level_images", P, I, I, P, P, I, I, P, P, I, I,
+                         P, P, P)
+    outs = []
+    for (lh, lw, iv, wv, ih, wh) in _tables_on(img.device, h, w, levels,
+                                                pyr_scale, 0):
+        tmp = torch.empty((lh, w), dtype=torch.float32, device=img.device)
+        out = torch.empty((lh, lw), dtype=torch.float32, device=img.device)
+        rc = fn(img.data_ptr(), h, w, iv.data_ptr(), wv.data_ptr(),
+                iv.shape[1], lh, ih.data_ptr(), wh.data_ptr(), ih.shape[1],
+                lw, tmp.data_ptr(), out.data_ptr(), _build.stream(img))
+        _build.check(rc, "kh_level_images")
+        outs.append(out)
+    coarse_level_images.launches += 1
+    return outs
+
+
+coarse_level_images.launches = 0

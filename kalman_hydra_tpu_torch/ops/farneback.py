@@ -1,32 +1,41 @@
 """Dense Farneback optical flow from polyexp pyramids (port of the
-impl="pallas", fast_warp > 0 branches of kalman_hydra_tpu/ops/farneback.py).
+impl="pallas" branches of kalman_hydra_tpu/ops/farneback.py).
 
-Per frame: `polyexp_pyramid` expands every level (coarse levels through
-K4, the full-res level through K3 after its 3-tap blur); per frame pair:
+Per frame: `polyexp_pyramid` expands every level: with `pe_fused` (the
+default) the coarse levels through K4 and the full-res level through K3
+after its 3-tap blur; with `pe_fused=False` the coarse level images
+through K11, then K3 on every level. Per frame pair:
 `farneback_from_pyramids` runs each level coarsest first, upsampling the
-flow by 1/pyr_scale between levels. With `fi_level_fused`, a level that
-passes K5's gate (`kernels.flow_level.fits`) runs all its iterations in
-one K5 launch; every other level runs `iterations` K2 launches.
+flow by 1/pyr_scale between levels, from zeros or from a warm start
+`flow0` at the coarsest level. At `fast_warp=0` (the reference's
+`RunConfig()` default) every iteration is the exact bilinear gather of
+`warp_poly_planar`, in plain torch as the reference leaves it to XLA,
+then one K8 launch. At `fast_warp > 0`, with `fi_level_fused`, a level
+that passes K5's gate (`kernels.flow_level.fits`) runs all its
+iterations in one K5 launch; every other level runs `iterations` K2
+launches.
 
 The pair-batched twins serve a whole clip, or several chained clips, at
 once: `polyexp_pyramid_batch` expands every frame in one K7b and one K7a
-launch, and `farneback_pairs_from_pyramids` runs each iteration of a
-level as one K6 launch over all frame pairs. The whole stack stays on
-the card; the TPU's chunks of at most 33 frames (a VMEM limit) are not
+launch (per frame at `pe_fused=False`), and
+`farneback_pairs_from_pyramids` runs each iteration of a level as one K6
+launch over all frame pairs (fast_warp > 0 only). The whole stack stays
+on the card; the TPU's chunks of at most 33 frames (a VMEM limit) are not
 ported. Flow is carried planar, (2, lh, lw); the public result is
 (H, W, 2).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..config import FlowConfig
 from ..kernels.flow_iter import flow_iter, flow_iter_pairs, pair_count
 from ..kernels.flow_level import fits, flow_level
-from ..kernels.level_image import (coarse_polyexp_fused,
+from ..kernels.flow_update import flow_update
+from ..kernels.level_image import (coarse_level_images, coarse_polyexp_fused,
                                    coarse_polyexp_fused_batch)
 from ..kernels.polyexp import (poly_expansion_planar,
                                poly_expansion_planar_batch)
@@ -42,38 +51,88 @@ def polyexp_pyramid(img: torch.Tensor,
     """(H, W) f32 frame -> per-level (5, lh, lw) planes, coarsest first,
     in bf16 when cfg.bf16_poly."""
     dt = _plane_dtype(cfg)
-    coarse = coarse_polyexp_fused(img, cfg.levels, cfg.pyr_scale,
-                                  cfg.poly_n, cfg.poly_sigma, out_dtype=dt)
     img0 = gaussian_blur_level(img, cfg, k=0)
-    return tuple(coarse) + (poly_expansion_planar(img0, cfg.poly_n,
-                                                  cfg.poly_sigma,
-                                                  out_dtype=dt),)
+    n, s = cfg.poly_n, cfg.poly_sigma
+    if not cfg.pe_fused:
+        imgs = coarse_level_images(img, cfg.levels, cfg.pyr_scale) + [img0]
+        return tuple(poly_expansion_planar(i, n, s, out_dtype=dt)
+                     for i in imgs)
+    coarse = coarse_polyexp_fused(img, cfg.levels, cfg.pyr_scale, n, s,
+                                  out_dtype=dt)
+    return tuple(coarse) + (poly_expansion_planar(img0, n, s, out_dtype=dt),)
 
 
-def farneback_from_pyramids(Rs_a, Rs_b, cfg: FlowConfig) -> torch.Tensor:
-    """Flow prev -> next, (H, W, 2) f32, from two polyexp pyramids."""
+def warp_poly_planar(R1: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Exact bilinear warp of (5, h, w) planes by a (2, h, w) flow: the
+    sample point is clamped to the image, its top-left corner to
+    [0, w - 2] x [0, h - 2] (so the last column lerps with ax = 1). bf16
+    planes are promoted to f32 by the f32 weights."""
+    h, w = R1.shape[1], R1.shape[2]
+    dev = R1.device
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    fx = torch.clamp(xs + flow[0], 0.0, w - 1.0)
+    fy = torch.clamp(ys + flow[1], 0.0, h - 1.0)
+    x0 = torch.clamp(torch.floor(fx), 0, w - 2).to(torch.int64)
+    y0 = torch.clamp(torch.floor(fy), 0, h - 2).to(torch.int64)
+    ax = (fx - x0.to(torch.float32))[None]
+    ay = (fy - y0.to(torch.float32))[None]
+    r00 = R1[:, y0, x0]
+    r01 = R1[:, y0, x0 + 1]
+    r10 = R1[:, y0 + 1, x0]
+    r11 = R1[:, y0 + 1, x0 + 1]
+    return (r00 * (1 - ax) * (1 - ay) + r01 * ax * (1 - ay)
+            + r10 * (1 - ax) * ay + r11 * ax * ay)
+
+
+def farneback_from_pyramids(Rs_a, Rs_b, cfg: FlowConfig,
+                            flow0: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Flow prev -> next, (H, W, 2) f32, from two polyexp pyramids.
+    `flow0` (H, W, 2) seeds the coarsest level, resized and scaled by
+    pyr_scale ** (levels in the plan - 1) (cv2 OPTFLOW_USE_INITIAL_FLOW)."""
     flow_p = None
     for R0, R1 in zip(Rs_a, Rs_b):
         lh, lw = R0.shape[1], R0.shape[2]
-        if flow_p is None:
+        if flow_p is not None:
+            flow_p = resize_linear(flow_p, lh, lw) * (1.0 / cfg.pyr_scale)
+        elif flow0 is not None:
+            flow_p = (resize_linear(flow0.movedim(-1, 0), lh, lw)
+                      * (cfg.pyr_scale ** (len(Rs_a) - 1)))
+        else:
             flow_p = torch.zeros((2, lh, lw), dtype=torch.float32,
                                  device=R0.device)
-        else:
-            flow_p = resize_linear(flow_p, lh, lw) * (1.0 / cfg.pyr_scale)
-        if cfg.fi_level_fused and fits(lh, lw, R0.element_size()):
+        if cfg.fast_warp <= 0:
+            R0f = R0.to(torch.float32)
+            for _ in range(cfg.iterations):
+                flow_p = flow_update(R0f, warp_poly_planar(R1, flow_p),
+                                     flow_p, cfg.winsize, cfg.gaussian_win)
+        elif cfg.fi_level_fused and fits(lh, lw, R0.element_size()):
             flow_p = flow_level(R0, R1, flow_p, cfg.winsize, cfg.fast_warp,
                                 cfg.iterations, cfg.gaussian_win)
-            continue
-        for _ in range(cfg.iterations):
-            flow_p = flow_iter(R0, R1, flow_p, cfg.winsize, cfg.fast_warp,
-                               cfg.gaussian_win)
+        else:
+            for _ in range(cfg.iterations):
+                flow_p = flow_iter(R0, R1, flow_p, cfg.winsize,
+                                   cfg.fast_warp, cfg.gaussian_win)
     return flow_p.movedim(0, -1)
+
+
+def farneback(prev: torch.Tensor, nxt: torch.Tensor, cfg: FlowConfig,
+              flow0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense flow prev -> next of two (H, W) f32 gray frames, (H, W, 2)
+    f32, channel 0 = x."""
+    return farneback_from_pyramids(polyexp_pyramid(prev, cfg),
+                                   polyexp_pyramid(nxt, cfg), cfg, flow0)
 
 
 def polyexp_pyramid_batch(grays: torch.Tensor,
                           cfg: FlowConfig) -> Tuple[torch.Tensor, ...]:
     """(N, H, W) f32 frames -> per-level (N, 5, lh, lw) planes, coarsest
-    first; per frame the same values as `polyexp_pyramid`."""
+    first; per frame the same values as `polyexp_pyramid`, which it runs
+    frame by frame at pe_fused=False (as the reference does)."""
+    if not cfg.pe_fused:
+        pyrs = [polyexp_pyramid(g, cfg) for g in grays]
+        return tuple(torch.stack(lv) for lv in zip(*pyrs))
     dt = _plane_dtype(cfg)
     coarse = coarse_polyexp_fused_batch(grays, cfg.levels, cfg.pyr_scale,
                                         cfg.poly_n, cfg.poly_sigma,
@@ -91,7 +150,12 @@ def farneback_pairs_from_pyramids(Rs_all, cfg: FlowConfig,
     p = b, or p = b + b // (clip_len - 1) when clip_len = T chains clips
     of T frames (N = C T, B = C (T - 1)). Per pair the same values as
     `farneback_from_pyramids` at fi_level_fused=False (the reference's
-    pair path has no whole-level kernel either)."""
+    pair path has no whole-level kernel either). fast_warp > 0 only: the
+    reference computes the exact-warp pair path in plain XLA, which is
+    not ported (pipeline.check_slice refuses it)."""
+    if cfg.fast_warp <= 0:
+        raise NotImplementedError("pair-batched flow at fast_warp=0 is "
+                                  "outside the ported slice (ROADMAP P8b)")
     B = pair_count(Rs_all[0].shape[0], clip_len)
     flow_b = None
     for Rl in Rs_all:

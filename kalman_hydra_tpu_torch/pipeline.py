@@ -2,10 +2,14 @@
 kalman_hydra_tpu/pipeline.py).
 
 Per-frame path (`track_arrays`): grayscale -> polyexp pyramid (K4 coarse
-levels, K3 full res) -> Farneback from the cached previous pyramid (K5 on
-the levels under its gate with `fi_level_fused`, K2 elsewhere) -> sample
-the flow at the tracks -> fused predict + update (K1) -> gate, kill,
-reseed from a corner pool refreshed every `reinit_every` frames.
+levels and K3 full res; or K11 level images then K3 on every level at
+pe_fused=False) -> Farneback from the cached previous pyramid, warm-started
+from the previous pair's flow with `temporal_init` (K8 after the exact
+gather at fast_warp=0, the reference's default; else K5 on the levels
+under its gate with `fi_level_fused`, K2 elsewhere) -> sample the flow at
+the tracks -> fused predict + update (K1) -> gate, kill, reseed from a
+corner pool refreshed every `reinit_every` frames. `init_velocity` primes
+the seeds' velocities from a cold frame 0 -> 1 flow.
 
 Pair-batched path (`RunConfig.pair_batch`, `track_arrays_pairflow`): the
 polyexp pyramids of every frame (K7b, K7a) and the flow of every frame
@@ -13,6 +17,13 @@ pair (K6, one launch per level iteration) first, then the same
 EKF/lifecycle steps over the precomputed fields. `track_clips_pairflow`
 chains several clips through the same launches (`clip_len`), then filters
 each clip in turn (a loop over clips where the reference vmaps).
+
+Smoothing (`RunConfig.smooth`, models/rts.py) runs on every path: a
+monolithic RTS over the filter history, or with `lag` an online
+fixed-lag smoother in each step and one RTS over the final window; with
+`chunk` (and no lag) `track_clip` keeps the history in host memory and
+smooths it a chunk at a time. `flow_sequence` is the flow of every frame
+pair, optionally per-pixel KF smoothed (models/pixel_ekf.py).
 
 The reference's `lax.scan` is a Python loop here and its `lax.cond`
 refresh cadence a plain `if`; the clip stays on the device and only the
@@ -26,7 +37,8 @@ pe_tile_h) are ignored.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+import dataclasses
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,11 +48,18 @@ from .config import EkfConfig, FlowConfig, RunConfig, TrackConfig
 from .io import Trajectories
 from .models import dynamics, lifecycle
 from .models.ekf import TrackState, ekf_step, init_tracks
+from .models.pixel_ekf import PixelEkfParams, smooth_flow_sequence
+from .models.rts import (fixed_lag_smooth, rts_smooth, rts_smooth_chunked,
+                         segment_breaks)
 from .ops.color import grayscale_u8
 from .ops.farneback import (farneback_from_pyramids,
                             farneback_pairs_from_pyramids, polyexp_pyramid,
                             polyexp_pyramid_batch)
 from .ops.features import corner_pool
+from .ops.warp import sample_flow
+
+_ROWS = ("pos", "alive", "nis", "track_id")
+_HISTORY = ("x_filt", "P_filt", "x_pred", "P_pred")
 
 
 class Carry(NamedTuple):
@@ -49,6 +68,27 @@ class Carry(NamedTuple):
     prev_rpyr: Tuple = ()       # cached polyexp pyramid of prev_gray
     corner_cache: Tuple = ()    # (pts, score) pool reused between refreshes
     frame_idx: int = 0          # filter steps taken (reinit_every cadence)
+    lag_buf: Tuple = ()         # (xf, Pf, xp, Pp, tid, alive) windows,
+    #                             oldest first, only with smooth.lag > 0
+    prev_flow: Optional[torch.Tensor] = None  # (H, W, 2) previous pair's
+    #                                          flow, only with temporal_init
+
+
+def _lag_buf_init(state: TrackState, lag: int) -> Tuple:
+    """The fixed-lag window primed with the seed state replicated (same
+    track ids and alive mask everywhere: no artificial segment breaks)."""
+    return tuple(a[None].expand((lag + 1,) + a.shape)
+                 for a in (state.x, state.P, state.x, state.P,
+                           state.track_id, state.alive))
+
+
+def _lag_buf_push(buf: Tuple, state: TrackState, x_pred, P_pred) -> Tuple:
+    new = (state.x, state.P, x_pred, P_pred, state.track_id, state.alive)
+    return tuple(torch.cat([b[1:], n[None]]) for b, n in zip(buf, new))
+
+
+def _lag(cfg: RunConfig) -> int:
+    return cfg.smooth.lag if cfg.smooth.enabled else 0
 
 
 def main_path_config(num_tracks: int = 1024) -> RunConfig:
@@ -79,22 +119,24 @@ def pair_path_config(num_tracks: int = 1024) -> RunConfig:
         impl="pallas", pair_batch=True)
 
 
-def check_slice(cfg: RunConfig) -> None:
-    """Raise NotImplementedError for any setting outside the ported slice."""
+def check_slice(cfg: RunConfig, flow_only: bool = False) -> None:
+    """Raise NotImplementedError for any setting outside the ported slice
+    (with flow_only, for the settings that the flow of `flow_sequence`
+    reads)."""
     f, e, t = cfg.flow, cfg.ekf, cfg.tracks
-    outside = (
+    outside = [
         (f.method != "farneback", f"flow.method={f.method!r} (ROADMAP P10)"),
         (f.fi_pipeline, "flow.fi_pipeline=True (ROADMAP K13)"),
-        (f.fast_warp <= 0, "flow.fast_warp=0, the exact warp (ROADMAP K8)"),
-        (not f.pe_fused, "flow.pe_fused=False (ROADMAP K11)"),
-        (f.temporal_init, "flow.temporal_init (ROADMAP P9)"),
-        (cfg.smooth.enabled, "smoothing (ROADMAP P7)"),
-        (t.init_velocity, "tracks.init_velocity (ROADMAP P9)"),
-        (t.seed_in_body, "tracks.seed_in_body (ROADMAP P11)"),
-        (e.adaptive_q > 0, "ekf.adaptive_q (ROADMAP P11)"),
-        (e.measurement != "position",
-         f"ekf.measurement={e.measurement!r} (ROADMAP P11)"),
-    )
+        (cfg.pair_batch and f.fast_warp <= 0,
+         "pair_batch with flow.fast_warp=0, the exact warp (ROADMAP P8b)"),
+    ]
+    if not flow_only:
+        outside += [
+            (t.seed_in_body, "tracks.seed_in_body (ROADMAP P11)"),
+            (e.adaptive_q > 0, "ekf.adaptive_q (ROADMAP P11)"),
+            (e.measurement != "position",
+             f"ekf.measurement={e.measurement!r} (ROADMAP P11)"),
+        ]
     for bad, what in outside:
         if bad:
             raise NotImplementedError(
@@ -103,7 +145,8 @@ def check_slice(cfg: RunConfig) -> None:
 
 def init_from_frame(frame0: torch.Tensor, cfg: RunConfig) -> Carry:
     """Seed the track pool from frame 0's corner pool and cache its
-    polyexp pyramid (and, with reinit_every > 1, its corner pool)."""
+    polyexp pyramid (and, with reinit_every > 1, its corner pool); prime
+    the fixed-lag window and the cold warm-start field where configured."""
     gray0 = grayscale_u8(frame0)
     pts, score = corner_pool(gray0, cfg.tracks,
                              pool_size=cfg.tracks.num_tracks)
@@ -111,20 +154,47 @@ def init_from_frame(frame0: torch.Tensor, cfg: RunConfig) -> Carry:
     corner_cache = ()
     if cfg.tracks.reinit and cfg.tracks.reinit_every > 1:
         corner_cache = corner_pool(gray0, cfg.tracks)
+    lag_buf = _lag_buf_init(state, _lag(cfg)) if _lag(cfg) else ()
+    # pair 0 -> 1 is a cold start (zeros == cv2 USE_INITIAL_FLOW with a
+    # zero field)
+    prev_flow = (torch.zeros(gray0.shape + (2,), dtype=torch.float32,
+                             device=gray0.device)
+                 if cfg.flow.temporal_init else None)
     return Carry(tracks=state, prev_gray=gray0,
                  prev_rpyr=polyexp_pyramid(gray0, cfg.flow),
-                 corner_cache=corner_cache, frame_idx=0)
+                 corner_cache=corner_cache, frame_idx=0, lag_buf=lag_buf,
+                 prev_flow=prev_flow)
+
+
+def _with_velocity(state: TrackState, flow: torch.Tensor,
+                   cfg: EkfConfig) -> TrackState:
+    """The seeds' velocities set to the flow at them over dt."""
+    x = state.x.clone()
+    x[:, 2:4] = sample_flow(flow, state.x[:, 0:2]) / cfg.dt
+    return state._replace(x=x)
+
+
+def _prime_init_velocity(carry0: Carry, frame1: torch.Tensor,
+                         cfg: RunConfig) -> Carry:
+    """Prime track velocities with the cold frame 0 -> 1 flow at the
+    seeds (TrackConfig.init_velocity), reusing frame 0's cached pyramid;
+    prev_flow is left as it was."""
+    rpyr1 = polyexp_pyramid(grayscale_u8(frame1), cfg.flow)
+    flow01 = farneback_from_pyramids(carry0.prev_rpyr, rpyr1, cfg.flow)
+    return carry0._replace(tracks=_with_velocity(carry0.tracks, flow01,
+                                                 cfg.ekf))
 
 
 def make_flow_scan_step(cfg: RunConfig, device):
     """EKF/lifecycle step over a given dense flow field:
-    (tracks, flow (H, W, 2), corner pool (pts, score) or None) ->
-    (tracks, out). The tail of both the per-frame and the pair-batched
-    paths."""
+    (tracks, lag_buf, flow (H, W, 2), corner pool (pts, score) or None)
+    -> (tracks, lag_buf, out). The tail of both the per-frame and the
+    pair-batched paths; with smooth.lag it also pushes the fixed-lag
+    window and emits the smoothed position of the frame leaving it."""
     F = torch.as_tensor(dynamics.transition(cfg.ekf), device=device)
     Q = torch.as_tensor(dynamics.process_noise(cfg.ekf), device=device)
 
-    def step(tracks: TrackState, flow: torch.Tensor, pool):
+    def step(tracks: TrackState, lag_buf: Tuple, flow: torch.Tensor, pool):
         h, w = flow.shape[0], flow.shape[1]
         state, aux = ekf_step(tracks, flow, cfg.ekf, F, Q)
         state = lifecycle.gate(state, aux["x_pred"], aux["P_pred"],
@@ -133,8 +203,14 @@ def make_flow_scan_step(cfg: RunConfig, device):
         if cfg.tracks.reinit:
             state = lifecycle.reseed(state, *pool, cfg.ekf, cfg.tracks)
         out = {"pos": state.x[:, 0:2], "alive": state.alive,
-               "nis": aux["nis"], "track_id": state.track_id}
-        return state, out
+               "nis": aux["nis"], "track_id": state.track_id,
+               "x_filt": state.x, "P_filt": state.P,
+               "x_pred": aux["x_pred"], "P_pred": aux["P_pred"]}
+        if _lag(cfg):
+            lag_buf = _lag_buf_push(lag_buf, state, aux["x_pred"],
+                                    aux["P_pred"])
+            out["smoothed_lag"] = fixed_lag_smooth(F, *lag_buf)[0][:, 0:2]
+        return state, lag_buf, out
 
     return step
 
@@ -146,7 +222,8 @@ def make_step(cfg: RunConfig, device):
     def step(carry: Carry, frame: torch.Tensor):
         gray = grayscale_u8(frame)
         rpyr = polyexp_pyramid(gray, cfg.flow)
-        flow = farneback_from_pyramids(carry.prev_rpyr, rpyr, cfg.flow)
+        flow = farneback_from_pyramids(carry.prev_rpyr, rpyr, cfg.flow,
+                                       flow0=carry.prev_flow)
         corner_cache = carry.corner_cache
         frame_idx = carry.frame_idx + 1
         pool = None
@@ -157,38 +234,88 @@ def make_step(cfg: RunConfig, device):
                 if frame_idx % cfg.tracks.reinit_every == 0:
                     corner_cache = corner_pool(gray, cfg.tracks)
                 pool = corner_cache
-        state, out = filter_step(carry.tracks, flow, pool)
+        state, lag_buf, out = filter_step(carry.tracks, carry.lag_buf, flow,
+                                          pool)
+        # temporal warm start: this pair's flow seeds the next pair's
+        # coarsest level
+        prev_flow = None if carry.prev_flow is None else flow
         return Carry(tracks=state, prev_gray=gray, prev_rpyr=rpyr,
-                     corner_cache=corner_cache, frame_idx=frame_idx), out
+                     corner_cache=corner_cache, frame_idx=frame_idx,
+                     lag_buf=lag_buf, prev_flow=prev_flow), out
 
     return step
 
 
-def _finalize_track_outputs(state0: TrackState, rows: List[dict]) -> dict:
-    """Prepend the frame-0 row (the seeded state, nis 0) to the per-step
-    rows and stack over T; the output tail of both paths (smoothing is
-    ROADMAP P7)."""
+def _finalize_track_outputs(state0: TrackState, final_lag_buf: Tuple,
+                            rows: List[dict], cfg: RunConfig,
+                            with_history: bool) -> dict:
+    """Prepend the frame-0 row (the seeded state, nis 0, x_pred = x0,
+    P_pred = P0) to the per-step rows, stack over T and run the configured
+    smoother; the output tail of both paths."""
     first = {"pos": state0.x[:, 0:2], "alive": state0.alive,
              "nis": torch.zeros_like(state0.x[:, 0]),
-             "track_id": state0.track_id}
-    return {k: torch.stack([first[k]] + [r[k] for r in rows])
-            for k in first}
+             "track_id": state0.track_id, "x_filt": state0.x,
+             "P_filt": state0.P, "x_pred": state0.x, "P_pred": state0.P,
+             "smoothed_lag": state0.x[:, 0:2]}
+    lag = _lag(cfg)
+    keys = _ROWS
+    if with_history or (cfg.smooth.enabled and not lag):
+        keys += _HISTORY
+    if lag:
+        keys += ("smoothed_lag",)
+    outs = {k: torch.stack([first[k]] + [r[k] for r in rows]) for k in keys}
+    F = torch.as_tensor(dynamics.transition(cfg.ekf),
+                        device=state0.x.device)
+    if lag:
+        # frames 0..T-1-L come from the per-step emissions (step t smoothed
+        # frame t - L), the last L from one RTS over the final window,
+        # whose entry i is frame T-1-L+i
+        T = outs["pos"].shape[0]
+        xf, Pf, xp, Pp, tid, alive = final_lag_buf
+        xs_tail, _ = rts_smooth(F, xf, Pf, xp, Pp,
+                                breaks=segment_breaks(tid, alive))
+        if T > lag:
+            outs["smoothed"] = torch.cat([outs["smoothed_lag"][lag:],
+                                          xs_tail[1:, :, 0:2]])
+        else:
+            outs["smoothed"] = xs_tail[lag + 1 - T:, :, 0:2]
+    elif cfg.smooth.enabled:
+        xs, _ = rts_smooth(F, outs["x_filt"], outs["P_filt"],
+                           outs["x_pred"], outs["P_pred"],
+                           breaks=segment_breaks(outs["track_id"],
+                                                 outs["alive"]))
+        outs["smoothed"] = xs[..., 0:2]
+    if not with_history:
+        outs = {k: v for k, v in outs.items() if k in _ROWS + ("smoothed",)}
+    return outs
 
 
-def track_arrays(frames: torch.Tensor, cfg: RunConfig) -> dict:
-    """(T, H, W[, 3]) frame tensor -> {"pos", "alive", "nis", "track_id"}
-    stacked over T (row 0 is the seeded state, nis 0)."""
+def track_arrays(frames: torch.Tensor, cfg: RunConfig,
+                 with_history: bool = False,
+                 seeds: Optional[torch.Tensor] = None) -> dict:
+    """(T, H, W[, 3]) frame tensor -> {"pos", "alive", "nis", "track_id"
+    [, "smoothed"]} stacked over T (row 0 is the seeded state, nis 0);
+    with_history adds the filter history (x_filt, P_filt, x_pred, P_pred).
+    `seeds` (K, 2) replaces the corner-pool seeding."""
     check_slice(cfg)
     if cfg.pair_batch:
-        return track_arrays_pairflow(frames, cfg)
+        return track_arrays_pairflow(frames, cfg, with_history, seeds)
     carry = init_from_frame(frames[0], cfg)
+    if seeds is not None:
+        carry = carry._replace(tracks=init_tracks(cfg.ekf, seeds))
+    if cfg.tracks.init_velocity:
+        carry = _prime_init_velocity(carry, frames[1], cfg)
+    if carry.lag_buf and (seeds is not None or cfg.tracks.init_velocity):
+        # re-prime the window from the replaced seed state
+        carry = carry._replace(lag_buf=_lag_buf_init(carry.tracks, _lag(cfg)))
     s0 = carry.tracks
     step = make_step(cfg, frames.device)
     rows = []
     for t in range(1, frames.shape[0]):
         carry, out = step(carry, frames[t])
         rows.append(out)
-    return _finalize_track_outputs(s0, rows)
+    return _finalize_track_outputs(s0, carry.lag_buf, rows, cfg,
+                                   with_history)
 
 
 def _corner_pool_sequence(grays: torch.Tensor, cfg: RunConfig) -> list:
@@ -204,39 +331,52 @@ def _corner_pool_sequence(grays: torch.Tensor, cfg: RunConfig) -> list:
 
 
 def _track_from_pair_flows(grays: torch.Tensor, flows: torch.Tensor,
-                           cfg: RunConfig) -> dict:
-    """Tail of the pair-batched paths: seed from frame 0's corner pool,
+                           cfg: RunConfig, with_history: bool = False,
+                           seeds: Optional[torch.Tensor] = None) -> dict:
+    """Tail of the pair-batched paths: seed from frame 0's corner pool (or
+    `seeds`), prime velocities from the first flow with init_velocity,
     then one EKF/lifecycle step per precomputed flow (T - 1, H, W, 2)."""
-    pts, score = corner_pool(grays[0], cfg.tracks,
-                             pool_size=cfg.tracks.num_tracks)
-    state0 = init_tracks(cfg.ekf, pts, valid=score > 0)
+    if seeds is None:
+        pts, score = corner_pool(grays[0], cfg.tracks,
+                                 pool_size=cfg.tracks.num_tracks)
+        state0 = init_tracks(cfg.ekf, pts, valid=score > 0)
+    else:
+        state0 = init_tracks(cfg.ekf, seeds)
+    if cfg.tracks.init_velocity:
+        state0 = _with_velocity(state0, flows[0], cfg.ekf)
+    lag_buf = _lag_buf_init(state0, _lag(cfg)) if _lag(cfg) else ()
     T = grays.shape[0]
     pools = (_corner_pool_sequence(grays, cfg) if cfg.tracks.reinit
              else [None] * (T - 1))
     step = make_flow_scan_step(cfg, grays.device)
     state, rows = state0, []
     for t in range(T - 1):
-        state, out = step(state, flows[t], pools[t])
+        state, lag_buf, out = step(state, lag_buf, flows[t], pools[t])
         rows.append(out)
-    return _finalize_track_outputs(state0, rows)
+    return _finalize_track_outputs(state0, lag_buf, rows, cfg, with_history)
 
 
-def track_arrays_pairflow(frames: torch.Tensor, cfg: RunConfig) -> dict:
+def track_arrays_pairflow(frames: torch.Tensor, cfg: RunConfig,
+                          with_history: bool = False,
+                          seeds: Optional[torch.Tensor] = None) -> dict:
     """Pair-batched twin of track_arrays: the flow of every frame pair in
     shared launches (K7b, K7a, K6), then the EKF/lifecycle steps. The
     same trajectories as the per-frame path at fi_level_fused=False."""
     grays = grayscale_u8(frames)
     flows = farneback_pairs_from_pyramids(
         polyexp_pyramid_batch(grays, cfg.flow), cfg.flow)
-    return _track_from_pair_flows(grays, flows, cfg)
+    return _track_from_pair_flows(grays, flows, cfg, with_history, seeds)
 
 
-def track_clips_pairflow(frames_b: torch.Tensor, cfg: RunConfig) -> dict:
+def track_clips_pairflow(frames_b: torch.Tensor, cfg: RunConfig,
+                         with_history: bool = False,
+                         seeds: Optional[torch.Tensor] = None) -> dict:
     """Multi-clip pair-batched pipeline: a (B, T, H, W[, 3]) clip stack
     runs the flow of all B (T - 1) frame pairs through shared launches,
     chained as one (B T) frame stack with clip_len = T so that no pair
     straddles two clips; then each clip's EKF/lifecycle steps run, clip
-    after clip. Returns the per-clip outputs stacked over B."""
+    after clip. `seeds` is (K, 2) for every clip or (B, K, 2). Returns
+    the per-clip outputs stacked over B."""
     check_slice(cfg)
     B, T = frames_b.shape[0], frames_b.shape[1]
     grays_b = grayscale_u8(frames_b)
@@ -244,39 +384,108 @@ def track_clips_pairflow(frames_b: torch.Tensor, cfg: RunConfig) -> dict:
     flows = farneback_pairs_from_pyramids(
         polyexp_pyramid_batch(flat, cfg.flow), cfg.flow, clip_len=T)
     flows_b = flows.reshape((B, T - 1) + flows.shape[1:])
-    outs = [_track_from_pair_flows(grays_b[b], flows_b[b], cfg)
+    if seeds is not None and seeds.ndim == 2:
+        seeds = seeds.expand((B,) + seeds.shape)
+    outs = [_track_from_pair_flows(grays_b[b], flows_b[b], cfg, with_history,
+                                   None if seeds is None else seeds[b])
             for b in range(B)]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
-def _upload(frames: np.ndarray, device) -> torch.Tensor:
+def flow_sequence(frames: torch.Tensor, cfg: RunConfig,
+                  smooth: bool = False) -> torch.Tensor:
+    """Dense flow for every consecutive frame pair of a (T, H, W[, 3])
+    clip -> (T - 1, H, W, 2), optionally per-pixel-KF smoothed
+    (BASELINE.json:8 config 2). With pair_batch every pair shares each
+    launch; otherwise the per-frame chain, each frame's pyramid expanded
+    once, and with temporal_init each pair's flow seeds the next (pair 0
+    cold)."""
+    check_slice(cfg, flow_only=True)
+    grays = grayscale_u8(frames)
+    if cfg.pair_batch:
+        flows = farneback_pairs_from_pyramids(
+            polyexp_pyramid_batch(grays, cfg.flow), cfg.flow)
+    else:
+        rpyr = polyexp_pyramid(grays[0], cfg.flow)
+        prev = (torch.zeros(grays.shape[1:] + (2,), dtype=torch.float32,
+                            device=grays.device)
+                if cfg.flow.temporal_init else None)
+        out = []
+        for gray in grays[1:]:
+            rpyr_next = polyexp_pyramid(gray, cfg.flow)
+            fl = farneback_from_pyramids(rpyr, rpyr_next, cfg.flow, prev)
+            rpyr, prev = rpyr_next, (None if prev is None else fl)
+            out.append(fl)
+        flows = torch.stack(out)
+    if smooth:
+        flows = smooth_flow_sequence(flows, PixelEkfParams())
+    return flows
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
     device = torch.device(device)
     if device.type == "cuda":
         cuda_device(device.index or 0)       # TF32 off before any work
-    return torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _seeds(seeds, device) -> Optional[torch.Tensor]:
+    return (None if seeds is None
+            else upload(np.asarray(seeds, np.float32), device))
 
 
 def _trajectories(outs: dict) -> Trajectories:
     outs = {k: v.cpu().numpy() for k, v in outs.items()}
     return Trajectories(positions=outs["pos"], alive=outs["alive"],
-                        nis=outs["nis"], track_id=outs["track_id"])
+                        nis=outs["nis"], track_id=outs["track_id"],
+                        smoothed=outs.get("smoothed"))
 
 
-def track_clip(frames: np.ndarray, cfg: RunConfig,
-               device="cuda") -> Trajectories:
+def _smooth_history_chunked(outs: dict, cfg: RunConfig,
+                            device) -> torch.Tensor:
+    """Chunked RTS over a host-resident filter history (segment breaks at
+    re-seeds and dead frames), one chunk on `device` at a time."""
+    chunk = cfg.smooth.chunk if cfg.smooth.chunk > 0 else 64
+    xs, _ = rts_smooth_chunked(
+        dynamics.transition(cfg.ekf), outs["x_filt"], outs["P_filt"],
+        outs["x_pred"], outs["P_pred"], chunk=chunk,
+        breaks=segment_breaks(outs["track_id"], outs["alive"]),
+        device=device)
+    return xs
+
+
+def track_clip(frames: np.ndarray, cfg: RunConfig, device="cuda",
+               seeds: Optional[np.ndarray] = None) -> Trajectories:
     """Track a whole (T, H, W[, 3]) uint8 clip on `device` (the card
-    unless the caller asks for "cpu")."""
-    return _trajectories(track_arrays(_upload(frames, device), cfg))
+    unless the caller asks for "cpu"). With smooth.chunk > 0 and no lag
+    the filter history is moved to host memory and smoothed a chunk at a
+    time (the long-horizon memory plan)."""
+    frames_d = upload(frames, device)
+    seeds_d = _seeds(seeds, device)
+    if cfg.smooth.enabled and cfg.smooth.chunk > 0 and cfg.smooth.lag == 0:
+        filt = cfg.replace(smooth=dataclasses.replace(cfg.smooth,
+                                                      enabled=False))
+        outs = {k: v.cpu() for k, v in track_arrays(
+            frames_d, filt, with_history=True, seeds=seeds_d).items()}
+        outs["smoothed"] = _smooth_history_chunked(
+            outs, cfg, frames_d.device)[..., 0:2]
+        return _trajectories({k: outs[k] for k in _ROWS + ("smoothed",)})
+    return _trajectories(track_arrays(frames_d, cfg, seeds=seeds_d))
 
 
-def track_clips(clips: np.ndarray, cfg: RunConfig,
-                device="cuda") -> List[Trajectories]:
+def track_clips(clips: np.ndarray, cfg: RunConfig, device="cuda",
+                seeds: Optional[np.ndarray] = None) -> List[Trajectories]:
     """Track a (B, T, H, W[, 3]) uint8 clip batch on `device`: through
     `track_clips_pairflow` with cfg.pair_batch, else clip after clip
-    through `track_arrays`."""
-    clips_d = _upload(clips, device)
+    through `track_arrays`. `seeds` is (K, 2) or (B, K, 2)."""
+    clips_d = upload(clips, device)
+    seeds_d = _seeds(seeds, device)
+    if seeds_d is not None and seeds_d.ndim == 2:
+        seeds_d = seeds_d.expand((clips_d.shape[0],) + seeds_d.shape)
     if cfg.pair_batch:
-        outs = track_clips_pairflow(clips_d, cfg)
+        outs = track_clips_pairflow(clips_d, cfg, seeds=seeds_d)
         return [_trajectories({k: v[b] for k, v in outs.items()})
                 for b in range(clips_d.shape[0])]
-    return [_trajectories(track_arrays(c, cfg)) for c in clips_d]
+    return [_trajectories(track_arrays(
+        c, cfg, seeds=None if seeds_d is None else seeds_d[b]))
+        for b, c in enumerate(clips_d)]

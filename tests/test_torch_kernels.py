@@ -158,5 +158,7 @@ def test_cpu_wrappers_do_not_count_launches(rng):
     Rs = kernels.poly_expansion_planar_batch(imgs, 5, 1.1)
     kernels.coarse_polyexp_fused_batch(imgs, 2, 0.5, 5, 1.1)
     kernels.flow_iter_pairs(Rs, torch.zeros(1, 2, 64, 80), 15, 8)
-    assert len(kernels.WRAPPERS) == 8
+    kernels.flow_update(R, R, torch.zeros(2, 64, 80), 15)
+    kernels.coarse_level_images(img, 2, 0.5)
+    assert len(kernels.WRAPPERS) == 10
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)

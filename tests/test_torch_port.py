@@ -35,9 +35,10 @@ def _run(args, cwd):
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port and tracking clips on the CPU
-    through all three paths leaves jax, jaxlib and every module of the
-    JAX package out of sys.modules."""
+    """Importing every module of the port, tracking clips on the CPU
+    through all three paths and calling every entry point with its
+    default config (track_video, smooth, flow, flow_sequence) leaves jax,
+    jaxlib and every module of the JAX package out of sys.modules."""
     code = (
         "import sys, pkgutil, importlib, numpy as np\n"
         "import kalman_hydra_tpu_torch as p\n"
@@ -56,6 +57,12 @@ def test_port_never_imports_jax():
         "    pipeline.main_path_config(16).replace(pair_batch=True),\n"
         "    device='cpu')\n"
         "assert [t.positions.shape for t in trs] == [(3, 16, 2)] * 2\n"
+        "assert api.track_video(clip, device='cpu').positions.shape \\\n"
+        "    == (3, 256, 2)\n"
+        "assert api.smooth(clip, device='cpu').smoothed.shape == (3, 256, 2)\n"
+        "assert api.flow(clip[0], clip[1], device='cpu').shape == (64, 80, 2)\n"
+        "assert api.flow_sequence(clip, smooth=True, device='cpu').shape \\\n"
+        "    == (2, 64, 80, 2)\n"
         "ref = [m for m in sys.modules if m.split('.')[0]\n"
         "       in ('jax', 'jaxlib', 'kalman_hydra_tpu')]\n"
         "print(ref)\n")
@@ -185,6 +192,9 @@ _ENTRY_POINTS = {
         clip[None], pipeline.main_path_config(8), **dev),
     "pipeline.track_clip": lambda clip, dev: pipeline.track_clip(
         clip, pipeline.main_path_config(8), **dev),
+    "api.flow": lambda clip, dev: api.flow(clip[0], clip[1], **dev),
+    "api.flow_sequence": lambda clip, dev: api.flow_sequence(clip, **dev),
+    "api.smooth": lambda clip, dev: api.smooth(clip, **dev),
 }
 
 
@@ -237,14 +247,9 @@ def test_chip_smoke_fails_without_card(alone, tmp_path):
 
 
 _BASE = pipeline.main_path_config(16)
-_OUTSIDE = {
+_OUTSIDE_CONFIGS = {
     "fi_pipeline": dict(flow=dataclasses.replace(_BASE.flow,
                                                  fi_pipeline=True)),
-    "exact_warp": dict(flow=dataclasses.replace(_BASE.flow, fast_warp=0)),
-    "pe_fused_off": dict(flow=dataclasses.replace(_BASE.flow,
-                                                  pe_fused=False)),
-    "temporal_init": dict(flow=dataclasses.replace(_BASE.flow,
-                                                   temporal_init=True)),
     "lk_dense": dict(flow=dataclasses.replace(_BASE.flow,
                                               method="lk_dense")),
     "pair_batch_lk_dense": dict(
@@ -252,20 +257,30 @@ _OUTSIDE = {
                                                   method="lk_dense")),
     "pair_batch_implicit_flow": dict(
         pair_batch=True, ekf=tconfig.EkfConfig(measurement="implicit_flow")),
-    "smoothing": dict(smooth=tconfig.SmoothConfig(enabled=True)),
-    "init_velocity": dict(tracks=tconfig.TrackConfig(init_velocity=True)),
+    "pair_batch_exact_warp": dict(
+        pair_batch=True, flow=dataclasses.replace(_BASE.flow, fast_warp=0)),
     "seed_in_body": dict(tracks=tconfig.TrackConfig(seed_in_body=True)),
     "adaptive_q": dict(ekf=tconfig.EkfConfig(state_dim=6, adaptive_q=0.5)),
     "implicit_flow": dict(ekf=tconfig.EkfConfig(
         measurement="implicit_flow")),
 }
+_LK = tconfig.FlowConfig(method="lk_dense")
+_OUTSIDE = {
+    **{name: (lambda kw=kw: pipeline.check_slice(_BASE.replace(**kw)))
+       for name, kw in _OUTSIDE_CONFIGS.items()},
+    "api_flow_lk_dense": lambda: api.flow(
+        np.zeros((48, 64), np.uint8), np.zeros((48, 64), np.uint8), _LK,
+        device="cpu"),
+    "flow_sequence_lk_dense": lambda: api.flow_sequence(
+        np.zeros((2, 48, 64), np.uint8), tconfig.RunConfig(flow=_LK),
+        device="cpu"),
+}
 
 
 @pytest.mark.parametrize("name", sorted(_OUTSIDE))
 def test_outside_the_slice_raises(name):
-    cfg = _BASE.replace(**_OUTSIDE[name])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.check_slice(cfg)
+        _OUTSIDE[name]()
 
 
 def test_track_videos_sharded_raises():
@@ -275,8 +290,9 @@ def test_track_videos_sharded_raises():
 
 
 def test_reference_default_config_is_refused_and_slice_accepted():
-    with pytest.raises(NotImplementedError):
-        pipeline.check_slice(tconfig.RunConfig())
+    """RunConfig(), the reference's default (the exact warp), is inside
+    the slice now, as are the main path and a fast-warp 4-state variant."""
+    pipeline.check_slice(tconfig.RunConfig())
     pipeline.check_slice(_BASE)
     pipeline.check_slice(_BASE.replace(
         flow=tconfig.FlowConfig(fast_warp=4, fi_level_fused=False,
@@ -284,15 +300,29 @@ def test_reference_default_config_is_refused_and_slice_accepted():
         ekf=tconfig.EkfConfig(state_dim=4), impl="xla"))
 
 
-@pytest.mark.parametrize("which", ["main_path", "pair_path",
-                                   "main_path_pair_batch"])
+_ACCEPTED = {
+    "main_path": pipeline.main_path_config(),
+    "pair_path": pipeline.pair_path_config(),
+    "main_path_pair_batch":
+        pipeline.main_path_config().replace(pair_batch=True),
+    "exact_warp": _BASE.replace(
+        flow=dataclasses.replace(_BASE.flow, fast_warp=0)),
+    "pe_fused_off": _BASE.replace(
+        flow=dataclasses.replace(_BASE.flow, pe_fused=False)),
+    "temporal_init": _BASE.replace(
+        flow=dataclasses.replace(_BASE.flow, temporal_init=True)),
+    "smoothing": _BASE.replace(smooth=tconfig.SmoothConfig(enabled=True)),
+    "init_velocity": _BASE.replace(
+        tracks=tconfig.TrackConfig(init_velocity=True)),
+}
+
+
+@pytest.mark.parametrize("which", sorted(_ACCEPTED))
 def test_slice_configs_accepted(which):
-    """The headline graph (fi_level_fused=True), bench cfg3's pair path
-    and the multi-clip pair path are inside the slice."""
-    cfg = {"main_path": pipeline.main_path_config(),
-           "pair_path": pipeline.pair_path_config(),
-           "main_path_pair_batch":
-               pipeline.main_path_config().replace(pair_batch=True)}[which]
+    """The headline graph (fi_level_fused=True), bench cfg3's pair path,
+    the multi-clip pair path, and the main path under each setting this
+    slice brought in (the exact warp, pe_fused=False, temporal_init,
+    smoothing, init_velocity) are inside the slice."""
+    cfg = _ACCEPTED[which]
     assert cfg.flow.fi_level_fused
-    assert cfg.pair_batch == (which != "main_path")
     pipeline.check_slice(cfg)
