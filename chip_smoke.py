@@ -32,6 +32,13 @@ prints no result line):
           T=33;
        G. bench cfg2's pixel-KF stage through api.flow_sequence(smooth=
           True), 480x854 T=33;
+       H. bench --sparse through api.track_video: sparse LK at 1080x1920
+          T=9, K=1024, lk_block_halo 8 (K12's block window), 6-state;
+       H0. api.track_video with RunConfig(flow=FlowConfig(method=
+          "lk_sparse")): the reference's LK defaults (halo 0, K12's exact
+          window, 4-state, K=256), 1080x1920 T=9;
+       J. BASELINE config 1 as bench times it: dense LK (fast_warp 8),
+          4-state, K=256, 256x256 T=33, per frame;
      check the launch counts, the outputs against the plain functions,
      the CPU smoothers, the per-frame path and the CPU path, and report
      frames/s.
@@ -60,6 +67,7 @@ H_B, W_B, T_B = 720, 1280, 17              # path B (bench cfg3)
 N_CLIPS = 4                                # path C
 T_D2 = 5                                   # path D2
 H_F, W_F, T_F = 480, 854, 33               # paths F and G (cfg5, cfg2)
+H_J, W_J, T_J = 256, 256, 33               # path J (BASELINE config 1)
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, data sheet
 F32_FLOPS_PER_S = 67e12                    # f32 outside the tensor cores
 FAILURES: list = []
@@ -502,6 +510,179 @@ def check_k11(dev, gray, cfg, results):
            ms["plain"], H * W * 4 + px * 4, fl)
 
 
+def pyr_conv(x: torch.Tensor):
+    """cv2.pyrDown as ONE cuDNN convolution: the 5 x 5 binomial at stride
+    2 on the reflect-padded image (the library yardstick of K9; timed
+    here and used nowhere in the port)."""
+    from kalman_hydra_tpu_torch.kernels.pyramid import PYR_TAPS
+    k = torch.tensor(np.outer(PYR_TAPS, PYR_TAPS), device=x.device)
+    xp = torch.nn.functional.pad(x[None, None], (2, 2, 2, 2),
+                                 mode="reflect")
+    return lambda: torch.nn.functional.conv2d(xp, k[None, None], stride=2)
+
+
+@phase("K9 pyr_down")
+def check_k9(dev, gray, results):
+    """K9 on every level of a 1080p pyramid (1080x1920 down to 34x60) and
+    on odd and tiny sizes, against the plain version (bar 1e-3); the
+    kernels line keeps one frame's pyramid (the four calls of a 5-level
+    lk_pyramid), against four cuDNN calls."""
+    from kalman_hydra_tpu_torch.kernels.pyramid import (pyr_down,
+                                                        pyr_down_plain)
+    errs, lib_errs = [], []
+    x, chain = gray, []
+    for _ in range(5):
+        got = pyr_down(x)
+        errs.append(max_err(got, pyr_down_plain(x)))
+        lib_errs.append(max_err(pyr_conv(x)()[0, 0], got))
+        chain.append(x)
+        x = got
+    g = torch.Generator().manual_seed(9)
+    odd = {}
+    for shp in ((37, 53), (19, 27), (3, 4), (2, 2), (1, 5), (1079, 1919)):
+        x = (torch.rand(shp, generator=g) * 255).to(dev)
+        odd[shp] = max_err(pyr_down(x), pyr_down_plain(x))
+    log(f"  K9 1080p levels {[tuple(c.shape) for c in chain]}: max_abs_err "
+        f"{['%.2e' % e for e in errs]} (bar 1e-3); cuDNN yardstick vs "
+        f"kernel {max(lib_errs):.2e}; odd/tiny sizes "
+        f"{ {k: '%.1e' % v for k, v in odd.items()} }")
+    err = max(errs + list(odd.values()))
+    assert err < 1e-3
+    frame = chain[:4]
+    convs = [pyr_conv(c) for c in frame]
+    ms = time_turns({
+        "plain": lambda: [pyr_down_plain(c) for c in frame],
+        "kernel": lambda: [pyr_down(c) for c in frame],
+        "library": lambda: [f() for f in convs]})
+    px_in = sum(c.shape[0] * c.shape[1] for c in frame)
+    px_out = sum(((c.shape[0] + 1) // 2) * ((c.shape[1] + 1) // 2)
+                 for c in frame)
+    # separable need: 10 FLOPs per (output row x input column) for the
+    # vertical taps, 10 per output pixel for the horizontal ones
+    flops = sum(10 * ((c.shape[0] + 1) // 2) * c.shape[1] for c in frame) \
+        + 10 * px_out
+    record(results, "pyr_down", err, ms["kernel"], ms["plain"],
+           4 * (px_in + px_out), flops, ms["library"])
+
+
+@phase("K10 scharr_gradients")
+def check_k10(dev, gray, results):
+    """K10 at 1080x1920 and on tiny sizes against the plain version (bar
+    1e-3); timed against one cuDNN call with the two 3x3 kernels."""
+    from kalman_hydra_tpu_torch.kernels.scharr import (
+        SCHARR_EDGE, SCHARR_SMOOTH, scharr_gradients, scharr_gradients_plain)
+    got = scharr_gradients(gray)
+    err = max(max_err(a, b) for a, b in zip(got, scharr_gradients_plain(
+        gray)))
+    g = torch.Generator().manual_seed(10)
+    small = {}
+    for shp in ((3, 4), (1, 1), (5, 7)):
+        x = (torch.rand(shp, generator=g) * 255).to(dev)
+        small[shp] = max(max_err(a, b) for a, b in zip(
+            scharr_gradients(x), scharr_gradients_plain(x)))
+    wts = torch.tensor(np.stack([np.outer(SCHARR_SMOOTH, SCHARR_EDGE),
+                                 np.outer(SCHARR_EDGE, SCHARR_SMOOTH)]),
+                       device=dev)[:, None]
+    xp = torch.nn.functional.pad(gray[None, None], (1, 1, 1, 1),
+                                 mode="replicate")
+    conv = lambda: torch.nn.functional.conv2d(xp, wts)   # noqa: E731
+    lib = max(max_err(conv()[0, i], got[i]) for i in (0, 1))
+    log(f"  K10 {H}x{W}: max_abs_err {err:.2e} (bar 1e-3); tiny sizes "
+        f"{ {k: '%.1e' % v for k, v in small.items()} }; cuDNN yardstick "
+        f"vs kernel {lib:.2e}")
+    err = max([err] + list(small.values()))
+    assert err < 1e-3
+    ms = time_turns({"plain": lambda: scharr_gradients_plain(gray),
+                     "kernel": lambda: scharr_gradients(gray),
+                     "library": conv})
+    record(results, "scharr_gradients", err, ms["kernel"], ms["plain"],
+           H * W * 4 * 3, H * W * 12, ms["library"])
+
+
+def lk_border_points(h, w):
+    """The nine border points of the reference's
+    test_lk_sparse_kernel_border_points, placed on an h x w frame."""
+    return torch.tensor([[1.0, 1.0], [w - 2.0, 1.0], [1.0, h - 2.0],
+                         [w - 2.0, h - 2.0], [0.0, h / 2], [w - 1.0, h / 2],
+                         [w / 2, 0.3], [w / 2 - 0.3, h - 1.0],
+                         [w / 2, h / 2]])
+
+
+@phase("K12 lk_level")
+def check_k12(dev, clip, cfg_h, results):
+    """K12 at K = 1024 (1015 random points and the nine border points)
+    over the five levels of a 1080p frame pair, at lk_block_halo 0 (the
+    exact window) and 8 (the block window), with the guesses the level
+    loop hands down, and again with guesses 12 x -9 px off, past the
+    halo: against the plain version (bar 1e-3 px, status identical);
+    the window's effect is shown as the points whose answer moves by
+    > 0.5 px between the two windows. The kernels line keeps one frame
+    pair's five calls at halo 8 (path H); its bound counts, per level,
+    the patches each point read at the iterations it took or the level's
+    four planes, whichever is fewer bytes."""
+    from kalman_hydra_tpu_torch.kernels.lk import lk_level, lk_level_plain
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    from kalman_hydra_tpu_torch.ops.lk import lk_level_args, lk_pyramid
+    f = cfg_h.flow
+    win = f.lk_winsize
+    g0, g1 = (grayscale_u8(torch.from_numpy(clip[i]).to(dev))
+              for i in (0, 1))
+    g = torch.Generator().manual_seed(12)
+    pts = torch.cat([torch.rand(K - 9, 2, generator=g)
+                     * torch.tensor([W - 1.0, H - 1.0]),
+                     lk_border_points(H, W)]).to(dev)
+    off = torch.tensor([12.0, -9.0], device=dev)
+    worst, same, moved = 0.0, True, 0
+    calls = {}
+    for far in (False, True):
+        answers = {}
+        for halo in (0, f.lk_block_halo):
+            c = dataclasses.replace(f, lk_block_halo=halo)
+            pa, pb = lk_pyramid(g0, c), lk_pyramid(g1, c)
+            guess = pts * (1.0 / 2 ** (f.levels - 1))
+            outs = []
+            for lvl in range(f.levels - 1, -1, -1):
+                # the path's own K12 arguments, as lk_sparse_level builds them
+                args = lk_level_args(pa[0][lvl], pb[0][lvl], *pa[1][lvl],
+                                     pts * (1.0 / 2 ** lvl),
+                                     guess + off if far else guess, c)
+                got, ok = lk_level(*args)
+                ref, rok, iters = lk_level_plain(*args, with_iters=True)
+                worst = max(worst, max_err(got, ref))
+                same = same and bool(torch.equal(ok, rok))
+                outs.append(got)
+                if halo and not far:
+                    calls[lvl] = (args, int(iters.sum()))
+                guess = (got - args[8]) * (2.0 if lvl else 1.0)
+            answers[halo] = torch.stack(outs)
+        diff = (answers[0] - answers[f.lk_block_halo]).abs().amax(-1)
+        moved_here = int((diff > 0.5).any(0).sum())
+        moved = max(moved, moved_here)
+        log(f"  K12 K={K} guesses {'12 x -9 px off' if far else 'handed down'}"
+            f": max_abs_err so far {worst:.3e} px (bar 1e-3), status "
+            f"identical {same}; points the halo-{f.lk_block_halo} window "
+            f"moved by > 0.5 px: {moved_here}")
+    assert worst < 1e-3 and same and moved > 0
+    ms = time_turns({
+        "plain": lambda: [lk_level_plain(*a) for a, _ in calls.values()],
+        "kernel": lambda: [lk_level(*a) for a, _ in calls.values()]})
+    # bytes: per level the smaller of the patches its points read (the
+    # template's three (win + 1)^2 blocks a point, one block of the next
+    # image a Gauss-Newton step) and the level's four planes, each read
+    # once; plus pt, guess, base in and the guess and ok out
+    blk = 4 * (win + 1) ** 2
+    nbytes = steps = 0
+    for a, n in calls.values():
+        plane = 4 * a[0].numel() * 4
+        nbytes += min(K * 3 * blk + n * blk, plane) + K * (3 * 8 + 9)
+        steps += n
+    flops = len(calls) * K * 39 * win * win + steps * 16 * win * win
+    log(f"  K12 one frame pair, halo {f.lk_block_halo}: {steps} Gauss-Newton "
+        f"steps over {len(calls)} levels x {K} points")
+    record(results, "lk_level", worst, ms["kernel"], ms["plain"], nbytes,
+           flops)
+
+
 @phase("K6 flow_iter_pairs")
 def check_k6(dev, clip_b, cfg, results):
     """K6 at 720p on the fine-level planes of the path-B clip: 16 pairs of
@@ -640,13 +821,25 @@ def per_frame_expected(cfg, h, w, t) -> dict:
     K5's own gate: per frame one pyramid (K4 + K3, or K11 + K3 on every
     level at pe_fused=False); per step each level runs `iterations` K8
     (exact warp), one K5 (fast warp under the gate) or `iterations` K2,
-    and one K1."""
+    and one K1. Lucas-Kanade: see the branches below."""
     from kalman_hydra_tpu_torch import kernels
     from kalman_hydra_tpu_torch.kernels.flow_level import fits
     from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
-    plan = farneback_levels(h, w, f.levels, f.pyr_scale)
     e = dict.fromkeys(kernels.WRAPPERS, 0)
+    if f.method == "lk_sparse":
+        # one lk_pyramid per frame (frame 0's is cached), one K12 per
+        # level per step; the position update is plain torch, not K1
+        e.update(pyr_down=(f.levels - 1) * t, scharr_gradients=f.levels * t,
+                 lk_level=f.levels * (t - 1))
+        return e
+    if f.method == "lk_dense":
+        # per step both frames' pyramids and the previous frame's Scharr
+        # planes on every level, then K1
+        e.update(pyr_down=2 * (f.levels - 1) * (t - 1),
+                 scharr_gradients=f.levels * (t - 1), ekf_fused_step=t - 1)
+        return e
+    plan = farneback_levels(h, w, f.levels, f.pyr_scale)
     for (_k, lh, lw, _s, _ks) in plan:
         if f.fast_warp <= 0:
             e["flow_update"] += f.iterations * (t - 1)
@@ -803,9 +996,11 @@ def small_configs(cfg, pair_cfg) -> dict:
     main and pair paths cut to 3 levels, and configurations (a), (c), (d)
     and (e) of tests/test_torch_default_path.py and test_torch_smooth.py:
     RunConfig() itself, pe_fused=False, temporal_init + init_velocity at
-    both warps, and smoothing, monolithic and fixed-lag."""
-    from kalman_hydra_tpu_torch.config import (FlowConfig, RunConfig,
-                                               SmoothConfig, TrackConfig)
+    both warps, and smoothing, monolithic and fixed-lag; and Lucas-Kanade:
+    sparse at halo 0 and 8, dense per frame and pair-batched."""
+    from kalman_hydra_tpu_torch.config import (EkfConfig, FlowConfig,
+                                               RunConfig, SmoothConfig,
+                                               TrackConfig)
     out = {}
     for name, c in (("main path", cfg), ("pair path", pair_cfg)):
         out[name] = c.replace(
@@ -825,12 +1020,23 @@ def small_configs(cfg, pair_cfg) -> dict:
         "(e) RTS": base.replace(smooth=SmoothConfig(enabled=True)),
         "(e) fixed lag 2": base.replace(
             smooth=SmoothConfig(enabled=True, lag=2)),
+        "lk_sparse halo 0": base.replace(
+            flow=FlowConfig(method="lk_sparse")),
+        "lk_sparse halo 8 corr_conv, 6-state": base.replace(
+            flow=FlowConfig(method="lk_sparse", lk_block_halo=8,
+                            lk_solver="corr_conv"),
+            ekf=EkfConfig(state_dim=6)),
+        "lk_dense fast_warp 8": base.replace(
+            flow=FlowConfig(method="lk_dense", fast_warp=8)),
+        "lk_dense pair-batched": base.replace(
+            flow=FlowConfig(method="lk_dense", fast_warp=8),
+            pair_batch=True),
     })
     return out
 
 
 @phase("small clips: CUDA path vs CPU path (per-frame, pair-batched, "
-       "default, warm starts, smoothing)")
+       "default, warm starts, smoothing, LK)")
 def small_vs_cpu(dev, cfg, pair_cfg):
     from kalman_hydra_tpu_torch import api
     from kalman_hydra_tpu_torch.io.synthetic import moving_blob_clip
@@ -999,6 +1205,73 @@ def path_g(dev, clip_f, cfg_g, counts_by_path, name):
         f"frame pairs/s, 480x854, T={T_F}; {name}")
 
 
+@phase("path H (bench --sparse through api.track_video, 1080p T=9 K=1024)")
+def path_h(dev, clip, cfg_h, counts_by_path, name):
+    """Sparse LK with the block window (lk_block_halo 8): K9 and K10 per
+    frame, K12 per level per step, the plain position update."""
+    from kalman_hydra_tpu_torch import api
+    tr = drive("H", lambda: api.track_video(clip, cfg_h, device=dev),
+               per_frame_expected(cfg_h, H, W, T), counts_by_path)
+    check_tracks(tr, T, K)
+    return per_frame_fps("H", lambda: api.track_video(clip, cfg_h,
+                                                      device=dev),
+                         T - 1, f"1080p, T={T}, K={K}; {name}")
+
+
+@phase("path H0 (api.track_video, RunConfig(flow=FlowConfig(method="
+       "'lk_sparse')), 1080p T=9)")
+def path_h0(dev, clip, cfg_h0, counts_by_path, name):
+    """The reference's sparse-LK defaults: K12's exact window."""
+    from kalman_hydra_tpu_torch import api
+    k = cfg_h0.tracks.num_tracks
+    tr = drive("H0", lambda: api.track_video(clip, cfg_h0, device=dev),
+               per_frame_expected(cfg_h0, H, W, T), counts_by_path)
+    check_tracks(tr, T, k)
+    return per_frame_fps("H0", lambda: api.track_video(clip, cfg_h0,
+                                                       device=dev),
+                         T - 1, f"1080p, T={T}, K={k}; {name}")
+
+
+def torch_ops(fn) -> int:
+    """The number of ATen operators `fn` dispatches (each a kernel launch
+    on the card, but for views and metadata): a count, not a time."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.n
+
+
+@phase("path J (BASELINE config 1: dense LK, 256x256 T=33, per frame)")
+def path_j(dev, clip_j, cfg_j, counts_by_path, name):
+    """Dense LK (K9, K10 and plain torch) feeding K1, held against the
+    pair-batched route on the card (the same flows, looped over pairs);
+    the ATen operators of one frame pair's dense LK are counted."""
+    from kalman_hydra_tpu_torch import api
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    from kalman_hydra_tpu_torch.ops.lk import lk_dense
+    k = cfg_j.tracks.num_tracks
+    tr = drive("J", lambda: api.track_video(clip_j, cfg_j, device=dev),
+               per_frame_expected(cfg_j, H_J, W_J, T_J), counts_by_path)
+    check_tracks(tr, T_J, k)
+    same_tracks(tr, api.track_video(clip_j, cfg_j.replace(pair_batch=True),
+                                    device=dev),
+                "per-frame path vs pair-batched path")
+    g0, g1 = (grayscale_u8(torch.from_numpy(clip_j[i]).to(dev))
+              for i in (0, 1))
+    log(f"  J: one frame pair's lk_dense dispatches "
+        f"{torch_ops(lambda: lk_dense(g0, g1, cfg_j.flow))} ATen operators")
+    return per_frame_fps("J", lambda: api.track_video(clip_j, cfg_j,
+                                                      device=dev),
+                         T_J - 1, f"256x256, T={T_J}, K={k}; {name}")
+
+
 def profile_path(label, fn, steps, trace_path, clip_s):
     """Device busy time, idle share and the top device consumers of one
     warm run of `fn` (a path's clip or clip batch, `steps` frame steps);
@@ -1065,18 +1338,26 @@ _KERNELS = {   # wrapper: (CUDA source, TPU entry point it replaces)
                                    "level_image_pallas.py:246"),
     "flow_update": ("flow_update.cu", "flow_update_pallas.py:105"),
     "coarse_level_images": ("level_image.cu", "level_image_pallas.py:306"),
+    "pyr_down": ("pyramid.cu", "pyramid_pallas.py:76"),
+    "scharr_gradients": ("scharr.cu", "scharr_pallas.py:71"),
+    "lk_level": ("lk.cu", "lk_pallas.py:256"),
 }
 
 
 def path_configs(pipeline) -> dict:
-    """The port's configurations of paths A-G (D is RunConfig() itself):
+    """The port's configurations of paths A-J (D is RunConfig() itself):
     D2 is RunConfig() at pe_fused=False; E bench's temporal warm-1 stage
     (bench.py:718-722); F bench cfg5 (bench.py:842-858, 4-state filter,
     levels 3, fast_warp 8, bf16, K=256, RTS, pair-batched); G bench
     cfg2's pixel-KF stage (bench.py:554-563, fast_warp 8, bf16,
-    pair-batched)."""
-    from kalman_hydra_tpu_torch.config import (FlowConfig, RunConfig,
-                                               SmoothConfig, TrackConfig)
+    pair-batched); H bench --sparse (bench.py:656-662 with its config at
+    :181-241: lk_sparse, 5 levels, lk_block_halo 8, corr_conv, 6-state,
+    K=1024, corner_pool 1024, reinit_every 1); H0 the reference's
+    lk_sparse defaults; J BASELINE config 1 (bench.py:781-793: lk_dense,
+    fast_warp 8, 4-state, K=256, corner_pool 256, reinit_every 1)."""
+    from kalman_hydra_tpu_torch.config import (EkfConfig, FlowConfig,
+                                               RunConfig, SmoothConfig,
+                                               TrackConfig)
     cfg = pipeline.main_path_config(num_tracks=K)
     return {
         "A": cfg,
@@ -1093,14 +1374,28 @@ def path_configs(pipeline) -> dict:
                        pair_batch=True),
         "G": RunConfig(flow=FlowConfig(fast_warp=8, bf16_poly=True),
                        impl="pallas", pair_batch=True),
+        "H": RunConfig(flow=FlowConfig(method="lk_sparse", fast_warp=8,
+                                       lk_block_halo=8,
+                                       lk_solver="corr_conv"),
+                       ekf=EkfConfig(state_dim=6),
+                       tracks=TrackConfig(num_tracks=K, corner_pool=K,
+                                          reinit_every=1),
+                       impl="pallas"),
+        "H0": RunConfig(flow=FlowConfig(method="lk_sparse")),
+        "J": RunConfig(flow=FlowConfig(method="lk_dense", fast_warp=8),
+                       ekf=EkfConfig(state_dim=4),
+                       tracks=TrackConfig(num_tracks=256, corner_pool=256,
+                                          reinit_every=1),
+                       impl="pallas"),
     }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="TRACE_JSON", default=None,
-                    help="also profile one warm run of paths A-D and write "
-                         "each Chrome trace beside this name (_A ... _D)")
+                    help="also profile one warm run of paths A-D and H "
+                         "and write each Chrome trace beside this name "
+                         "(_A ... _D, _H)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this check "
@@ -1135,8 +1430,10 @@ def main() -> int:
     clip_b = blob_clip(T_B, H_B, W_B)
     clips_c = np.stack([blob_clip(T, H, W, seed=s) for s in range(N_CLIPS)])
     clip_f = blob_clip(T_F, H_F, W_F)
+    clip_j = blob_clip(T_J, H_J, W_J)
     log(f"clips {clip.shape}, {clip_b.shape}, {clips_c.shape}, "
-        f"{clip_f.shape} made in {time.perf_counter() - t0:.1f} s")
+        f"{clip_f.shape}, {clip_j.shape} made in "
+        f"{time.perf_counter() - t0:.1f} s")
     gray = grayscale_u8(torch.from_numpy(clip[0]).to(dev))
 
     results: dict = {}
@@ -1150,6 +1447,9 @@ def main() -> int:
     check_k7(dev, clip_b, clips_c, cfg, results)
     check_k8(dev, clip, cfgs["D"], results)
     check_k11(dev, gray, cfgs["D2"], results)
+    check_k9(dev, gray, results)
+    check_k10(dev, gray, results)
+    check_k12(dev, clip, cfgs["H"], results)
     path_a(dev, clip, cfg, counts_by_path)
     flow_vs_plain(dev, clip, {k: cfgs[k] for k in ("A", "D", "D2", "E")})
     small_vs_cpu(dev, cfg, pair_cfg)
@@ -1160,7 +1460,10 @@ def main() -> int:
              "D2": path_d2(dev, clip, cfgs["D2"], counts_by_path, name),
              "E": path_e(dev, clip, cfgs["E"], counts_by_path, name),
              "F": path_f(dev, clip_f, cfgs["F"], counts_by_path, name),
-             "G": path_g(dev, clip_f, cfgs["G"], counts_by_path, name)}
+             "G": path_g(dev, clip_f, cfgs["G"], counts_by_path, name),
+             "H": path_h(dev, clip, cfgs["H"], counts_by_path, name),
+             "H0": path_h0(dev, clip, cfgs["H0"], counts_by_path, name),
+             "J": path_j(dev, clip_j, cfgs["J"], counts_by_path, name)}
     if args.profile:
         from kalman_hydra_tpu_torch import api
         runs = {"A": (lambda: api.track_video(clip, cfg, device=dev), T - 1),
@@ -1169,7 +1472,9 @@ def main() -> int:
                 "C": (lambda: api.track_videos(clips_c, cfgs["C"],
                                                device=dev),
                       N_CLIPS * (T - 1)),
-                "D": (lambda: api.track_video(clip, device=dev), T - 1)}
+                "D": (lambda: api.track_video(clip, device=dev), T - 1),
+                "H": (lambda: api.track_video(clip, cfgs["H"], device=dev),
+                      T - 1)}
         trace = Path(args.profile)
         for label, (fn, steps) in runs.items():
             profile_path(label, fn, steps, str(trace.with_name(

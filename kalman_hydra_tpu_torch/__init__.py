@@ -2,8 +2,8 @@
 
 The JAX package (`kalman_hydra_tpu`) is the reference; this package mirrors
 its layout (`ops/`, `models/`, `kernels/`, `pipeline.py`, `api.py`) and runs
-the Farneback + EKF tracking paths (per-frame, pair-batched, multi-clip) on
-an NVIDIA Hopper card. Each Pallas kernel on those paths has a hand-written
+the Farneback and Lucas-Kanade (sparse and dense) + EKF tracking paths
+(per-frame, pair-batched, multi-clip) on an NVIDIA Hopper card. Each Pallas kernel on those paths has a hand-written
 CUDA C++ counterpart in `csrc/`, built with nvcc at first use
 (`kernels/_build.py`) and paired with a plain PyTorch version that runs on
 CPU tensors.

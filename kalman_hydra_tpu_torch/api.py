@@ -3,7 +3,9 @@
 With no config every entry point runs the reference's default, as the
 reference does: `RunConfig()` (exact warp, f32 planes, 4-state CV
 filter, 256 tracks, a fresh corner pool every frame), or `FlowConfig()`
-for `flow`. Only in-memory clips are ported so far: file decode and
+for `flow`. Lucas-Kanade configs (`FlowConfig.method` "lk_sparse" or
+"lk_dense") run through the same entry points. Only in-memory clips are
+ported so far: file decode and
 streaming wait for ROADMAP P12. Every entry point runs on the card unless
 the caller passes device="cpu"; without a card it raises.
 """
@@ -19,19 +21,24 @@ from .config import FlowConfig, RunConfig
 from .io import Trajectories, save as save_tracks
 from .ops.color import grayscale_u8
 from .ops.farneback import farneback
+from .ops.lk import lk_dense
 
 
 def flow(a: np.ndarray, b: np.ndarray, cfg: Optional[FlowConfig] = None,
          initial: Optional[np.ndarray] = None, device="cuda") -> np.ndarray:
-    """Dense Farneback flow between two frames, (H, W, 2) float32 on the
-    host. Accepts uint8 or float frames, gray or colour; [0, 1]-normalized
-    float frames are rescaled to the 0..255 range the solver constants
-    assume. `initial`: optional (H, W, 2) warm start of the coarsest level
-    (cv2's OPTFLOW_USE_INITIAL_FLOW)."""
+    """Dense flow between two frames, Farneback or dense LK by
+    cfg.method, (H, W, 2) float32 on the host. Accepts uint8 or float
+    frames, gray or colour; [0, 1]-normalized float frames are rescaled
+    to the 0..255 range the solver constants assume. `initial`: optional
+    (H, W, 2) warm start of Farneback's coarsest level (cv2's
+    OPTFLOW_USE_INITIAL_FLOW); dense LK has none."""
     cfg = cfg or FlowConfig()
     if cfg.method not in ("farneback", "lk_dense"):
         raise ValueError("flow() needs a dense method")
     _pipeline.check_slice(RunConfig(flow=cfg), flow_only=True)
+    if cfg.method == "lk_dense" and initial is not None:
+        raise ValueError("initial flow is a Farneback feature "
+                         "(cv2.OPTFLOW_USE_INITIAL_FLOW)")
     a_np, b_np = np.asarray(a), np.asarray(b)
     if a_np.dtype.kind == "f" and b_np.dtype.kind == "f":
         if max(float(a_np.max()), float(b_np.max())) <= 1.0:
@@ -39,6 +46,8 @@ def flow(a: np.ndarray, b: np.ndarray, cfg: Optional[FlowConfig] = None,
         a_np, b_np = a_np.astype(np.float32), b_np.astype(np.float32)
     a_t = grayscale_u8(_pipeline.upload(a_np, device))
     b_t = grayscale_u8(_pipeline.upload(b_np, device))
+    if cfg.method == "lk_dense":
+        return lk_dense(a_t, b_t, cfg).cpu().numpy()
     flow0 = (None if initial is None else
              _pipeline.upload(np.asarray(initial, np.float32), device))
     return farneback(a_t, b_t, cfg, flow0).cpu().numpy()

@@ -2,7 +2,7 @@
 
 The tracker has no learned weights: its whole state is the track pool
 (TrackState) plus the per-frame carry (previous gray frame, the cached
-polyexp pyramid, the corner pool, the step counter, the fixed-lag
+flow pyramid, the corner pool, the step counter, the fixed-lag
 smoother's window and the temporal warm start's previous flow). Given one
 configuration (the port's own RunConfig, which a reference config
 becomes through `RunConfig.from_json(cfg.to_json())`), that state is
@@ -40,6 +40,21 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def tree_to_torch(tree, device):
+    """Nested tuples of arrays (the cached pyramids: a tuple of polyexp
+    levels, or lk_sparse's (pyr, grads) with grads a tuple of (gx, gy))
+    -> the same nesting of tensors."""
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_to_torch(t, device) for t in tree)
+    return array_to_torch(tree, device)
+
+
+def tree_to_numpy(tree):
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_to_numpy(t) for t in tree)
+    return tensor_to_numpy(tree)
+
+
 def tracks_to_torch(tracks, device) -> TrackState:
     """Any object with TrackState's fields (NumPy-convertible) -> the
     port's TrackState on `device`."""
@@ -58,7 +73,7 @@ def carry_to_torch(carry, device) -> Carry:
     return Carry(
         tracks=tracks_to_torch(carry.tracks, device),
         prev_gray=array_to_torch(carry.prev_gray, device),
-        prev_rpyr=tuple(array_to_torch(R, device) for R in carry.prev_rpyr),
+        prev_rpyr=tree_to_torch(carry.prev_rpyr, device),
         corner_cache=tuple(array_to_torch(a, device)
                            for a in (carry.corner_cache or ())),
         frame_idx=int(np.asarray(carry.frame_idx)),
@@ -72,7 +87,7 @@ def carry_to_numpy(carry: Carry) -> dict:
     return {
         "tracks": tracks_to_numpy(carry.tracks),
         "prev_gray": tensor_to_numpy(carry.prev_gray),
-        "prev_rpyr": tuple(tensor_to_numpy(R) for R in carry.prev_rpyr),
+        "prev_rpyr": tree_to_numpy(carry.prev_rpyr),
         "corner_cache": tuple(tensor_to_numpy(a)
                               for a in carry.corner_cache),
         "frame_idx": carry.frame_idx,

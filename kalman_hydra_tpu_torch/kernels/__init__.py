@@ -11,7 +11,10 @@
 | polyexp.poly_expansion_planar_batch (K7a) | csrc/polyexp.cu | polyexp_pallas.py::poly_expansion_planar_batch |
 | level_image.coarse_polyexp_fused_batch (K7b) | csrc/level_image.cu | level_image_pallas.py::coarse_polyexp_fused_batch |
 | flow_update.flow_update (K8) | csrc/flow_update.cu | flow_update_pallas.py::flow_update |
+| pyramid.pyr_down (K9) | csrc/pyramid.cu | pyramid_pallas.py::pyr_down |
+| scharr.scharr_gradients (K10) | csrc/scharr.cu | scharr_pallas.py::scharr_gradients |
 | level_image.coarse_level_images (K11) | csrc/level_image.cu | level_image_pallas.py::farneback_images_pallas |
+| lk.lk_level (K12) | csrc/lk.cu | lk_pallas.py::lk_sparse (_lk_level) |
 
 Each wrapper dispatches by device: a CPU tensor takes the plain PyTorch
 version beside it, a CUDA tensor launches the kernel or raises. Each
@@ -27,7 +30,10 @@ from .flow_level import flow_level
 from .flow_update import flow_update
 from .level_image import (coarse_level_images, coarse_polyexp_fused,
                           coarse_polyexp_fused_batch)
+from .lk import lk_level
 from .polyexp import poly_expansion_planar, poly_expansion_planar_batch
+from .pyramid import pyr_down
+from .scharr import scharr_gradients
 
 WRAPPERS = {
     "ekf_fused_step": ekf_fused_step,
@@ -40,6 +46,9 @@ WRAPPERS = {
     "coarse_polyexp_fused_batch": coarse_polyexp_fused_batch,
     "flow_update": flow_update,
     "coarse_level_images": coarse_level_images,
+    "pyr_down": pyr_down,
+    "scharr_gradients": scharr_gradients,
+    "lk_level": lk_level,
 }
 
 

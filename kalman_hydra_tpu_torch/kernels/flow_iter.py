@@ -28,6 +28,7 @@ import torch
 
 from . import _build
 from ..ops.filters import gaussian_kernel, pad1d
+from ..ops.warp import warp_selectsum
 
 PLANE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -66,28 +67,9 @@ def border_damp(h: int, w: int, device) -> torch.Tensor:
 
 def flow_iter_plain(R0, R1, flow, winsize: int, max_disp: int,
                     gaussian: bool = False) -> torch.Tensor:
-    _, h, w = R0.shape
-    D = float(max_disp)
-    dev = R0.device
-    R0 = R0.to(torch.float32)
-    R1 = R1.to(torch.float32)
-    dx, dy = flow[0], flow[1]
-    dxc = torch.clamp(dx, -D, D)
-    dyc = torch.clamp(dy, -D, D)
-    xf, yf = torch.floor(dxc), torch.floor(dyc)
-    ax, ay = dxc - xf, dyc - yf
-    rows = torch.arange(h, device=dev)[:, None]
-    cols = torch.arange(w, device=dev)[None, :]
-    ra = torch.clamp(rows + yf.to(torch.int64), 0, h - 1)
-    rb = torch.clamp(rows + yf.to(torch.int64) + 1, 0, h - 1)
-    v = ((1 - ay) * R1.gather(1, ra.expand(5, h, w))
-         + ay * R1.gather(1, rb.expand(5, h, w)))
-    ca = torch.clamp(cols + xf.to(torch.int64), 0, w - 1)
-    cb = torch.clamp(cols + xf.to(torch.int64) + 1, 0, w - 1)
-    R1w = ((1 - ax) * v.gather(2, ca.expand(5, h, w))
-           + ax * v.gather(2, cb.expand(5, h, w)))
-    return solve_warped(R0, R1w, flow, *window_weights(winsize,
-                                                       bool(gaussian)))
+    R1w = warp_selectsum(R1.to(torch.float32), flow[0], flow[1], max_disp)
+    return solve_warped(R0.to(torch.float32), R1w, flow,
+                        *window_weights(winsize, bool(gaussian)))
 
 
 def solve_warped(R0, R1w, flow, wts, post: float) -> torch.Tensor:

@@ -1,10 +1,11 @@
-"""Farneback pyramid plan and OpenCV-compatible linear resize (port of
+"""Gaussian pyramids and OpenCV-compatible linear resize (port of
 kalman_hydra_tpu/ops/pyramid.py).
 
-`farneback_images` builds each level the way cv2.calcOpticalFlowFarneback
-does — GaussianBlur of the ORIGINAL image, then an INTER_LINEAR resize —
-and is the per-stage reference for the fused K4 kernel
-(kernels/level_image.py).
+`build_pyramid`: cv2.pyrDown levels (K9 on the card), the pyramid of both
+Lucas-Kanade flows. `farneback_images` builds each level
+the way cv2.calcOpticalFlowFarneback does — GaussianBlur of the ORIGINAL
+image, then an INTER_LINEAR resize — and is the per-stage reference for
+the fused K4 kernel (kernels/level_image.py).
 """
 
 from __future__ import annotations
@@ -15,6 +16,16 @@ import numpy as np
 import torch
 
 from .filters import cv_round, gaussian_blur
+
+
+def build_pyramid(img: torch.Tensor, levels: int) -> List[torch.Tensor]:
+    """LK pyramid: `levels` images, level 0 = the input, each next one
+    cv2.pyrDown of the last (the K9 wrapper, kernels/pyramid.py)."""
+    from ..kernels.pyramid import pyr_down
+    pyr = [img]
+    for _ in range(levels - 1):
+        pyr.append(pyr_down(pyr[-1]))
+    return pyr
 
 
 def resize_coeffs(n_out: int, n_in: int):

@@ -1,4 +1,5 @@
-"""Bilinear sampling (port of kalman_hydra_tpu/ops/warp.py).
+"""Bilinear sampling and warping (port of kalman_hydra_tpu/ops/warp.py,
+and of the fast warp's contract, ops/farneback.py::_warp_poly_selectsum).
 
 Coordinate convention: (x, y) with x = column, matching OpenCV. Samples
 outside the image clamp to the border pixel.
@@ -26,6 +27,43 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor,
     i11 = img[..., y0 + 1, x0 + 1]
     return (i00 * (1 - fx) * (1 - fy) + i01 * fx * (1 - fy)
             + i10 * (1 - fx) * fy + i11 * fx * fy)
+
+
+def warp_image(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Backward-warp an (H, W) image by an (H, W, 2) flow:
+    out(p) = img(p + flow(p))."""
+    h, w = img.shape[-2], img.shape[-1]
+    ys = torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=img.device)[None, :]
+    return bilinear_sample(img, xs + flow[..., 0], ys + flow[..., 1])
+
+
+def warp_selectsum(planes: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
+                   max_disp: int) -> torch.Tensor:
+    """The fast warp (FlowConfig.fast_warp > 0) of (C, h, w) planes by an
+    (h, w) flow (dx, dy): the displacement clamped to +-max_disp, a
+    vertical lerp at each pixel's own column, then a horizontal lerp of
+    that vertically warped plane at the shifted columns (so a pixel's
+    horizontal neighbours bring their own vertical shift), edges
+    replicated. What the reference's select-sum over shifted copies
+    computes, as two indexed loads."""
+    C, h, w = planes.shape
+    D = float(max_disp)
+    dev = planes.device
+    dxc = torch.clamp(dx, -D, D)
+    dyc = torch.clamp(dy, -D, D)
+    xf, yf = torch.floor(dxc), torch.floor(dyc)
+    ax, ay = dxc - xf, dyc - yf
+    rows = torch.arange(h, device=dev)[:, None]
+    cols = torch.arange(w, device=dev)[None, :]
+    ra = torch.clamp(rows + yf.to(torch.int64), 0, h - 1)
+    rb = torch.clamp(rows + yf.to(torch.int64) + 1, 0, h - 1)
+    v = ((1 - ay) * planes.gather(1, ra.expand(C, h, w))
+         + ay * planes.gather(1, rb.expand(C, h, w)))
+    ca = torch.clamp(cols + xf.to(torch.int64), 0, w - 1)
+    cb = torch.clamp(cols + xf.to(torch.int64) + 1, 0, w - 1)
+    return ((1 - ax) * v.gather(2, ca.expand(C, h, w))
+            + ax * v.gather(2, cb.expand(C, h, w)))
 
 
 def sample_flow(flow: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,13 @@ EKF/lifecycle steps over the precomputed fields. `track_clips_pairflow`
 chains several clips through the same launches (`clip_len`), then filters
 each clip in turn (a loop over clips where the reference vmaps).
 
+Lucas-Kanade (`FlowConfig.method`): with "lk_sparse" each step tracks
+the filter's positions from the cached `lk_pyramid` of the previous
+frame (K9, K10) with one K12 launch per level and feeds them to a plain
+position Kalman update, a lost point counting as a miss; "lk_dense" is a
+dense flow (K9, K10 and plain torch) that feeds K1 like Farneback's, per
+frame or pair-batched (a loop over the pairs where the reference vmaps).
+
 Smoothing (`RunConfig.smooth`, models/rts.py) runs on every path: a
 monolithic RTS over the filter history, or with `lag` an online
 fixed-lag smoother in each step and one RTS over the final window; with
@@ -46,8 +53,10 @@ import torch
 from . import cuda_device
 from .config import EkfConfig, FlowConfig, RunConfig, TrackConfig
 from .io import Trajectories
+from .kernels.flow_iter import pair_count, pair_frames
 from .models import dynamics, lifecycle
-from .models.ekf import TrackState, ekf_step, init_tracks
+from .models.ekf import (TrackState, commit_update, ekf_step, init_tracks,
+                         predict, update)
 from .models.pixel_ekf import PixelEkfParams, smooth_flow_sequence
 from .models.rts import (fixed_lag_smooth, rts_smooth, rts_smooth_chunked,
                          segment_breaks)
@@ -56,6 +65,7 @@ from .ops.farneback import (farneback_from_pyramids,
                             farneback_pairs_from_pyramids, polyexp_pyramid,
                             polyexp_pyramid_batch)
 from .ops.features import corner_pool
+from .ops.lk import lk_dense, lk_pyramid, lk_sparse
 from .ops.warp import sample_flow
 
 _ROWS = ("pos", "alive", "nis", "track_id")
@@ -65,7 +75,9 @@ _HISTORY = ("x_filt", "P_filt", "x_pred", "P_pred")
 class Carry(NamedTuple):
     tracks: TrackState
     prev_gray: torch.Tensor     # (H, W) f32
-    prev_rpyr: Tuple = ()       # cached polyexp pyramid of prev_gray
+    prev_rpyr: Tuple = ()       # cached pyramid of prev_gray: polyexp
+    #                             levels (farneback), (pyr, grads) of
+    #                             lk_pyramid (lk_sparse), () (lk_dense)
     corner_cache: Tuple = ()    # (pts, score) pool reused between refreshes
     frame_idx: int = 0          # filter steps taken (reinit_every cadence)
     lag_buf: Tuple = ()         # (xf, Pf, xp, Pp, tid, alive) windows,
@@ -125,9 +137,8 @@ def check_slice(cfg: RunConfig, flow_only: bool = False) -> None:
     reads)."""
     f, e, t = cfg.flow, cfg.ekf, cfg.tracks
     outside = [
-        (f.method != "farneback", f"flow.method={f.method!r} (ROADMAP P10)"),
         (f.fi_pipeline, "flow.fi_pipeline=True (ROADMAP K13)"),
-        (cfg.pair_batch and f.fast_warp <= 0,
+        (cfg.pair_batch and f.method == "farneback" and f.fast_warp <= 0,
          "pair_batch with flow.fast_warp=0, the exact warp (ROADMAP P8b)"),
     ]
     if not flow_only:
@@ -143,10 +154,29 @@ def check_slice(cfg: RunConfig, flow_only: bool = False) -> None:
                 f"{what} is outside the ported slice of kalman_hydra_tpu")
 
 
+def _flow_pyramid(gray: torch.Tensor, cfg: RunConfig) -> Tuple:
+    """What the step caches of a frame for the next: its polyexp pyramid
+    (farneback), its lk_pyramid (lk_sparse), nothing (lk_dense)."""
+    if cfg.flow.method == "farneback":
+        return polyexp_pyramid(gray, cfg.flow)
+    if cfg.flow.method == "lk_sparse":
+        return lk_pyramid(gray, cfg.flow)
+    return ()
+
+
+def _flow_field(prev_gray: torch.Tensor, gray: torch.Tensor,
+                cfg: RunConfig) -> torch.Tensor:
+    """Dense (H, W, 2) flow of one frame pair where no pyramid is cached:
+    lk_dense's (Farneback's always has its cached or batched pyramids)."""
+    if cfg.flow.method != "lk_dense":
+        raise ValueError(f"dense flow required, got {cfg.flow.method!r}")
+    return lk_dense(prev_gray, gray, cfg.flow)
+
+
 def init_from_frame(frame0: torch.Tensor, cfg: RunConfig) -> Carry:
-    """Seed the track pool from frame 0's corner pool and cache its
-    polyexp pyramid (and, with reinit_every > 1, its corner pool); prime
-    the fixed-lag window and the cold warm-start field where configured."""
+    """Seed the track pool from frame 0's corner pool and cache its flow
+    pyramid (and, with reinit_every > 1, its corner pool); prime the
+    fixed-lag window and the cold warm-start field where configured."""
     gray0 = grayscale_u8(frame0)
     pts, score = corner_pool(gray0, cfg.tracks,
                              pool_size=cfg.tracks.num_tracks)
@@ -161,7 +191,7 @@ def init_from_frame(frame0: torch.Tensor, cfg: RunConfig) -> Carry:
                              device=gray0.device)
                  if cfg.flow.temporal_init else None)
     return Carry(tracks=state, prev_gray=gray0,
-                 prev_rpyr=polyexp_pyramid(gray0, cfg.flow),
+                 prev_rpyr=_flow_pyramid(gray0, cfg),
                  corner_cache=corner_cache, frame_idx=0, lag_buf=lag_buf,
                  prev_flow=prev_flow)
 
@@ -177,26 +207,28 @@ def _with_velocity(state: TrackState, flow: torch.Tensor,
 def _prime_init_velocity(carry0: Carry, frame1: torch.Tensor,
                          cfg: RunConfig) -> Carry:
     """Prime track velocities with the cold frame 0 -> 1 flow at the
-    seeds (TrackConfig.init_velocity), reusing frame 0's cached pyramid;
-    prev_flow is left as it was."""
-    rpyr1 = polyexp_pyramid(grayscale_u8(frame1), cfg.flow)
-    flow01 = farneback_from_pyramids(carry0.prev_rpyr, rpyr1, cfg.flow)
+    seeds (TrackConfig.init_velocity), reusing frame 0's cached polyexp
+    pyramid with Farneback; prev_flow is left as it was."""
+    gray1 = grayscale_u8(frame1)
+    if cfg.flow.method == "farneback":
+        flow01 = farneback_from_pyramids(
+            carry0.prev_rpyr, polyexp_pyramid(gray1, cfg.flow), cfg.flow)
+    else:
+        flow01 = _flow_field(carry0.prev_gray, gray1, cfg)
     return carry0._replace(tracks=_with_velocity(carry0.tracks, flow01,
                                                  cfg.ekf))
 
 
-def make_flow_scan_step(cfg: RunConfig, device):
-    """EKF/lifecycle step over a given dense flow field:
-    (tracks, lag_buf, flow (H, W, 2), corner pool (pts, score) or None)
-    -> (tracks, lag_buf, out). The tail of both the per-frame and the
-    pair-batched paths; with smooth.lag it also pushes the fixed-lag
-    window and emits the smoothed position of the frame leaving it."""
-    F = torch.as_tensor(dynamics.transition(cfg.ekf), device=device)
-    Q = torch.as_tensor(dynamics.process_noise(cfg.ekf), device=device)
+def make_filter_tail(cfg: RunConfig, F: torch.Tensor):
+    """The lifecycle and output tail of every step, after the measurement
+    update: (state, aux, lag_buf, corner pool (pts, score) or None, h, w)
+    -> (state, lag_buf, out). Gate, kill the tracks that left the (h, w)
+    frame, reseed from the pool; with smooth.lag it also pushes the
+    fixed-lag window and emits the smoothed position of the frame leaving
+    it."""
 
-    def step(tracks: TrackState, lag_buf: Tuple, flow: torch.Tensor, pool):
-        h, w = flow.shape[0], flow.shape[1]
-        state, aux = ekf_step(tracks, flow, cfg.ekf, F, Q)
+    def tail(state: TrackState, aux: dict, lag_buf: Tuple, pool, h: int,
+             w: int):
         state = lifecycle.gate(state, aux["x_pred"], aux["P_pred"],
                                aux["nis"], cfg.ekf)
         state = lifecycle.kill_lost(state, cfg.ekf, h, w)
@@ -212,18 +244,43 @@ def make_flow_scan_step(cfg: RunConfig, device):
             out["smoothed_lag"] = fixed_lag_smooth(F, *lag_buf)[0][:, 0:2]
         return state, lag_buf, out
 
+    return tail
+
+
+def _filter_model(cfg: RunConfig, device):
+    """(F, Q, tail) of every step builder: the dynamics and the shared
+    lifecycle/output tail (`make_filter_tail`)."""
+    F = torch.as_tensor(dynamics.transition(cfg.ekf), device=device)
+    Q = torch.as_tensor(dynamics.process_noise(cfg.ekf), device=device)
+    return F, Q, make_filter_tail(cfg, F)
+
+
+def make_flow_scan_step(cfg: RunConfig, device, model=None):
+    """EKF/lifecycle step over a given dense flow field:
+    (tracks, lag_buf, flow (H, W, 2), corner pool (pts, score) or None)
+    -> (tracks, lag_buf, out). The step of the pair-batched paths, and
+    of the per-frame step's dense branch, which passes its `model`."""
+    F, Q, tail = model or _filter_model(cfg, device)
+
+    def step(tracks: TrackState, lag_buf: Tuple, flow: torch.Tensor, pool):
+        state, aux = ekf_step(tracks, flow, cfg.ekf, F, Q)
+        return tail(state, aux, lag_buf, pool, flow.shape[0], flow.shape[1])
+
     return step
 
 
 def make_step(cfg: RunConfig, device):
     """Per-frame step function (carry, frame) -> (carry, out)."""
-    filter_step = make_flow_scan_step(cfg, device)
+    model = _filter_model(cfg, device)
+    F, Q, tail = model
+    flow_step = make_flow_scan_step(cfg, device, model)
+    H = torch.as_tensor(dynamics.position_H(cfg.ekf), device=device)
+    R = cfg.ekf.r * torch.eye(2, dtype=torch.float32, device=device)
+    method = cfg.flow.method
 
     def step(carry: Carry, frame: torch.Tensor):
         gray = grayscale_u8(frame)
-        rpyr = polyexp_pyramid(gray, cfg.flow)
-        flow = farneback_from_pyramids(carry.prev_rpyr, rpyr, cfg.flow,
-                                       flow0=carry.prev_flow)
+        rpyr = _flow_pyramid(gray, cfg)
         corner_cache = carry.corner_cache
         frame_idx = carry.frame_idx + 1
         pool = None
@@ -234,8 +291,30 @@ def make_step(cfg: RunConfig, device):
                 if frame_idx % cfg.tracks.reinit_every == 0:
                     corner_cache = corner_pool(gray, cfg.tracks)
                 pool = corner_cache
-        state, lag_buf, out = filter_step(carry.tracks, carry.lag_buf, flow,
-                                          pool)
+        flow = None
+        if method == "lk_sparse":
+            # the tracks' own positions, tracked by sparse LK, are the
+            # measurement of a plain position update; a point LK lost
+            # (status False) counts as a miss
+            pos = carry.tracks.x[:, 0:2]
+            new_pts, ok = lk_sparse(carry.prev_gray, gray, pos, cfg.flow,
+                                    prev_pyr=carry.prev_rpyr or None,
+                                    next_pyr=rpyr)
+            state = carry.tracks
+            x_pred, P_pred = predict(state.x, state.P, F, Q)
+            y = pos + (new_pts - pos) - x_pred[:, 0:2]
+            x_new, P_new, nis = update(x_pred, P_pred, y, H, R)
+            state, aux = commit_update(state, x_pred, P_pred, x_new, P_new,
+                                       nis, cfg.ekf, valid=ok)
+            state, lag_buf, out = tail(state, aux, carry.lag_buf, pool,
+                                       gray.shape[0], gray.shape[1])
+        else:
+            flow = (farneback_from_pyramids(carry.prev_rpyr, rpyr, cfg.flow,
+                                            flow0=carry.prev_flow)
+                    if method == "farneback"
+                    else _flow_field(carry.prev_gray, gray, cfg))
+            state, lag_buf, out = flow_step(carry.tracks, carry.lag_buf,
+                                            flow, pool)
         # temporal warm start: this pair's flow seeds the next pair's
         # coarsest level
         prev_flow = None if carry.prev_flow is None else flow
@@ -356,33 +435,45 @@ def _track_from_pair_flows(grays: torch.Tensor, flows: torch.Tensor,
     return _finalize_track_outputs(state0, lag_buf, rows, cfg, with_history)
 
 
+def _pair_flows(grays: torch.Tensor, cfg: RunConfig,
+                clip_len: int = 0) -> torch.Tensor:
+    """The flow of every frame pair of an (N, H, W) stack (clip_len as
+    in kernels/flow_iter.py): Farneback's in shared launches (K7b, K7a,
+    K6), lk_dense's pair after pair (where the reference vmaps)."""
+    if cfg.flow.method == "farneback":
+        return farneback_pairs_from_pyramids(
+            polyexp_pyramid_batch(grays, cfg.flow), cfg.flow,
+            clip_len=clip_len)
+    pairs = pair_count(grays.shape[0], clip_len)
+    return torch.stack([_flow_field(grays[p], grays[p + 1], cfg)
+                        for p in pair_frames(pairs, clip_len)])
+
+
 def track_arrays_pairflow(frames: torch.Tensor, cfg: RunConfig,
                           with_history: bool = False,
                           seeds: Optional[torch.Tensor] = None) -> dict:
-    """Pair-batched twin of track_arrays: the flow of every frame pair in
-    shared launches (K7b, K7a, K6), then the EKF/lifecycle steps. The
-    same trajectories as the per-frame path at fi_level_fused=False."""
+    """Pair-batched twin of track_arrays: the flow of every frame pair
+    first (`_pair_flows`), then the EKF/lifecycle steps. The same
+    trajectories as the per-frame path at fi_level_fused=False."""
     grays = grayscale_u8(frames)
-    flows = farneback_pairs_from_pyramids(
-        polyexp_pyramid_batch(grays, cfg.flow), cfg.flow)
-    return _track_from_pair_flows(grays, flows, cfg, with_history, seeds)
+    return _track_from_pair_flows(grays, _pair_flows(grays, cfg), cfg,
+                                  with_history, seeds)
 
 
 def track_clips_pairflow(frames_b: torch.Tensor, cfg: RunConfig,
                          with_history: bool = False,
                          seeds: Optional[torch.Tensor] = None) -> dict:
     """Multi-clip pair-batched pipeline: a (B, T, H, W[, 3]) clip stack
-    runs the flow of all B (T - 1) frame pairs through shared launches,
-    chained as one (B T) frame stack with clip_len = T so that no pair
-    straddles two clips; then each clip's EKF/lifecycle steps run, clip
-    after clip. `seeds` is (K, 2) for every clip or (B, K, 2). Returns
-    the per-clip outputs stacked over B."""
+    runs the flow of all B (T - 1) frame pairs (Farneback's through
+    shared launches), chained as one (B T) frame stack with clip_len = T
+    so that no pair straddles two clips; then each clip's EKF/lifecycle
+    steps run, clip after clip. `seeds` is (K, 2) for every clip or
+    (B, K, 2). Returns the per-clip outputs stacked over B."""
     check_slice(cfg)
     B, T = frames_b.shape[0], frames_b.shape[1]
     grays_b = grayscale_u8(frames_b)
     flat = grays_b.reshape((B * T,) + grays_b.shape[2:])
-    flows = farneback_pairs_from_pyramids(
-        polyexp_pyramid_batch(flat, cfg.flow), cfg.flow, clip_len=T)
+    flows = _pair_flows(flat, cfg, clip_len=T)
     flows_b = flows.reshape((B, T - 1) + flows.shape[1:])
     if seeds is not None and seeds.ndim == 2:
         seeds = seeds.expand((B,) + seeds.shape)
@@ -396,15 +487,15 @@ def flow_sequence(frames: torch.Tensor, cfg: RunConfig,
                   smooth: bool = False) -> torch.Tensor:
     """Dense flow for every consecutive frame pair of a (T, H, W[, 3])
     clip -> (T - 1, H, W, 2), optionally per-pixel-KF smoothed
-    (BASELINE.json:8 config 2). With pair_batch every pair shares each
-    launch; otherwise the per-frame chain, each frame's pyramid expanded
-    once, and with temporal_init each pair's flow seeds the next (pair 0
-    cold)."""
+    (BASELINE.json:8 config 2). With pair_batch, or with lk_dense,
+    `_pair_flows`; otherwise Farneback's per-frame chain, each frame's
+    pyramid expanded once, and with temporal_init each pair's flow seeds
+    the next (pair 0 cold). lk_sparse has no dense flow: ValueError, as
+    in the reference."""
     check_slice(cfg, flow_only=True)
     grays = grayscale_u8(frames)
-    if cfg.pair_batch:
-        flows = farneback_pairs_from_pyramids(
-            polyexp_pyramid_batch(grays, cfg.flow), cfg.flow)
+    if cfg.pair_batch or cfg.flow.method != "farneback":
+        flows = _pair_flows(grays, cfg)
     else:
         rpyr = polyexp_pyramid(grays[0], cfg.flow)
         prev = (torch.zeros(grays.shape[1:] + (2,), dtype=torch.float32,

@@ -168,7 +168,16 @@ def test_flow_sequence_matches_reference(clip, name):
 
 
 def test_flow_sequence_lk_raises(clip):
-    with pytest.raises(NotImplementedError, match="ROADMAP P10"):
+    """flow_sequence with dense LK (inside the slice since the port's LK
+    slice; FlowConfig(method="lk_dense") otherwise default) against the
+    reference's, every pair < 1e-3 px; sparse LK has no dense flow and
+    raises the reference's ValueError."""
+    cfg = RunConfig(flow=FlowConfig(method="lk_dense"))
+    ref = np.asarray(jp.flow_sequence(jnp.asarray(clip), cfg, False))
+    got = api.flow_sequence(clip, _ported(cfg), device="cpu")
+    assert got.shape == ref.shape == (4, 128, 160, 2)
+    assert np.abs(got - ref).max() < 1e-3
+    with pytest.raises(ValueError, match="dense flow required"):
         api.flow_sequence(clip, TRunConfig(
-            flow=TRunConfig().flow.__class__(method="lk_dense")),
+            flow=TRunConfig().flow.__class__(method="lk_sparse")),
             device="cpu")

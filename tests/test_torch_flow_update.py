@@ -2,7 +2,7 @@
 against the JAX reference (Pallas in interpret mode on the CPU): K8
 (flow_update) and the exact gather, K11 (the level images alone), the
 Farneback levels at fast_warp=0 with and without a warm start, and the
-public `api.flow`.
+public `api.flow` (Farneback, and dense LK).
 
 On the CPU each wrapper runs its plain version, so these tests pin the
 arithmetic that the CUDA kernels are held to on the card."""
@@ -172,10 +172,25 @@ def test_api_flow_matches_reference(case):
 
 
 def test_api_flow_lk_raises():
-    """Dense LK is outside the slice (ROADMAP P10); a sparse method is not
-    a dense flow, as in the reference."""
+    """Dense LK through api.flow (inside the slice since the port's LK
+    slice): uint8 frames, 3 levels, against the reference's api.flow,
+    < 1e-3 px; an `initial` flow raises the reference's ValueError (a
+    Farneback feature), and a sparse method is not a dense flow, as in
+    the reference."""
     a, b = _pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP P10"):
-        api.flow(a, b, TFlowConfig(method="lk_dense"), device="cpu")
+    cfg = FlowConfig(method="lk_dense", levels=3)
+    ref = japi.flow(a, b, cfg)
+    got = api.flow(a, b, TFlowConfig(method="lk_dense", levels=3),
+                   device="cpu")
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    assert np.abs(got - ref).max() < 1e-3
+    init = np.zeros(a.shape + (2,), np.float32)
+    msgs = []
+    for fn, c in ((japi.flow, cfg), (api.flow, TFlowConfig(
+            method="lk_dense"))):
+        with pytest.raises(ValueError, match="Farneback feature") as e:
+            fn(a, b, c, initial=init)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
     with pytest.raises(ValueError, match="dense method"):
         api.flow(a, b, TFlowConfig(method="lk_sparse"), device="cpu")

@@ -160,5 +160,10 @@ def test_cpu_wrappers_do_not_count_launches(rng):
     kernels.flow_iter_pairs(Rs, torch.zeros(1, 2, 64, 80), 15, 8)
     kernels.flow_update(R, R, torch.zeros(2, 64, 80), 15)
     kernels.coarse_level_images(img, 2, 0.5)
-    assert len(kernels.WRAPPERS) == 10
+    kernels.pyr_down(img)
+    gx, gy = kernels.scharr_gradients(img)
+    pts = torch.full((3, 2), 30.0)
+    kernels.lk_level(img, img, gx, gy, pts, pts, torch.zeros(3, 2),
+                     (60.0, 44.0), 12, 21, 10, 0.01, 1e-4)
+    assert len(kernels.WRAPPERS) == 13
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)

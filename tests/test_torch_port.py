@@ -36,9 +36,10 @@ def _run(args, cwd):
 
 def test_port_never_imports_jax():
     """Importing every module of the port, tracking clips on the CPU
-    through all three paths and calling every entry point with its
-    default config (track_video, smooth, flow, flow_sequence) leaves jax,
-    jaxlib and every module of the JAX package out of sys.modules."""
+    through all three paths and with sparse and dense LK, and calling
+    every entry point with its default config (track_video, smooth,
+    flow, flow_sequence) leaves jax, jaxlib and every module of the JAX
+    package out of sys.modules."""
     code = (
         "import sys, pkgutil, importlib, numpy as np\n"
         "import kalman_hydra_tpu_torch as p\n"
@@ -63,6 +64,11 @@ def test_port_never_imports_jax():
         "assert api.flow(clip[0], clip[1], device='cpu').shape == (64, 80, 2)\n"
         "assert api.flow_sequence(clip, smooth=True, device='cpu').shape \\\n"
         "    == (2, 64, 80, 2)\n"
+        "from kalman_hydra_tpu_torch.config import FlowConfig, RunConfig\n"
+        "for m in ('lk_sparse', 'lk_dense'):\n"
+        "    c = RunConfig(flow=FlowConfig(method=m, levels=2))\n"
+        "    tr = api.track_video(clip, c, device='cpu')\n"
+        "    assert tr.positions.shape == (3, 256, 2)\n"
         "ref = [m for m in sys.modules if m.split('.')[0]\n"
         "       in ('jax', 'jaxlib', 'kalman_hydra_tpu')]\n"
         "print(ref)\n")
@@ -250,11 +256,6 @@ _BASE = pipeline.main_path_config(16)
 _OUTSIDE_CONFIGS = {
     "fi_pipeline": dict(flow=dataclasses.replace(_BASE.flow,
                                                  fi_pipeline=True)),
-    "lk_dense": dict(flow=dataclasses.replace(_BASE.flow,
-                                              method="lk_dense")),
-    "pair_batch_lk_dense": dict(
-        pair_batch=True, flow=dataclasses.replace(_BASE.flow,
-                                                  method="lk_dense")),
     "pair_batch_implicit_flow": dict(
         pair_batch=True, ekf=tconfig.EkfConfig(measurement="implicit_flow")),
     "pair_batch_exact_warp": dict(
@@ -264,23 +265,47 @@ _OUTSIDE_CONFIGS = {
     "implicit_flow": dict(ekf=tconfig.EkfConfig(
         measurement="implicit_flow")),
 }
-_LK = tconfig.FlowConfig(method="lk_dense")
-_OUTSIDE = {
-    **{name: (lambda kw=kw: pipeline.check_slice(_BASE.replace(**kw)))
-       for name, kw in _OUTSIDE_CONFIGS.items()},
-    "api_flow_lk_dense": lambda: api.flow(
-        np.zeros((48, 64), np.uint8), np.zeros((48, 64), np.uint8), _LK,
-        device="cpu"),
-    "flow_sequence_lk_dense": lambda: api.flow_sequence(
-        np.zeros((2, 48, 64), np.uint8), tconfig.RunConfig(flow=_LK),
-        device="cpu"),
-}
+_OUTSIDE = {name: (lambda kw=kw: pipeline.check_slice(_BASE.replace(**kw)))
+            for name, kw in _OUTSIDE_CONFIGS.items()}
 
 
 @pytest.mark.parametrize("name", sorted(_OUTSIDE))
 def test_outside_the_slice_raises(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _OUTSIDE[name]()
+
+
+_LK = tconfig.FlowConfig(method="lk_dense")
+_LK_RUNS = {
+    "api_flow_lk_dense": lambda: api.flow(
+        np.zeros((48, 64), np.uint8), np.zeros((48, 64), np.uint8), _LK,
+        device="cpu").shape == (48, 64, 2),
+    "flow_sequence_lk_dense": lambda: api.flow_sequence(
+        np.zeros((2, 48, 64), np.uint8), tconfig.RunConfig(flow=_LK),
+        device="cpu").shape == (1, 48, 64, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_LK_RUNS))
+def test_lk_entry_points_run(name):
+    """The dense-LK calls that the slices before LK refused run, with
+    the shape of the reference's result."""
+    assert _LK_RUNS[name]()
+
+
+@pytest.mark.parametrize("method", ["lk_sparse", "lk_dense"])
+def test_lk_track_video_defaults_to_the_card(method):
+    """api.track_video with an LK config needs a card unless it is given
+    device="cpu", and then runs there."""
+    cfg = tconfig.RunConfig(flow=tconfig.FlowConfig(method=method,
+                                                    levels=2),
+                            tracks=tconfig.TrackConfig(num_tracks=8))
+    clip, _ = tsyn.moving_blob_clip(num_frames=2, height=48, width=64)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            api.track_video(clip, cfg)
+    assert api.track_video(clip, cfg, device="cpu").positions.shape == \
+        (2, 8, 2)
 
 
 def test_track_videos_sharded_raises():
@@ -314,15 +339,31 @@ _ACCEPTED = {
     "smoothing": _BASE.replace(smooth=tconfig.SmoothConfig(enabled=True)),
     "init_velocity": _BASE.replace(
         tracks=tconfig.TrackConfig(init_velocity=True)),
+    "lk_dense": _BASE.replace(flow=dataclasses.replace(_BASE.flow,
+                                                       method="lk_dense")),
+    "pair_batch_lk_dense": _BASE.replace(
+        pair_batch=True, flow=dataclasses.replace(_BASE.flow,
+                                                  method="lk_dense")),
+    "pair_batch_lk_dense_exact_warp": _BASE.replace(
+        pair_batch=True, flow=dataclasses.replace(
+            _BASE.flow, method="lk_dense", fast_warp=0)),
+    "lk_sparse": tconfig.RunConfig(flow=tconfig.FlowConfig(
+        method="lk_sparse")),
+    "lk_sparse_block_halo": _BASE.replace(flow=dataclasses.replace(
+        _BASE.flow, method="lk_sparse", lk_block_halo=8,
+        lk_solver="corr_conv")),
 }
 
 
 @pytest.mark.parametrize("which", sorted(_ACCEPTED))
 def test_slice_configs_accepted(which):
     """The headline graph (fi_level_fused=True), bench cfg3's pair path,
-    the multi-clip pair path, and the main path under each setting this
-    slice brought in (the exact warp, pe_fused=False, temporal_init,
-    smoothing, init_velocity) are inside the slice."""
+    the multi-clip pair path, the main path under each setting the
+    earlier slices brought in (the exact warp, pe_fused=False,
+    temporal_init, smoothing, init_velocity), and Lucas-Kanade: dense per
+    frame and pair-batched (at fast_warp=0 too: P8b's refusal is
+    Farneback's), sparse with the reference's defaults and with a halo'd
+    block are inside the slice."""
     cfg = _ACCEPTED[which]
     assert cfg.flow.fi_level_fused
     pipeline.check_slice(cfg)
