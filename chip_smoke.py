@@ -11,7 +11,8 @@ prints no result line):
      (build time printed);
   3. hold each kernel against its plain PyTorch version on the card at
      the shapes its path gives it, with the stated bars, and each batched
-     kernel against its per-item kernel (bit for bit);
+     kernel against its per-item kernel (bit for bit; K5 and K13 against
+     n_iters K2 launches, K8-pairs against per-pair K8);
   4. time each kernel, its plain version and, where one PyTorch call
      computes the same function, that call, with CUDA events (warmed up,
      in turns forward and back); compute each kernel's bound (the larger
@@ -39,6 +40,20 @@ prints no result line):
           window, 4-state, K=256), 1080x1920 T=9;
        J. BASELINE config 1 as bench times it: dense LK (fast_warp 8),
           4-state, K=256, 256x256 T=33, per frame;
+       AP. A with fi_pipeline=True (bench KH_FI_PIPE=1): K13 on the two
+          levels above K5's gate;
+       BX. api.track_video with RunConfig(pair_batch=True) (the
+          reference's defaults, pair-batched: the exact gather and
+          K8-pairs), B's clip;
+       I. AP with the 6-state implicit-flow IEKF (iekf_iters 2), then
+          the UKF: no K1 (a nonlinear measurement);
+       P. RunConfig() with measurement="photometric" (no flow, no
+          kernel), then flow_photometric with adaptive_q 0.3 and
+          seed_in_body (D's flow launches, no K1), 1080p T=9;
+       W. docs/WALKTHROUGH.md section 3: sparse LK at lk_block_halo 8,
+          6-state, adaptive_q 0.3, fixed-lag 8, 1080p T=9;
+       Q. pipeline.track_precomputed_flow over AP's 8 flows from AP's
+          1024 seeds (K1 only);
      check the launch counts, the outputs against the plain functions,
      the CPU smoothers, the per-frame path and the CPU path, and report
      frames/s.
@@ -683,6 +698,154 @@ def check_k12(dev, clip, cfg_h, results):
            flops)
 
 
+@phase("K13 flow_iters_pipelined")
+def check_k13(dev, clip, cfg, results):
+    """K13 on the two 1080p levels above K5's gate (540x960 and
+    1080x1920, path AP's), on the polyexp planes of frames 0 and 1 and a
+    random prior flow of +-3 px, f32 and bf16 planes, 2 and 3
+    iterations, box and Gaussian windows; and on random planes at 37x53,
+    70x90, 1x5 (one short band), 20x30 (three bands, the last short) and
+    1079x1919: against n_iters K2 launches (bar 0: K2's per-pixel code)
+    and against the plain version (< 1e-4). Timed at bf16, 3 iterations
+    against the 3 x K2 route; the kernels line keeps one frame pair's two
+    calls."""
+    from kalman_hydra_tpu_torch.kernels.flow_iter import (
+        flow_iter, flow_iters_pipelined, flow_iters_pipelined_plain)
+    from kalman_hydra_tpu_torch.kernels.flow_level import fits
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    from kalman_hydra_tpu_torch.ops.farneback import polyexp_pyramid
+    f = cfg.flow
+    f32 = dataclasses.replace(f, bf16_poly=False)
+    grays = [grayscale_u8(torch.from_numpy(clip[i]).to(dev)) for i in (0, 1)]
+    pyrs = [polyexp_pyramid(gr, f32) for gr in grays]
+    levels = [(R0, R1) for R0, R1 in zip(*pyrs)
+              if not fits(R0.shape[1], R0.shape[2], 2)]
+    g = torch.Generator().manual_seed(13)
+    for shp in ((37, 53), (70, 90), (1, 5), (20, 30), (1079, 1919)):
+        levels.append(tuple(torch.randn((5,) + shp, generator=g).to(dev)
+                            for _ in range(2)))
+    D, wins = f.fast_warp, f.winsize
+    worst = worst_k2 = 0.0
+    for R0f, R1f in levels:
+        lh, lw = R0f.shape[1:]
+        fl = (torch.rand(2, lh, lw, generator=g) * 6 - 3).to(dev)
+        line = []
+        for dt in (torch.float32, torch.bfloat16):
+            a, b = R0f.to(dt), R1f.to(dt)
+            for n in (2, 3):
+                for gw in (False, True):
+                    got = flow_iters_pipelined(a, b, fl, wins, D, n, gw)
+                    e = max_err(got, flow_iters_pipelined_plain(
+                        a, b, fl, wins, D, n, gw))
+                    via = fl
+                    for _ in range(n):
+                        via = flow_iter(a, b, via, wins, D, gw)
+                    e2 = max_err(got, via)
+                    worst, worst_k2 = max(worst, e), max(worst_k2, e2)
+                    line.append(f"{str(dt)[6:]}/{n}{'/g' if gw else ''} "
+                                f"{e:.1e} ({e2:.0e})")
+        log(f"  K13 {lh}x{lw} vs plain (vs n x K2): " + ", ".join(line))
+    log(f"  K13 max_abs_err vs plain {worst:.3e} (bar 1e-4); vs n x K2 "
+        f"{worst_k2:.3e} (bar 0: "
+        f"{'bit-identical' if worst_k2 == 0 else 'NOT'})")
+    assert worst < 1e-4 and worst_k2 == 0.0
+    it = f.iterations
+    tot = dict(kernel=0.0, plain=0.0, k2=0.0)
+    nbytes = flops = 0
+    taps = 2 * (wins // 2) + 1
+    for R0f, R1f in levels[:2]:
+        lh, lw = R0f.shape[1:]
+        a, b = R0f.to(torch.bfloat16), R1f.to(torch.bfloat16)
+        fl = (torch.rand(2, lh, lw, generator=g) * 6 - 3).to(dev)
+
+        def k2_route(a=a, b=b, fl=fl):
+            out = fl
+            for _ in range(it):
+                out = flow_iter(a, b, out, wins, D)
+            return out
+        ms = time_turns({
+            "plain": lambda a=a, b=b, fl=fl: flow_iters_pipelined_plain(
+                a, b, fl, wins, D, it),
+            "kernel": lambda a=a, b=b, fl=fl: flow_iters_pipelined(
+                a, b, fl, wins, D, it),
+            "k2": k2_route})
+        log(f"  K13 {lh}x{lw} bf16 {it} iterations: kernel "
+            f"{ms['kernel']:.4f} ms, {it} x K2 {ms['k2']:.4f} ms, plain "
+            f"{ms['plain']:.4f} ms")
+        for k in tot:
+            tot[k] += ms[k]
+        nbytes += lh * lw * (10 * 2 + 8 + 8)
+        flops += it * lh * lw * fi_flops(taps)
+    record(results, "flow_iters_pipelined", worst, tot["kernel"],
+           tot["plain"], nbytes, flops)
+    results["flow_iters_pipelined"]["k2_route_ms"] = tot["k2"]
+
+
+@phase("K8-pairs flow_update_pairs")
+def check_k8_pairs(dev, clip_b, cfg, results):
+    """K8-pairs on path BX's planes (B's 720p clip at RunConfig()'s f32
+    planes), 16 pairs of 17 frames and 16 pairs of two chained 9-frame
+    clips (clip_len), the coarsest and the finest level, random +-2 px
+    flows and the exact gather: against per-pair K8 (bit for bit) and the
+    plain version (< 1e-4); and at bf16 planes with M rounded to bf16
+    against the plain version. The kernels line keeps one call at the
+    fine level."""
+    from kalman_hydra_tpu_torch.kernels.flow_iter import pair_frames
+    from kalman_hydra_tpu_torch.kernels.flow_update import (
+        flow_update, flow_update_pairs, flow_update_pairs_plain)
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    from kalman_hydra_tpu_torch.ops.farneback import (polyexp_pyramid_batch,
+                                                      warp_poly_planar)
+    f = cfg.flow
+    grays = grayscale_u8(torch.from_numpy(clip_b).to(dev))
+    g = torch.Generator().manual_seed(18)
+    worst = worst_k8 = 0.0
+    B = 16
+    for bf16 in (False, True):
+        fb = dataclasses.replace(f, bf16_poly=bf16)
+        Rs = polyexp_pyramid_batch(torch.cat([grays, grays[:1]]), fb)
+        for Rl in (Rs[0], Rs[-1]):
+            lh, lw = Rl.shape[2:]
+            for clip_len, N in ((0, T_B), (9, 2 * 9)):
+                Rall = Rl[:N].contiguous()
+                frames = torch.tensor(pair_frames(B, clip_len), device=dev)
+                fl = (torch.rand(B, 2, lh, lw, generator=g) * 4 - 2).to(dev)
+                R1w = warp_poly_planar(Rall.index_select(0, frames + 1), fl)
+                got = flow_update_pairs(Rall, R1w, fl, f.winsize, False,
+                                        clip_len, round_m=bf16)
+                e = max_err(got, flow_update_pairs_plain(
+                    Rall, R1w, fl, f.winsize, False, clip_len, bf16))
+                worst = max(worst, e)
+                line = f"vs plain {e:.3e}"
+                if not bf16:
+                    per = torch.stack([
+                        flow_update(Rall[p], R1w[b], fl[b], f.winsize)
+                        for b, p in enumerate(pair_frames(B, clip_len))])
+                    e2 = max_err(got, per)
+                    worst_k8 = max(worst_k8, e2)
+                    line += f", vs per-pair K8 {e2:.1e}"
+                log(f"  K8-pairs {'bf16 (M rounded)' if bf16 else 'f32'} "
+                    f"{lh}x{lw} N={N} B={B} clip_len={clip_len}: {line}")
+    assert worst < 1e-4 and worst_k8 == 0.0
+    Rs = polyexp_pyramid_batch(grays, f)
+    Rall = Rs[-1]
+    fl = (torch.rand(B, 2, H_B, W_B, generator=g) * 4 - 2).to(dev)
+    R1w = warp_poly_planar(Rall[1:], fl)
+    ms = time_turns({
+        "plain": lambda: flow_update_pairs_plain(Rall, R1w, fl, f.winsize),
+        "kernel": lambda: flow_update_pairs(Rall, R1w, fl, f.winsize),
+        "k8": lambda: [flow_update(Rall[b], R1w[b], fl[b], f.winsize)
+                       for b in range(B)]}, reps=5)
+    log(f"  K8-pairs {H_B}x{W_B} f32 B={B}: kernel {ms['kernel']:.4f} ms, "
+        f"{B} x K8 {ms['k8']:.4f} ms, plain {ms['plain']:.4f} ms")
+    taps = 2 * (f.winsize // 2) + 1
+    # R0 (B frames) and R1w, 5 f32 planes each, the flow in and out
+    record(results, "flow_update_pairs", worst, ms["kernel"], ms["plain"],
+           B * H_B * W_B * (2 * 5 * 4 + 8 + 8),
+           B * H_B * W_B * update_flops(taps))
+    results["flow_update_pairs"]["k8_route_ms"] = ms["k8"]
+
+
 @phase("K6 flow_iter_pairs")
 def check_k6(dev, clip_b, cfg, results):
     """K6 at 720p on the fine-level planes of the path-B clip: 16 pairs of
@@ -816,17 +979,27 @@ def check_k7(dev, clip_b, clips_c, cfg, results):
                N * k4_flops(h, w, f))
 
 
+def takes_k1(cfg) -> bool:
+    """K1 runs the position update with a shared Q; a per-track Q
+    (adaptive_q) or a nonlinear measurement takes the plain update."""
+    return cfg.ekf.measurement == "position" and cfg.ekf.adaptive_q <= 0
+
+
 def per_frame_expected(cfg, h, w, t) -> dict:
     """Launches of a per-frame run of t frames at h x w, from the plan and
     K5's own gate: per frame one pyramid (K4 + K3, or K11 + K3 on every
     level at pe_fused=False); per step each level runs `iterations` K8
-    (exact warp), one K5 (fast warp under the gate) or `iterations` K2,
-    and one K1. Lucas-Kanade: see the branches below."""
+    (exact warp), one K5 (fast warp under the gate), one K13
+    (fi_pipeline, iterations >= 2) or `iterations` K2, and one K1 where
+    `takes_k1`. measurement="photometric" computes no flow and launches
+    nothing. Lucas-Kanade: see the branches below."""
     from kalman_hydra_tpu_torch import kernels
     from kalman_hydra_tpu_torch.kernels.flow_level import fits
     from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
     e = dict.fromkeys(kernels.WRAPPERS, 0)
+    if cfg.ekf.measurement == "photometric":
+        return e
     if f.method == "lk_sparse":
         # one lk_pyramid per frame (frame 0's is cached), one K12 per
         # level per step; the position update is plain torch, not K1
@@ -837,7 +1010,8 @@ def per_frame_expected(cfg, h, w, t) -> dict:
         # per step both frames' pyramids and the previous frame's Scharr
         # planes on every level, then K1
         e.update(pyr_down=2 * (f.levels - 1) * (t - 1),
-                 scharr_gradients=f.levels * (t - 1), ekf_fused_step=t - 1)
+                 scharr_gradients=f.levels * (t - 1),
+                 ekf_fused_step=(t - 1) * takes_k1(cfg))
         return e
     plan = farneback_levels(h, w, f.levels, f.pyr_scale)
     for (_k, lh, lw, _s, _ks) in plan:
@@ -845,30 +1019,35 @@ def per_frame_expected(cfg, h, w, t) -> dict:
             e["flow_update"] += f.iterations * (t - 1)
         elif f.fi_level_fused and fits(lh, lw, 2 if f.bf16_poly else 4):
             e["flow_level"] += t - 1
+        elif f.fi_pipeline and f.iterations >= 2:
+            e["flow_iters_pipelined"] += t - 1
         else:
             e["flow_iter"] += f.iterations * (t - 1)
     if f.pe_fused:
         e.update(poly_expansion_planar=t, coarse_polyexp_fused=t)
     else:
         e.update(poly_expansion_planar=t * len(plan), coarse_level_images=t)
-    e["ekf_fused_step"] = t - 1
+    e["ekf_fused_step"] = (t - 1) * takes_k1(cfg)
     return e
 
 
 def pair_expected(cfg, h, w, clips, t) -> dict:
     """Launches of a pair-batched run over `clips` clips of t frames: one
-    K7b and one K7a for all frames, one K6 per level iteration, and K1
-    once per step of each clip (the clips are filtered in turn; clips=0
-    for flow alone)."""
+    K7b and one K7a for all frames, one K6 (fast warp) or K8-pairs (exact
+    warp) per level iteration, and K1 once per step of each clip where
+    `takes_k1` (the clips are filtered in turn; clips=0 for flow
+    alone)."""
     from kalman_hydra_tpu_torch import kernels
     from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
     e = dict.fromkeys(kernels.WRAPPERS, 0)
-    e.update(poly_expansion_planar_batch=1, coarse_polyexp_fused_batch=1,
-             flow_iter_pairs=len(farneback_levels(h, w, f.levels,
-                                                  f.pyr_scale))
-             * f.iterations,
-             ekf_fused_step=clips * (t - 1))
+    flow_kernel = "flow_iter_pairs" if f.fast_warp > 0 else \
+        "flow_update_pairs"
+    e.update({"poly_expansion_planar_batch": 1,
+              "coarse_polyexp_fused_batch": 1,
+              flow_kernel: len(farneback_levels(h, w, f.levels, f.pyr_scale))
+              * f.iterations,
+              "ekf_fused_step": clips * (t - 1) * takes_k1(cfg)})
     return e
 
 
@@ -991,13 +1170,15 @@ def flow_vs_plain(dev, clip, cfgs):
         assert epe.mean().item() < 1e-3
 
 
-def small_configs(cfg, pair_cfg) -> dict:
+def small_configs(cfg, pair_cfg, cfgs) -> dict:
     """The configurations held card against CPU at 128x160 T=5, K=32: the
     main and pair paths cut to 3 levels, and configurations (a), (c), (d)
     and (e) of tests/test_torch_default_path.py and test_torch_smooth.py:
     RunConfig() itself, pe_fused=False, temporal_init + init_velocity at
-    both warps, and smoothing, monolithic and fixed-lag; and Lucas-Kanade:
-    sparse at halo 0 and 8, dense per frame and pair-batched."""
+    both warps, and smoothing, monolithic and fixed-lag; Lucas-Kanade:
+    sparse at halo 0 and 8, dense per frame and pair-batched; and paths
+    AP (at fi_level_fused=False, so that K13 runs on every level), BX (f32
+    and bf16 planes), I, P and W, cut to 3 levels and K=32."""
     from kalman_hydra_tpu_torch.config import (EkfConfig, FlowConfig,
                                                RunConfig, SmoothConfig,
                                                TrackConfig)
@@ -1031,21 +1212,40 @@ def small_configs(cfg, pair_cfg) -> dict:
         "lk_dense pair-batched": base.replace(
             flow=FlowConfig(method="lk_dense", fast_warp=8),
             pair_batch=True),
+        "BX bf16 planes": cfgs["BX"].replace(
+            flow=FlowConfig(bf16_poly=True), tracks=base.tracks),
     })
+    for name in ("AP", "BX", "I", "I ukf", "P", "P2", "W"):
+        c = cfgs[name]
+        flow = dataclasses.replace(c.flow, levels=3)
+        if name == "AP":
+            flow = dataclasses.replace(flow, fi_level_fused=False)
+        out[name] = c.replace(flow=flow, tracks=dataclasses.replace(
+            c.tracks, num_tracks=32, corner_pool=256))
     return out
 
 
 @phase("small clips: CUDA path vs CPU path (per-frame, pair-batched, "
-       "default, warm starts, smoothing, LK)")
-def small_vs_cpu(dev, cfg, pair_cfg):
-    from kalman_hydra_tpu_torch import api
+       "default, warm starts, smoothing, LK, K13, the exact pair path, "
+       "the measurement channels, track_precomputed_flow)")
+def small_vs_cpu(dev, cfg, pair_cfg, cfgs):
+    from kalman_hydra_tpu_torch import api, pipeline
     from kalman_hydra_tpu_torch.io.synthetic import moving_blob_clip
     clip, _ = moving_blob_clip(num_frames=5, height=128, width=160,
                                num_points=8, seed=0)
-    for name, small in small_configs(cfg, pair_cfg).items():
+    for name, small in small_configs(cfg, pair_cfg, cfgs).items():
         same_tracks(api.track_video(clip, small, device=dev),
                     api.track_video(clip, small, device="cpu"),
                     f"128x160 T=5 K=32 {name}: cuda vs cpu")
+    # Q: the filter over the CPU's flows from the CPU's seeds, on both
+    small = small_configs(cfg, pair_cfg, cfgs)["AP"]
+    flows = api.flow_sequence(clip, small, device="cpu")
+    seeds = api.track_video(clip, small, device="cpu").positions[0]
+    same_tracks(pipeline.track_precomputed_flow(flows, seeds, small,
+                                                device=dev),
+                pipeline.track_precomputed_flow(flows, seeds, small,
+                                                device="cpu"),
+                "128x160 T=5 K=32 Q (track_precomputed_flow): cuda vs cpu")
 
 
 @phase("path A throughput, fi_level_fused False and True in turns")
@@ -1272,6 +1472,118 @@ def path_j(dev, clip_j, cfg_j, counts_by_path, name):
                          T_J - 1, f"256x256, T={T_J}, K={k}; {name}")
 
 
+@phase("path AP (api.track_video, 1080p T=9 K=1024, fi_pipeline=True)")
+def path_ap(dev, clip, cfg_ap, counts_by_path, name):
+    """The headline graph with fi_pipeline (bench KH_FI_PIPE=1): K5 on
+    the four coarse levels, one K13 launch on each of the two above the
+    gate, no K2; held against path A's trajectories (the same values)."""
+    from kalman_hydra_tpu_torch import api
+    tr = drive("AP", lambda: api.track_video(clip, cfg_ap, device=dev),
+               per_frame_expected(cfg_ap, H, W, T), counts_by_path)
+    assert counts_by_path["AP"]["flow_iter"] == 0
+    check_tracks(tr, T, K)
+    cfg_a = cfg_ap.replace(flow=dataclasses.replace(cfg_ap.flow,
+                                                    fi_pipeline=False))
+    same_tracks(tr, api.track_video(clip, cfg_a, device=dev),
+                "path AP vs path A (K13 vs 3 x K2 on the fine levels)")
+    return per_frame_fps("AP", lambda: api.track_video(clip, cfg_ap,
+                                                       device=dev),
+                         T - 1, f"1080p, T={T}, K={K}; {name}")
+
+
+@phase("path BX (api.track_video, RunConfig(pair_batch=True), 720p T=17)")
+def path_bx(dev, clip_b, cfg_bx, counts_by_path, name):
+    """The reference's defaults pair-batched: the exact gather of all 16
+    pairs and one K8-pairs launch per level iteration; held against the
+    per-frame path (RunConfig(): K8 per pair, the same values at f32)."""
+    from kalman_hydra_tpu_torch import api
+    k = cfg_bx.tracks.num_tracks
+    tr = drive("BX", lambda: api.track_video(clip_b, cfg_bx, device=dev),
+               pair_expected(cfg_bx, H_B, W_B, 1, T_B), counts_by_path)
+    check_tracks(tr, T_B, k)
+    same_tracks(tr, api.track_video(clip_b, cfg_bx.replace(
+        pair_batch=False), device=dev),
+        "pair path (K8-pairs) vs per-frame path (K8)")
+    return per_frame_fps("BX", lambda: api.track_video(clip_b, cfg_bx,
+                                                       device=dev),
+                         T_B - 1, f"720p, T={T_B}, K={k}; {name}")
+
+
+@phase("path I (AP with the implicit-flow IEKF, then the UKF, 1080p T=9)")
+def path_i(dev, clip, cfgs_i, counts_by_path, name):
+    """The 6-state implicit-flow IEKF (iekf_iters 2) and the UKF over
+    AP's flow: AP's flow launches, no K1 (a nonlinear measurement takes
+    the plain update, as in the reference)."""
+    from kalman_hydra_tpu_torch import api
+    med = None
+    for label, c in cfgs_i.items():
+        tr = drive(label, lambda c=c: api.track_video(clip, c, device=dev),
+                   per_frame_expected(c, H, W, T), counts_by_path)
+        check_tracks(tr, T, K)
+        m = per_frame_fps(label, lambda c=c: api.track_video(
+            clip, c, device=dev), T - 1, f"1080p, T={T}, K={K}; {name}")
+        med = med or m
+    return med
+
+
+@phase("path P (RunConfig() photometric, then flow_photometric + "
+       "adaptive_q + seed_in_body, 1080p T=9)")
+def path_p(dev, clip, cfgs_p, counts_by_path, name):
+    """measurement="photometric": Gauss-Newton on the frames, no flow and
+    no kernel launch; then flow_photometric with adaptive_q 0.3 and
+    seed_in_body: D's flow launches (K8 after the exact gather, K3, K4),
+    no K1 (per-track Q)."""
+    from kalman_hydra_tpu_torch import api
+    med = None
+    for label, c in cfgs_p.items():
+        k = c.tracks.num_tracks
+        tr = drive(label, lambda c=c: api.track_video(clip, c, device=dev),
+                   per_frame_expected(c, H, W, T), counts_by_path)
+        check_tracks(tr, T, k)
+        m = per_frame_fps(label, lambda c=c: api.track_video(
+            clip, c, device=dev), T - 1, f"1080p, T={T}, K={k}; {name}")
+        med = med or m
+    return med
+
+
+@phase("path W (docs/WALKTHROUGH.md section 3, 1080p T=9)")
+def path_w(dev, clip, cfg_w, counts_by_path, name):
+    """Sparse LK (lk_block_halo 8), 6-state, adaptive_q 0.3, fixed-lag 8:
+    H's launches (K9, K10, K12), the plain update; smoothed positions
+    finite."""
+    from kalman_hydra_tpu_torch import api
+    k = cfg_w.tracks.num_tracks
+    tr = drive("W", lambda: api.track_video(clip, cfg_w, device=dev),
+               per_frame_expected(cfg_w, H, W, T), counts_by_path)
+    check_tracks(tr, T, k)
+    assert tr.smoothed is not None and np.isfinite(tr.smoothed).all()
+    return per_frame_fps("W", lambda: api.track_video(clip, cfg_w,
+                                                      device=dev),
+                         T - 1, f"1080p, T={T}, K={k}; {name}")
+
+
+@phase("path Q (pipeline.track_precomputed_flow over AP's 8 flows)")
+def path_q(dev, clip, cfg_ap, counts_by_path, name):
+    """The filter alone over AP's own frame-pair flows from AP's 1024
+    seeds: K1 once a step; held against the same call on the CPU."""
+    from kalman_hydra_tpu_torch import api, pipeline
+    flows = api.flow_sequence(clip, cfg_ap, device=dev)
+    seeds = api.track_video(clip, cfg_ap, device=dev).positions[0]
+    cfg_q = cfg_ap.replace(tracks=dataclasses.replace(cfg_ap.tracks,
+                                                      reinit=False))
+    e = per_frame_expected(cfg_q, H, W, T)
+    e = {k: (v if k == "ekf_fused_step" else 0) for k, v in e.items()}
+    tr = drive("Q", lambda: pipeline.track_precomputed_flow(
+        flows, seeds, cfg_q, device=dev), e, counts_by_path)
+    check_tracks(tr, T, K)
+    same_tracks(tr, pipeline.track_precomputed_flow(flows, seeds, cfg_q,
+                                                    device="cpu"),
+                "track_precomputed_flow, card vs CPU")
+    return per_frame_fps("Q", lambda: pipeline.track_precomputed_flow(
+        flows, seeds, cfg_q, device=dev), T - 1,
+        f"steps/s, 1080p flows, K={K}; {name}")
+
+
 def profile_path(label, fn, steps, trace_path, clip_s):
     """Device busy time, idle share and the top device consumers of one
     warm run of `fn` (a path's clip or clip batch, `steps` frame steps);
@@ -1326,7 +1638,8 @@ def profile_path(label, fn, steps, trace_path, clip_s):
     run()
 
 
-_KERNELS = {   # wrapper: (CUDA source, TPU entry point it replaces)
+_KERNELS = {   # wrapper: (CUDA source, TPU entry point it replaces, in
+    #           kalman_hydra_tpu/kernels/ unless a path is given)
     "ekf_fused_step": ("ekf.cu", "ekf_pallas.py:171"),
     "flow_iter": ("flow_iter.cu", "flow_iter_pallas.py:802"),
     "poly_expansion_planar": ("polyexp.cu", "polyexp_pallas.py:140"),
@@ -1341,6 +1654,12 @@ _KERNELS = {   # wrapper: (CUDA source, TPU entry point it replaces)
     "pyr_down": ("pyramid.cu", "pyramid_pallas.py:76"),
     "scharr_gradients": ("scharr.cu", "scharr_pallas.py:71"),
     "lk_level": ("lk.cu", "lk_pallas.py:256"),
+    "flow_iters_pipelined": ("flow_iters_pipe.cu",
+                             "flow_iter_pallas.py:717"),
+    # the port's own pair variant of K8: no Pallas kernel, it replaces the
+    # reference's vmapped plain-XLA exact-warp pair update
+    "flow_update_pairs": ("flow_update.cu",
+                          "kalman_hydra_tpu/ops/farneback.py:633"),
 }
 
 
@@ -1354,11 +1673,19 @@ def path_configs(pipeline) -> dict:
     :181-241: lk_sparse, 5 levels, lk_block_halo 8, corr_conv, 6-state,
     K=1024, corner_pool 1024, reinit_every 1); H0 the reference's
     lk_sparse defaults; J BASELINE config 1 (bench.py:781-793: lk_dense,
-    fast_warp 8, 4-state, K=256, corner_pool 256, reinit_every 1)."""
+    fast_warp 8, 4-state, K=256, corner_pool 256, reinit_every 1); AP
+    A with fi_pipeline (bench.py:88, KH_FI_PIPE=1); BX RunConfig() with
+    pair_batch; I (and "I ukf") AP with the 6-state implicit-flow IEKF at
+    iekf_iters 2 (the UKF); P RunConfig() with measurement="photometric",
+    P2 with "flow_photometric", adaptive_q 0.3 and seed_in_body; W
+    docs/WALKTHROUGH.md section 3 verbatim (lk_sparse, lk_block_halo 8,
+    6-state, adaptive_q 0.3, position, fixed-lag 8, impl "pallas")."""
     from kalman_hydra_tpu_torch.config import (EkfConfig, FlowConfig,
                                                RunConfig, SmoothConfig,
                                                TrackConfig)
     cfg = pipeline.main_path_config(num_tracks=K)
+    cfg_ap = cfg.replace(flow=dataclasses.replace(cfg.flow, fi_pipeline=True))
+    iekf = EkfConfig(state_dim=6, measurement="implicit_flow", iekf_iters=2)
     return {
         "A": cfg,
         "B": pipeline.pair_path_config(num_tracks=K),
@@ -1387,15 +1714,29 @@ def path_configs(pipeline) -> dict:
                        tracks=TrackConfig(num_tracks=256, corner_pool=256,
                                           reinit_every=1),
                        impl="pallas"),
+        "AP": cfg_ap,
+        "BX": RunConfig(pair_batch=True),
+        "I": cfg_ap.replace(ekf=iekf),
+        "I ukf": cfg_ap.replace(ekf=dataclasses.replace(
+            iekf, filter_type="ukf")),
+        "P": RunConfig(ekf=EkfConfig(measurement="photometric")),
+        "P2": RunConfig(ekf=EkfConfig(measurement="flow_photometric",
+                                      adaptive_q=0.3),
+                        tracks=TrackConfig(seed_in_body=True)),
+        "W": RunConfig(flow=FlowConfig(method="lk_sparse", lk_block_halo=8),
+                       ekf=EkfConfig(state_dim=6, adaptive_q=0.3,
+                                     measurement="position"),
+                       smooth=SmoothConfig(enabled=True, lag=8),
+                       impl="pallas"),
     }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="TRACE_JSON", default=None,
-                    help="also profile one warm run of paths A-D and H "
-                         "and write each Chrome trace beside this name "
-                         "(_A ... _D, _H)")
+                    help="also profile one warm run of paths A-D, H and "
+                         "AP and write each Chrome trace beside this name "
+                         "(_A ... _D, _H, _AP)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this check "
@@ -1411,6 +1752,7 @@ def main() -> int:
     from kalman_hydra_tpu_torch.kernels import _build
     from kalman_hydra_tpu_torch.ops.color import grayscale_u8
 
+    t_start = time.perf_counter()
     name = card()
     log(f"card: {name}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1450,9 +1792,12 @@ def main() -> int:
     check_k9(dev, gray, results)
     check_k10(dev, gray, results)
     check_k12(dev, clip, cfgs["H"], results)
+    check_k13(dev, clip, cfgs["AP"], results)
+    check_k8_pairs(dev, clip_b, cfgs["BX"], results)
     path_a(dev, clip, cfg, counts_by_path)
-    flow_vs_plain(dev, clip, {k: cfgs[k] for k in ("A", "D", "D2", "E")})
-    small_vs_cpu(dev, cfg, pair_cfg)
+    flow_vs_plain(dev, clip, {k: cfgs[k]
+                              for k in ("A", "D", "D2", "E", "AP")})
+    small_vs_cpu(dev, cfg, pair_cfg, cfgs)
     walls = {"A": throughput_a(dev, clip, cfg, name),
              "B": path_b(dev, clip_b, pair_cfg, counts_by_path, name),
              "C": path_c(dev, clips_c, cfgs["C"], counts_by_path, name),
@@ -1463,7 +1808,15 @@ def main() -> int:
              "G": path_g(dev, clip_f, cfgs["G"], counts_by_path, name),
              "H": path_h(dev, clip, cfgs["H"], counts_by_path, name),
              "H0": path_h0(dev, clip, cfgs["H0"], counts_by_path, name),
-             "J": path_j(dev, clip_j, cfgs["J"], counts_by_path, name)}
+             "J": path_j(dev, clip_j, cfgs["J"], counts_by_path, name),
+             "AP": path_ap(dev, clip, cfgs["AP"], counts_by_path, name),
+             "BX": path_bx(dev, clip_b, cfgs["BX"], counts_by_path, name),
+             "I": path_i(dev, clip, {k: cfgs[k] for k in ("I", "I ukf")},
+                         counts_by_path, name),
+             "P": path_p(dev, clip, {k: cfgs[k] for k in ("P", "P2")},
+                         counts_by_path, name),
+             "W": path_w(dev, clip, cfgs["W"], counts_by_path, name),
+             "Q": path_q(dev, clip, cfgs["AP"], counts_by_path, name)}
     if args.profile:
         from kalman_hydra_tpu_torch import api
         runs = {"A": (lambda: api.track_video(clip, cfg, device=dev), T - 1),
@@ -1474,7 +1827,9 @@ def main() -> int:
                       N_CLIPS * (T - 1)),
                 "D": (lambda: api.track_video(clip, device=dev), T - 1),
                 "H": (lambda: api.track_video(clip, cfgs["H"], device=dev),
-                      T - 1)}
+                      T - 1),
+                "AP": (lambda: api.track_video(clip, cfgs["AP"],
+                                               device=dev), T - 1)}
         trace = Path(args.profile)
         for label, (fn, steps) in runs.items():
             profile_path(label, fn, steps, str(trace.with_name(
@@ -1493,7 +1848,8 @@ def main() -> int:
             FAILURES.append(f"{kname} never launched on its path")
         rows.append({"name": kname, "route": "cuda",
                      "source": f"kalman_hydra_tpu_torch/csrc/{cu}",
-                     "replaces": f"kalman_hydra_tpu/kernels/{tpu}",
+                     "replaces": tpu if "/" in tpu
+                     else f"kalman_hydra_tpu/kernels/{tpu}",
                      "launches": launches,
                      "max_abs_err": r.get("max_abs_err"),
                      "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
@@ -1502,6 +1858,8 @@ def main() -> int:
                      "library_ms": r.get("library_ms")})
     if set(_KERNELS) != set(kernels.WRAPPERS):
         FAILURES.append("the kernels line does not list every wrapper")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+        "build included")
     if FAILURES:
         log(f"chip_smoke FAILED phases: {FAILURES}")
         return 1

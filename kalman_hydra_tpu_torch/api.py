@@ -4,7 +4,10 @@ With no config every entry point runs the reference's default, as the
 reference does: `RunConfig()` (exact warp, f32 planes, 4-state CV
 filter, 256 tracks, a fresh corner pool every frame), or `FlowConfig()`
 for `flow`. Lucas-Kanade configs (`FlowConfig.method` "lk_sparse" or
-"lk_dense") run through the same entry points. Only in-memory clips are
+"lk_dense") and every measurement channel but the mesh render
+(`EkfConfig.measurement`, `filter_type`, `adaptive_q`) run through the
+same entry points; `pipeline.track_precomputed_flow` tracks over
+supplied flows. Only in-memory clips are
 ported so far: file decode and
 streaming wait for ROADMAP P12. Every entry point runs on the card unless
 the caller passes device="cpu"; without a card it raises.

@@ -1,9 +1,10 @@
 """Carry state between the JAX reference and the port.
 
 The tracker has no learned weights: its whole state is the track pool
-(TrackState) plus the per-frame carry (previous gray frame, the cached
-flow pyramid, the corner pool, the step counter, the fixed-lag
-smoother's window and the temporal warm start's previous flow). Given one
+(TrackState, with adaptive_q's per-track Q scales or None) plus the
+per-frame carry (previous gray frame, the cached flow pyramid, the
+corner pool, the step counter, the fixed-lag smoother's window and the
+temporal warm start's previous flow). Given one
 configuration (the port's own RunConfig, which a reference config
 becomes through `RunConfig.from_json(cfg.to_json())`), that state is
 everything both packages need to compute the same next step. The
@@ -56,14 +57,20 @@ def tree_to_numpy(tree):
 
 
 def tracks_to_torch(tracks, device) -> TrackState:
-    """Any object with TrackState's fields (NumPy-convertible) -> the
-    port's TrackState on `device`."""
+    """Any object with TrackState's fields (NumPy-convertible; q_scale
+    None or absent unless adaptive_q) -> the port's TrackState on
+    `device`."""
+    q = getattr(tracks, "q_scale", None)
     return TrackState(**{f: array_to_torch(getattr(tracks, f), device)
-                         for f in _TRACK_FIELDS})
+                         for f in _TRACK_FIELDS},
+                      q_scale=None if q is None else array_to_torch(q, device))
 
 
 def tracks_to_numpy(tracks: TrackState) -> dict:
-    return {f: tensor_to_numpy(getattr(tracks, f)) for f in _TRACK_FIELDS}
+    out = {f: tensor_to_numpy(getattr(tracks, f)) for f in _TRACK_FIELDS}
+    out["q_scale"] = (None if tracks.q_scale is None
+                      else tensor_to_numpy(tracks.q_scale))
+    return out
 
 
 def carry_to_torch(carry, device) -> Carry:

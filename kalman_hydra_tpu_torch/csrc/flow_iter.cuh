@@ -75,6 +75,44 @@ __device__ __forceinline__ void normal_eqs_at(const PT* __restrict__ R0,
   M[4 * plane + o] = axy * db_x + a_yy * db_y;
 }
 
+// normal_eqs_at with every product and sum rounded on its own, in the
+// order of the plain version's elementwise torch ops (no fused
+// multiply-add): the M that K8-pairs rounds to bf16 is then the plain
+// version's M bit for bit, so both round it to the same bf16 value (a
+// one-ulp f32 difference at a bf16 rounding boundary would move that M
+// sample by a bf16 ulp, 2^-8 relative).
+template <typename PT>
+__device__ __forceinline__ void normal_eqs_exact_at(const PT* __restrict__ R0,
+                                                    const float q[5],
+                                                    float dx, float dy,
+                                                    int h, int w, int r,
+                                                    int c, float* M) {
+  const long plane = (long)h * w;
+  const long o = (long)r * w + c;
+  float a_xx = __fmul_rn(__fadd_rn(load(R0 + 2 * plane + o), q[2]), 0.5f);
+  float a_yy = __fmul_rn(__fadd_rn(load(R0 + 3 * plane + o), q[3]), 0.5f);
+  float axy = __fmul_rn(__fadd_rn(load(R0 + 4 * plane + o), q[4]), 0.25f);
+  float db_x = __fadd_rn(
+      __fadd_rn(__fmul_rn(__fsub_rn(load(R0 + o), q[0]), 0.5f),
+                __fmul_rn(a_xx, dx)),
+      __fmul_rn(axy, dy));
+  float db_y = __fadd_rn(
+      __fadd_rn(__fmul_rn(__fsub_rn(load(R0 + plane + o), q[1]), 0.5f),
+                __fmul_rn(axy, dx)),
+      __fmul_rn(a_yy, dy));
+  const float damp = __fmul_rn(damp1(r, h), damp1(c, w));
+  a_xx = __fmul_rn(a_xx, damp);
+  a_yy = __fmul_rn(a_yy, damp);
+  axy = __fmul_rn(axy, damp);
+  db_x = __fmul_rn(db_x, damp);
+  db_y = __fmul_rn(db_y, damp);
+  M[o] = __fadd_rn(__fmul_rn(a_xx, a_xx), __fmul_rn(axy, axy));
+  M[plane + o] = __fmul_rn(__fadd_rn(a_xx, a_yy), axy);
+  M[2 * plane + o] = __fadd_rn(__fmul_rn(a_yy, a_yy), __fmul_rn(axy, axy));
+  M[3 * plane + o] = __fadd_rn(__fmul_rn(a_xx, db_x), __fmul_rn(axy, db_y));
+  M[4 * plane + o] = __fadd_rn(__fmul_rn(axy, db_x), __fmul_rn(a_yy, db_y));
+}
+
 // Phase 1 at (r, c): warp R1 by `flow` (2, h, w), write M (5, h, w).
 template <typename PT>
 __device__ __forceinline__ void m_at(const PT* __restrict__ R0,

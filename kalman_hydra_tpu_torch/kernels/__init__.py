@@ -15,6 +15,8 @@
 | scharr.scharr_gradients (K10) | csrc/scharr.cu | scharr_pallas.py::scharr_gradients |
 | level_image.coarse_level_images (K11) | csrc/level_image.cu | level_image_pallas.py::farneback_images_pallas |
 | lk.lk_level (K12) | csrc/lk.cu | lk_pallas.py::lk_sparse (_lk_level) |
+| flow_iter.flow_iters_pipelined (K13) | csrc/flow_iters_pipe.cu | flow_iter_pallas.py::flow_iters_pipelined |
+| flow_update.flow_update_pairs (K8-pairs) | csrc/flow_update.cu | no Pallas kernel: the pair-batched exact warp's plain XLA (ops/farneback.py:633-640) |
 
 Each wrapper dispatches by device: a CPU tensor takes the plain PyTorch
 version beside it, a CUDA tensor launches the kernel or raises. Each
@@ -25,9 +27,9 @@ its kernel.
 from __future__ import annotations
 
 from .ekf import ekf_fused_step
-from .flow_iter import flow_iter, flow_iter_pairs
+from .flow_iter import flow_iter, flow_iter_pairs, flow_iters_pipelined
 from .flow_level import flow_level
-from .flow_update import flow_update
+from .flow_update import flow_update, flow_update_pairs
 from .level_image import (coarse_level_images, coarse_polyexp_fused,
                           coarse_polyexp_fused_batch)
 from .lk import lk_level
@@ -49,6 +51,8 @@ WRAPPERS = {
     "pyr_down": pyr_down,
     "scharr_gradients": scharr_gradients,
     "lk_level": lk_level,
+    "flow_iters_pipelined": flow_iters_pipelined,
+    "flow_update_pairs": flow_update_pairs,
 }
 
 

@@ -1,5 +1,6 @@
-"""K2 and K6 wrappers: one fine-level Farneback iteration for one frame
-pair (K2) or for B pairs of one frame stack (K6), csrc/flow_iter.cu.
+"""K2, K6 and K13 wrappers: one fine-level Farneback iteration for one
+frame pair (K2) or for B pairs of one frame stack (K6), csrc/flow_iter.cu;
+all iterations of one level in one launch (K13), csrc/flow_iters_pipe.cu.
 
 K2 replaces kalman_hydra_tpu/kernels/flow_iter_pallas.py::flow_iter:
 R0, R1 (5, h, w) unwarped polyexp planes (bf16 or f32), flow (2, h, w)
@@ -15,8 +16,8 @@ Rall (`pair_frames`). Both wrappers launch the same CUDA kernels, so K6
 equals per-pair K2 bit for bit. The planes go in unpadded: the kernels
 clamp their indices where the TPU kernels read edge-padded slabs.
 
-CPU tensors take `flow_iter_plain` / `flow_iter_pairs_plain`; CUDA
-tensors launch the kernel, or raise.
+CPU tensors take `flow_iter_plain` / `flow_iter_pairs_plain` /
+`flow_iters_pipelined_plain`; CUDA tensors launch the kernel, or raise.
 """
 
 from __future__ import annotations
@@ -72,10 +73,12 @@ def flow_iter_plain(R0, R1, flow, winsize: int, max_disp: int,
                         *window_weights(winsize, bool(gaussian)))
 
 
-def solve_warped(R0, R1w, flow, wts, post: float) -> torch.Tensor:
+def solve_warped(R0, R1w, flow, wts, post: float,
+                 round_m: bool = False) -> torch.Tensor:
     """Steps 2-4 of an iteration, given R1 already warped: the damped
-    normal equations, the window `wts` (then `post`) over M with a
-    replicate border, the 2x2 solve. The plain arithmetic of K2 and K8."""
+    normal equations (rounded to bf16 with round_m, K8-pairs' bf16
+    store), the window `wts` (then `post`) over M with a replicate
+    border, the 2x2 solve. The plain arithmetic of K2 and K8."""
     _, h, w = R0.shape
     dx, dy = flow[0], flow[1]
     a_xx = (R0[2] + R1w[2]) * 0.5
@@ -89,6 +92,8 @@ def solve_warped(R0, R1w, flow, wts, post: float) -> torch.Tensor:
     M = torch.stack([a_xx * a_xx + axy * axy, (a_xx + a_yy) * axy,
                      a_yy * a_yy + axy * axy, a_xx * db_x + axy * db_y,
                      axy * db_x + a_yy * db_y])
+    if round_m:
+        M = M.to(torch.bfloat16).to(torch.float32)
     bw = len(wts) // 2
     Mp = pad1d(M, bw, bw, 1, "replicate")
     Mv = sum(float(wk) * Mp[:, k:k + h, :] for k, wk in enumerate(wts))
@@ -211,3 +216,62 @@ def flow_iter_pairs(Rall, flow_b, winsize: int, max_disp: int,
 
 
 flow_iter_pairs.launches = 0
+
+
+def band_rows(winsize: int) -> int:
+    """K13's band height: 8 rows (the fastest of 7-32 at 1080p and
+    540x960 on an H100, PERF.md), and never fewer than the window's half
+    width (a band's M halo must lie in its two neighbours)."""
+    return max(8, winsize // 2)
+
+
+def flow_iters_pipelined_plain(R0, R1, flow, winsize: int, max_disp: int,
+                               n_iters: int,
+                               gaussian: bool = False) -> torch.Tensor:
+    for _ in range(n_iters):
+        flow = flow_iter_plain(R0, R1, flow, winsize, max_disp, gaussian)
+    return flow
+
+
+def flow_iters_pipelined(R0, R1, flow, winsize: int, max_disp: int,
+                         n_iters: int,
+                         gaussian: bool = False) -> torch.Tensor:
+    """K13: all `n_iters` (>= 2) iterations of one level in one launch,
+    (5,h,w) x2 + (2,h,w) -> (2,h,w); the same values as n_iters K2
+    launches (csrc/flow_iters_pipe.cu)."""
+    if n_iters < 2:
+        raise ValueError("flow_iters_pipelined needs n_iters >= 2 "
+                         "(use flow_iter for a single iteration)")
+    if R0.device.type == "cpu":
+        return flow_iters_pipelined_plain(R0, R1, flow, winsize, max_disp,
+                                          n_iters, gaussian)
+    _build.require(R0, "R0", PLANE_DTYPES, 3)
+    _build.require(R1, "R1", (R0.dtype,), 3)
+    _build.require(flow, "flow", (torch.float32,), 3)
+    _, h, w = R0.shape
+    if R0.shape[0] != 5 or R1.shape != R0.shape or flow.shape != (2, h, w):
+        raise ValueError(f"flow_iters_pipelined: R0 {tuple(R0.shape)}, R1 "
+                         f"{tuple(R1.shape)}, flow {tuple(flow.shape)}")
+    wts, post = device_window(R0.device, winsize, gaussian)
+    th = band_rows(winsize)
+    dev = R0.device
+    M = torch.empty((3, 5, h, w), dtype=torch.float32, device=dev)
+    Mv = torch.empty((5, h, w), dtype=torch.float32, device=dev)
+    inter = torch.empty((n_iters - 1, 2, h, w), dtype=torch.float32,
+                        device=dev)
+    out = torch.empty((2, h, w), dtype=torch.float32, device=dev)
+    counters = torch.empty(-(-h // th) + 1, dtype=torch.int32, device=dev)
+    P, I = _build.P, _build.I
+    fn = _build.function("kh_flow_iters_pipe", P, P, I, P, I, I, I, P, I,
+                         _build.F, I, I, P, P, P, P, P, P)
+    rc = fn(R0.data_ptr(), R1.data_ptr(), int(R0.dtype == torch.bfloat16),
+            flow.data_ptr(), h, w, int(max_disp), wts.data_ptr(),
+            wts.shape[0], post, int(n_iters), th, M.data_ptr(),
+            Mv.data_ptr(), inter.data_ptr(), out.data_ptr(),
+            counters.data_ptr(), _build.stream(R0))
+    _build.check(rc, "kh_flow_iters_pipe")
+    flow_iters_pipelined.launches += 1
+    return out
+
+
+flow_iters_pipelined.launches = 0

@@ -10,8 +10,17 @@ TPU kernel does not factor it, unlike K2's `window_weights`), the cv2
 Gaussian otherwise, and no post-scale. f32 only, as the TPU kernel is: a
 caller with bf16 planes upcasts (ops/farneback.py does).
 
-CPU tensors take `flow_update_plain`; CUDA tensors launch the kernel, or
-raise.
+K8-pairs (`flow_update_pairs`) is the port's own pair variant: K8 over
+B frame pairs in one launch (the pair index in blockIdx.z, as K6 is
+K2's), for the pair-batched exact warp, which the reference computes in
+plain XLA (ops/farneback.py:633-640, update_matrices_p/update_flow_p
+vmapped over the pairs; no Pallas kernel). Pair b reads R0 at its first
+frame of the (N, 5, h, w) plane stack (`pair_frames`), in bf16 or f32,
+and its own warped R1w. With round_m M is rounded to bf16 where the
+reference's update_matrices_p stores it in the bf16 plane dtype.
+
+CPU tensors take `flow_update_plain` / `flow_update_pairs_plain`; CUDA
+tensors launch the kernel, or raise.
 """
 
 from __future__ import annotations
@@ -22,7 +31,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .flow_iter import solve_warped
+from .flow_iter import (PLANE_DTYPES, check_pairs, pair_frames,
+                        solve_warped)
 from ..ops.filters import gaussian_kernel
 
 
@@ -83,3 +93,52 @@ def flow_update(R0, R1w, flow, winsize: int,
 
 
 flow_update.launches = 0
+
+
+def flow_update_pairs_plain(Rall, R1w_b, flow_b, winsize: int,
+                            gaussian: bool = False, clip_len: int = 0,
+                            round_m: bool = False) -> torch.Tensor:
+    check_pairs(Rall.shape[0], flow_b.shape[0], clip_len)
+    wts = update_weights(winsize, bool(gaussian))
+    return torch.stack([
+        solve_warped(Rall[p].to(torch.float32), R1w_b[b], flow_b[b], wts,
+                     1.0, round_m)
+        for b, p in enumerate(pair_frames(flow_b.shape[0], clip_len))])
+
+
+def flow_update_pairs(Rall, R1w_b, flow_b, winsize: int,
+                      gaussian: bool = False, clip_len: int = 0,
+                      round_m: bool = False) -> torch.Tensor:
+    """K8 for every pair of an (N, 5, h, w) plane stack: R1w_b
+    (B, 5, h, w) and flow_b (B, 2, h, w) f32 -> (B, 2, h, w)."""
+    if Rall.device.type == "cpu":
+        return flow_update_pairs_plain(Rall, R1w_b, flow_b, winsize,
+                                       gaussian, clip_len, round_m)
+    _build.require(Rall, "Rall", PLANE_DTYPES, 4)
+    _build.require(R1w_b, "R1w_b", (torch.float32,), 4)
+    _build.require(flow_b, "flow_b", (torch.float32,), 4)
+    N, _, h, w = Rall.shape
+    B = flow_b.shape[0]
+    if (Rall.shape[1] != 5 or R1w_b.shape != (B, 5, h, w)
+            or flow_b.shape != (B, 2, h, w)):
+        raise ValueError(f"flow_update_pairs: Rall {tuple(Rall.shape)}, "
+                         f"R1w_b {tuple(R1w_b.shape)}, flow_b "
+                         f"{tuple(flow_b.shape)}")
+    check_pairs(N, B, clip_len)
+    wts = _weights_on(Rall.device, winsize, gaussian)
+    M = torch.empty((B, 5, h, w), dtype=torch.float32, device=Rall.device)
+    Mv = torch.empty_like(M)
+    out = torch.empty((B, 2, h, w), dtype=torch.float32, device=Rall.device)
+    P, I = _build.P, _build.I
+    fn = _build.function("kh_flow_update_pairs", P, I, I, I, P, P, I, I, P,
+                         I, I, P, P, P, P)
+    rc = fn(Rall.data_ptr(), int(Rall.dtype == torch.bfloat16), B,
+            max(clip_len - 1, 0), R1w_b.data_ptr(), flow_b.data_ptr(), h, w,
+            wts.data_ptr(), wts.shape[0], int(round_m), M.data_ptr(),
+            Mv.data_ptr(), out.data_ptr(), _build.stream(Rall))
+    _build.check(rc, "kh_flow_update_pairs")
+    flow_update_pairs.launches += 1
+    return out
+
+
+flow_update_pairs.launches = 0

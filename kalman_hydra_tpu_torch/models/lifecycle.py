@@ -38,7 +38,8 @@ def reseed(state: TrackState, corner_pts: torch.Tensor,
            corner_score: torch.Tensor, ekf_cfg: EkfConfig,
            trk_cfg: TrackConfig) -> TrackState:
     """Fill dead slots, in index order, with the best corner candidates not
-    within min_distance of a living track (score order, ties by index)."""
+    within min_distance of a living track (score order, ties by index);
+    a fresh slot's adaptive Q scale restarts at 1."""
     K = state.x.shape[0]
     dev = state.x.device
     pos = state.x[:, 0:2]
@@ -60,10 +61,14 @@ def reseed(state: TrackState, corner_pts: torch.Tensor,
     x_seed = torch.zeros((K, n), dtype=torch.float32, device=dev)
     x_seed[:, 0:2] = new_pos
     P0 = torch.as_tensor(dynamics.initial_covariance(ekf_cfg), device=dev)
-    return state._replace(
+    state = state._replace(
         x=torch.where(ok[:, None], x_seed, state.x),
         P=torch.where(ok[:, None, None], P0[None], state.P),
         alive=state.alive | ok,
         misses=torch.where(ok, torch.zeros_like(state.misses),
                            state.misses),
         track_id=torch.where(ok, state.track_id + 1, state.track_id))
+    if state.q_scale is not None:
+        state = state._replace(q_scale=torch.where(
+            ok, torch.ones_like(state.q_scale), state.q_scale))
+    return state

@@ -40,11 +40,15 @@ def min_eig_response(gray: torch.Tensor, block_size: int = 3) -> torch.Tensor:
     return (a + c) - torch.sqrt((a - c) ** 2 + 4.0 * b * b)
 
 
-def corner_pool(gray: torch.Tensor, cfg: TrackConfig, pool_size: int = None):
+def corner_pool(gray: torch.Tensor, cfg: TrackConfig, pool_size: int = None,
+                mask: torch.Tensor = None):
     """Top-k tile-max corner candidates: (pts (P, 2) f32 (x, y),
-    score (P,) f32); slots without a confident corner carry score 0."""
+    score (P,) f32); slots without a confident corner carry score 0.
+    `mask` restricts the candidates to a {0, 1} region (seed_in_body)."""
     pool_size = pool_size or cfg.corner_pool
     resp = min_eig_response(gray, cfg.corner_block)
+    if mask is not None:
+        resp = torch.where(mask > 0, resp, torch.zeros_like(resp))
     h, w = resp.shape
     tile = max(int(cfg.min_distance), 1)
     ph = (tile - h % tile) % tile

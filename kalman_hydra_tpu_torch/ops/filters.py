@@ -89,12 +89,21 @@ def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float,
 
 def box_filter(x: torch.Tensor, size: int, dim: int,
                border: str = "replicate", normalize: bool = True):
-    """Odd-size box filter along one dim, summed in f32."""
+    """Odd-size box filter along one dim, summed in f32 in the reference's
+    order: for size = 3a >= 9 a 3-tap sum, then a of those at stride 3
+    (its _box_split3); otherwise tap after tap."""
     dim = dim % x.ndim
     r = size // 2
     n = x.shape[dim]
     xp = pad1d(x, r, r, dim, border).to(torch.float32)
-    out = xp.narrow(dim, 0, n)
-    for k in range(1, size):
-        out = out + xp.narrow(dim, k, n)
+    if size >= 9 and size % 3 == 0:
+        m = n + size - 3
+        xp = xp.narrow(dim, 0, m) + xp.narrow(dim, 1, m) \
+            + xp.narrow(dim, 2, m)
+        taps = [xp.narrow(dim, 3 * j, n) for j in range(size // 3)]
+    else:
+        taps = [xp.narrow(dim, k, n) for k in range(size)]
+    out = taps[0]
+    for t in taps[1:]:
+        out = out + t
     return out / size if normalize else out

@@ -1,5 +1,7 @@
 """Bilinear sampling and warping (port of kalman_hydra_tpu/ops/warp.py,
-and of the fast warp's contract, ops/farneback.py::_warp_poly_selectsum).
+and of the fast warp's contract, ops/farneback.py::_warp_poly_selectsum):
+sample_flow (and with its Jacobian, for the implicit-flow EKF), the
+row-stacked plane sampler of the photometric channel, dense warps.
 
 Coordinate convention: (x, y) with x = column, matching OpenCV. Samples
 outside the image clamp to the border pixel.
@@ -73,3 +75,45 @@ def sample_flow(flow: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     x = torch.clamp(pts[:, 0], 0.0, w - 1.001)
     y = torch.clamp(pts[:, 1], 0.0, h - 1.001)
     return bilinear_sample(flow.movedim(-1, 0), x, y).T
+
+
+def sample_flow_with_grad(flow: torch.Tensor, pts: torch.Tensor):
+    """Flow samples at (K, 2) points and the flow's spatial Jacobian
+    there, jac[:, i, j] = d flow_i / d p_j: central differences of the
+    (H, W, 2) field (borders zeroed where the roll wraps), bilinearly
+    sampled like the flow itself. Returns (vals (K, 2), jac (K, 2, 2))."""
+    h, w = flow.shape[0], flow.shape[1]
+    f = flow.movedim(-1, 0)
+    dx = (torch.roll(f, -1, dims=2) - torch.roll(f, 1, dims=2)) * 0.5
+    dy = (torch.roll(f, -1, dims=1) - torch.roll(f, 1, dims=1)) * 0.5
+    dx[:, :, 0] = 0
+    dx[:, :, -1] = 0
+    dy[:, 0, :] = 0
+    dy[:, -1, :] = 0
+    x = torch.clamp(pts[:, 0], 0.0, w - 1.001)
+    y = torch.clamp(pts[:, 1], 0.0, h - 1.001)
+    vals = bilinear_sample(f, x, y).T
+    jac = torch.stack([bilinear_sample(dx, x, y).T,
+                       bilinear_sample(dy, x, y).T], dim=-1)
+    return vals, jac
+
+
+def bilinear_sample_rows(planes: torch.Tensor, h: int, w: int,
+                         x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of C row-stacked planes, `planes` (H*W, C) (each
+    plane flattened row-major, stacked on the last axis), at float coords
+    x, y of one query shape -> (*query_shape, C). Border: clamp."""
+    c = planes.shape[-1]
+    x = torch.clamp(x, 0.0, w - 1.0)
+    y = torch.clamp(y, 0.0, h - 1.0)
+    x0 = torch.clamp(torch.floor(x), 0, w - 2).to(torch.int64)
+    y0 = torch.clamp(torch.floor(y), 0, h - 2).to(torch.int64)
+    fx = (x - x0.to(torch.float32))[..., None]
+    fy = (y - y0.to(torch.float32))[..., None]
+    base = y0 * w + x0
+
+    def g(i):
+        return planes[i.reshape(-1)].reshape(i.shape + (c,))
+
+    return (g(base) * (1 - fx) * (1 - fy) + g(base + 1) * fx * (1 - fy)
+            + g(base + w) * (1 - fx) * fy + g(base + w + 1) * fx * fy)

@@ -1,22 +1,30 @@
-"""Tracking pipeline (port of the Farneback + position-EKF paths of
-kalman_hydra_tpu/pipeline.py).
+"""Tracking pipeline (port of kalman_hydra_tpu/pipeline.py: the flow,
+sparse-LK and photometric measurement paths).
 
 Per-frame path (`track_arrays`): grayscale -> polyexp pyramid (K4 coarse
 levels and K3 full res; or K11 level images then K3 on every level at
 pe_fused=False) -> Farneback from the cached previous pyramid, warm-started
 from the previous pair's flow with `temporal_init` (K8 after the exact
 gather at fast_warp=0, the reference's default; else K5 on the levels
-under its gate with `fi_level_fused`, K2 elsewhere) -> sample the flow at
-the tracks -> fused predict + update (K1) -> gate, kill, reseed from a
-corner pool refreshed every `reinit_every` frames. `init_velocity` primes
-the seeds' velocities from a cold frame 0 -> 1 flow.
+under its gate with `fi_level_fused`, K13 on the others with
+`fi_pipeline`, K2 elsewhere) -> the measurement update: the flow sampled
+at the tracks and a fused predict + update (K1) for "position", the
+implicit-flow (I)EKF or the UKF otherwise, the plain update with
+adaptive_q -> with "flow_photometric" a second, photometric update ->
+gate, kill, reseed from a corner pool refreshed every `reinit_every`
+frames (within the segmented body with `seed_in_body`).
+`init_velocity` primes the seeds' velocities from a cold frame 0 -> 1
+flow. measurement="photometric" computes no flow: Gauss-Newton on the
+frames themselves (models/photometric.py) is the measurement.
 
 Pair-batched path (`RunConfig.pair_batch`, `track_arrays_pairflow`): the
 polyexp pyramids of every frame (K7b, K7a) and the flow of every frame
-pair (K6, one launch per level iteration) first, then the same
-EKF/lifecycle steps over the precomputed fields. `track_clips_pairflow`
-chains several clips through the same launches (`clip_len`), then filters
-each clip in turn (a loop over clips where the reference vmaps).
+pair (K6 per level iteration, or the exact gather and K8-pairs at
+fast_warp=0) first, then the same EKF/lifecycle steps over the
+precomputed fields. `track_clips_pairflow` chains several clips through
+the same launches (`clip_len`), then filters each clip in turn (a loop
+over clips where the reference vmaps). `track_precomputed_flow` runs the
+filter alone over a supplied flow sequence.
 
 Lucas-Kanade (`FlowConfig.method`): with "lk_sparse" each step tracks
 the filter's positions from the cached `lk_pyramid` of the previous
@@ -37,9 +45,9 @@ refresh cadence a plain `if`; the clip stays on the device and only the
 (T, K) trajectory rows leave it at the end.
 
 Only the ported slices run: `check_slice` raises NotImplementedError,
-naming the ROADMAP item, for any other setting. TPU-only knobs that do
-not change results (impl, pallas_interpret, fi_tile_h, fi_shift_skip,
-pe_tile_h) are ignored.
+naming the ROADMAP item, for any other setting (the mesh-render
+channels). TPU-only knobs that do not change results (impl,
+pallas_interpret, fi_tile_h, fi_shift_skip, pe_tile_h) are ignored.
 """
 
 from __future__ import annotations
@@ -56,16 +64,18 @@ from .io import Trajectories
 from .kernels.flow_iter import pair_count, pair_frames
 from .models import dynamics, lifecycle
 from .models.ekf import (TrackState, commit_update, ekf_step, init_tracks,
-                         predict, update)
+                         measurement_noise, predict, update)
+from .models.photometric import photometric_refine, photometric_step
 from .models.pixel_ekf import PixelEkfParams, smooth_flow_sequence
 from .models.rts import (fixed_lag_smooth, rts_smooth, rts_smooth_chunked,
                          segment_breaks)
 from .ops.color import grayscale_u8
-from .ops.farneback import (farneback_from_pyramids,
+from .ops.farneback import (farneback, farneback_from_pyramids,
                             farneback_pairs_from_pyramids, polyexp_pyramid,
                             polyexp_pyramid_batch)
 from .ops.features import corner_pool
 from .ops.lk import lk_dense, lk_pyramid, lk_sparse
+from .ops.segment import segment_body
 from .ops.warp import sample_flow
 
 _ROWS = ("pos", "alive", "nis", "track_id")
@@ -77,7 +87,8 @@ class Carry(NamedTuple):
     prev_gray: torch.Tensor     # (H, W) f32
     prev_rpyr: Tuple = ()       # cached pyramid of prev_gray: polyexp
     #                             levels (farneback), (pyr, grads) of
-    #                             lk_pyramid (lk_sparse), () (lk_dense)
+    #                             lk_pyramid (lk_sparse), () (lk_dense,
+    #                             and measurement="photometric")
     corner_cache: Tuple = ()    # (pts, score) pool reused between refreshes
     frame_idx: int = 0          # filter steps taken (reinit_every cadence)
     lag_buf: Tuple = ()         # (xf, Pf, xp, Pp, tid, alive) windows,
@@ -135,28 +146,24 @@ def check_slice(cfg: RunConfig, flow_only: bool = False) -> None:
     """Raise NotImplementedError for any setting outside the ported slice
     (with flow_only, for the settings that the flow of `flow_sequence`
     reads)."""
-    f, e, t = cfg.flow, cfg.ekf, cfg.tracks
-    outside = [
-        (f.fi_pipeline, "flow.fi_pipeline=True (ROADMAP K13)"),
-        (cfg.pair_batch and f.method == "farneback" and f.fast_warp <= 0,
-         "pair_batch with flow.fast_warp=0, the exact warp (ROADMAP P8b)"),
-    ]
-    if not flow_only:
-        outside += [
-            (t.seed_in_body, "tracks.seed_in_body (ROADMAP P11)"),
-            (e.adaptive_q > 0, "ekf.adaptive_q (ROADMAP P11)"),
-            (e.measurement != "position",
-             f"ekf.measurement={e.measurement!r} (ROADMAP P11)"),
-        ]
-    for bad, what in outside:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is outside the ported slice of kalman_hydra_tpu")
+    m = cfg.ekf.measurement
+    if not flow_only and m in ("render", "flow_render"):
+        raise NotImplementedError(
+            f"ekf.measurement={m!r}, the mesh-render channel (ROADMAP "
+            "P11b), is outside the ported slice of kalman_hydra_tpu")
+
+
+def _photometric(cfg: RunConfig) -> bool:
+    """measurement="photometric": no flow at all, no flow pyramids."""
+    return cfg.ekf.measurement == "photometric"
 
 
 def _flow_pyramid(gray: torch.Tensor, cfg: RunConfig) -> Tuple:
     """What the step caches of a frame for the next: its polyexp pyramid
-    (farneback), its lk_pyramid (lk_sparse), nothing (lk_dense)."""
+    (farneback), its lk_pyramid (lk_sparse), nothing (lk_dense, or
+    measurement="photometric")."""
+    if _photometric(cfg):
+        return ()
     if cfg.flow.method == "farneback":
         return polyexp_pyramid(gray, cfg.flow)
     if cfg.flow.method == "lk_sparse":
@@ -166,30 +173,48 @@ def _flow_pyramid(gray: torch.Tensor, cfg: RunConfig) -> Tuple:
 
 def _flow_field(prev_gray: torch.Tensor, gray: torch.Tensor,
                 cfg: RunConfig) -> torch.Tensor:
-    """Dense (H, W, 2) flow of one frame pair where no pyramid is cached:
-    lk_dense's (Farneback's always has its cached or batched pyramids)."""
-    if cfg.flow.method != "lk_dense":
-        raise ValueError(f"dense flow required, got {cfg.flow.method!r}")
-    return lk_dense(prev_gray, gray, cfg.flow)
+    """Dense (H, W, 2) flow of one frame pair from the frames alone,
+    where no pyramid is cached: lk_dense's, or Farneback's (in
+    photometric mode, for init_velocity's frame 0 -> 1 flow)."""
+    if cfg.flow.method == "farneback":
+        return farneback(prev_gray, gray, cfg.flow)
+    if cfg.flow.method == "lk_dense":
+        return lk_dense(prev_gray, gray, cfg.flow)
+    raise ValueError(f"dense flow required, got {cfg.flow.method!r}")
+
+
+def _seed_mask(gray: torch.Tensor, cfg: RunConfig):
+    """The segmented body that seeding is restricted to with
+    seed_in_body, else None."""
+    return segment_body(gray) if cfg.tracks.seed_in_body else None
+
+
+def _fresh_corner_pool(gray: torch.Tensor, cfg: RunConfig):
+    """A frame's corner pool as every step refreshes it (within the
+    segmented body with seed_in_body)."""
+    return corner_pool(gray, cfg.tracks, mask=_seed_mask(gray, cfg))
 
 
 def init_from_frame(frame0: torch.Tensor, cfg: RunConfig) -> Carry:
-    """Seed the track pool from frame 0's corner pool and cache its flow
-    pyramid (and, with reinit_every > 1, its corner pool); prime the
-    fixed-lag window and the cold warm-start field where configured."""
+    """Seed the track pool from frame 0's corner pool (within the
+    segmented body with seed_in_body) and cache its flow pyramid (and,
+    with reinit_every > 1, its corner pool); prime the fixed-lag window
+    and the cold warm-start field where configured."""
     gray0 = grayscale_u8(frame0)
+    mask = _seed_mask(gray0, cfg)
     pts, score = corner_pool(gray0, cfg.tracks,
-                             pool_size=cfg.tracks.num_tracks)
+                             pool_size=cfg.tracks.num_tracks, mask=mask)
     state = init_tracks(cfg.ekf, pts, valid=score > 0)
     corner_cache = ()
     if cfg.tracks.reinit and cfg.tracks.reinit_every > 1:
-        corner_cache = corner_pool(gray0, cfg.tracks)
+        corner_cache = corner_pool(gray0, cfg.tracks, mask=mask)
     lag_buf = _lag_buf_init(state, _lag(cfg)) if _lag(cfg) else ()
     # pair 0 -> 1 is a cold start (zeros == cv2 USE_INITIAL_FLOW with a
-    # zero field)
+    # zero field); the photometric channel computes no flow
     prev_flow = (torch.zeros(gray0.shape + (2,), dtype=torch.float32,
                              device=gray0.device)
-                 if cfg.flow.temporal_init else None)
+                 if cfg.flow.temporal_init and not _photometric(cfg)
+                 else None)
     return Carry(tracks=state, prev_gray=gray0,
                  prev_rpyr=_flow_pyramid(gray0, cfg),
                  corner_cache=corner_cache, frame_idx=0, lag_buf=lag_buf,
@@ -208,9 +233,10 @@ def _prime_init_velocity(carry0: Carry, frame1: torch.Tensor,
                          cfg: RunConfig) -> Carry:
     """Prime track velocities with the cold frame 0 -> 1 flow at the
     seeds (TrackConfig.init_velocity), reusing frame 0's cached polyexp
-    pyramid with Farneback; prev_flow is left as it was."""
+    pyramid with Farneback where there is one; prev_flow is left as it
+    was."""
     gray1 = grayscale_u8(frame1)
-    if cfg.flow.method == "farneback":
+    if cfg.flow.method == "farneback" and carry0.prev_rpyr:
         flow01 = farneback_from_pyramids(
             carry0.prev_rpyr, polyexp_pyramid(gray1, cfg.flow), cfg.flow)
     else:
@@ -255,12 +281,11 @@ def _filter_model(cfg: RunConfig, device):
     return F, Q, make_filter_tail(cfg, F)
 
 
-def make_flow_scan_step(cfg: RunConfig, device, model=None):
+def make_flow_scan_step(cfg: RunConfig, device):
     """EKF/lifecycle step over a given dense flow field:
     (tracks, lag_buf, flow (H, W, 2), corner pool (pts, score) or None)
-    -> (tracks, lag_buf, out). The step of the pair-batched paths, and
-    of the per-frame step's dense branch, which passes its `model`."""
-    F, Q, tail = model or _filter_model(cfg, device)
+    -> (tracks, lag_buf, out). The step of the pair-batched paths."""
+    F, Q, tail = _filter_model(cfg, device)
 
     def step(tracks: TrackState, lag_buf: Tuple, flow: torch.Tensor, pool):
         state, aux = ekf_step(tracks, flow, cfg.ekf, F, Q)
@@ -271,11 +296,9 @@ def make_flow_scan_step(cfg: RunConfig, device, model=None):
 
 def make_step(cfg: RunConfig, device):
     """Per-frame step function (carry, frame) -> (carry, out)."""
-    model = _filter_model(cfg, device)
-    F, Q, tail = model
-    flow_step = make_flow_scan_step(cfg, device, model)
+    F, Q, tail = _filter_model(cfg, device)
     H = torch.as_tensor(dynamics.position_H(cfg.ekf), device=device)
-    R = cfg.ekf.r * torch.eye(2, dtype=torch.float32, device=device)
+    R = measurement_noise(cfg.ekf, device)
     method = cfg.flow.method
 
     def step(carry: Carry, frame: torch.Tensor):
@@ -286,13 +309,17 @@ def make_step(cfg: RunConfig, device):
         pool = None
         if cfg.tracks.reinit:
             if cfg.tracks.reinit_every <= 1 or not corner_cache:
-                pool = corner_pool(gray, cfg.tracks)
+                pool = _fresh_corner_pool(gray, cfg)
             else:
                 if frame_idx % cfg.tracks.reinit_every == 0:
-                    corner_cache = corner_pool(gray, cfg.tracks)
+                    corner_cache = _fresh_corner_pool(gray, cfg)
                 pool = corner_cache
         flow = None
-        if method == "lk_sparse":
+        if _photometric(cfg):
+            # the appearance channel alone: Gauss-Newton on the frames
+            state, aux = photometric_step(carry.tracks, carry.prev_gray,
+                                          gray, cfg.ekf, F, Q)
+        elif method == "lk_sparse":
             # the tracks' own positions, tracked by sparse LK, are the
             # measurement of a plain position update; a point LK lost
             # (status False) counts as a miss
@@ -301,20 +328,24 @@ def make_step(cfg: RunConfig, device):
                                     prev_pyr=carry.prev_rpyr or None,
                                     next_pyr=rpyr)
             state = carry.tracks
-            x_pred, P_pred = predict(state.x, state.P, F, Q)
+            x_pred, P_pred = predict(state.x, state.P, F, Q, state.q_scale)
             y = pos + (new_pts - pos) - x_pred[:, 0:2]
             x_new, P_new, nis = update(x_pred, P_pred, y, H, R)
             state, aux = commit_update(state, x_pred, P_pred, x_new, P_new,
                                        nis, cfg.ekf, valid=ok)
-            state, lag_buf, out = tail(state, aux, carry.lag_buf, pool,
-                                       gray.shape[0], gray.shape[1])
         else:
             flow = (farneback_from_pyramids(carry.prev_rpyr, rpyr, cfg.flow,
                                             flow0=carry.prev_flow)
                     if method == "farneback"
                     else _flow_field(carry.prev_gray, gray, cfg))
-            state, lag_buf, out = flow_step(carry.tracks, carry.lag_buf,
-                                            flow, pool)
+            state, aux = ekf_step(carry.tracks, flow, cfg.ekf, F, Q)
+        if cfg.ekf.measurement == "flow_photometric":
+            # the second, photometric update of the flow-updated state
+            state, aux = photometric_refine(state, aux, carry.prev_gray,
+                                            gray, carry.tracks.x[:, 0:2],
+                                            cfg.ekf)
+        state, lag_buf, out = tail(state, aux, carry.lag_buf, pool,
+                                   gray.shape[0], gray.shape[1])
         # temporal warm start: this pair's flow seeds the next pair's
         # coarsest level
         prev_flow = None if carry.prev_flow is None else flow
@@ -404,7 +435,7 @@ def _corner_pool_sequence(grays: torch.Tensor, cfg: RunConfig) -> list:
     frame is computed once."""
     T = grays.shape[0]
     re = max(cfg.tracks.reinit_every, 1)
-    pools = {f: corner_pool(grays[f], cfg.tracks)
+    pools = {f: _fresh_corner_pool(grays[f], cfg)
              for f in sorted({(t // re) * re for t in range(1, T)})}
     return [pools[(t // re) * re] for t in range(1, T)]
 
@@ -412,12 +443,14 @@ def _corner_pool_sequence(grays: torch.Tensor, cfg: RunConfig) -> list:
 def _track_from_pair_flows(grays: torch.Tensor, flows: torch.Tensor,
                            cfg: RunConfig, with_history: bool = False,
                            seeds: Optional[torch.Tensor] = None) -> dict:
-    """Tail of the pair-batched paths: seed from frame 0's corner pool (or
-    `seeds`), prime velocities from the first flow with init_velocity,
-    then one EKF/lifecycle step per precomputed flow (T - 1, H, W, 2)."""
+    """Tail of the pair-batched paths: seed from frame 0's corner pool
+    (within the segmented body with seed_in_body) or `seeds`, prime
+    velocities from the first flow with init_velocity, then one
+    EKF/lifecycle step per precomputed flow (T - 1, H, W, 2)."""
     if seeds is None:
         pts, score = corner_pool(grays[0], cfg.tracks,
-                                 pool_size=cfg.tracks.num_tracks)
+                                 pool_size=cfg.tracks.num_tracks,
+                                 mask=_seed_mask(grays[0], cfg))
         state0 = init_tracks(cfg.ekf, pts, valid=score > 0)
     else:
         state0 = init_tracks(cfg.ekf, seeds)
@@ -454,7 +487,9 @@ def track_arrays_pairflow(frames: torch.Tensor, cfg: RunConfig,
                           seeds: Optional[torch.Tensor] = None) -> dict:
     """Pair-batched twin of track_arrays: the flow of every frame pair
     first (`_pair_flows`), then the EKF/lifecycle steps. The same
-    trajectories as the per-frame path at fi_level_fused=False."""
+    trajectories as the per-frame path at fi_level_fused=False and
+    fi_pipeline=False (at fast_warp=0 with f32 planes; with bf16 planes
+    the pair path rounds M to bf16, as the reference's does)."""
     grays = grayscale_u8(frames)
     return _track_from_pair_flows(grays, _pair_flows(grays, cfg), cfg,
                                   with_history, seeds)
@@ -543,6 +578,32 @@ def _smooth_history_chunked(outs: dict, cfg: RunConfig,
         breaks=segment_breaks(outs["track_id"], outs["alive"]),
         device=device)
     return xs
+
+
+def track_precomputed_flow(flows: np.ndarray, seeds: np.ndarray,
+                           cfg: RunConfig, device="cuda") -> Trajectories:
+    """Track from a supplied (T - 1, H, W, 2) flow sequence: the filter
+    stack alone (measurement update, gate, kill) from the (K, 2) `seeds`,
+    with no flow computation and no re-seeding (there are no frames for a
+    corner pool), on `device`: the card (where the position update with
+    a shared Q takes K1) unless the caller asks for "cpu"."""
+    check_slice(cfg)
+    flows_d = upload(np.asarray(flows, np.float32), device)
+    state = init_tracks(cfg.ekf, _seeds(seeds, device))
+    F, Q, _ = _filter_model(cfg, flows_d.device)
+    h, w = flows_d.shape[1], flows_d.shape[2]
+    rows = [{"pos": state.x[:, 0:2], "alive": state.alive,
+             "nis": torch.zeros_like(state.x[:, 0]),
+             "track_id": state.track_id}]
+    for flow in flows_d:
+        state, aux = ekf_step(state, flow, cfg.ekf, F, Q)
+        state = lifecycle.gate(state, aux["x_pred"], aux["P_pred"],
+                               aux["nis"], cfg.ekf)
+        state = lifecycle.kill_lost(state, cfg.ekf, h, w)
+        rows.append({"pos": state.x[:, 0:2], "alive": state.alive,
+                     "nis": aux["nis"], "track_id": state.track_id})
+    return _trajectories({k: torch.stack([r[k] for r in rows])
+                          for k in _ROWS})
 
 
 def track_clip(frames: np.ndarray, cfg: RunConfig, device="cuda",

@@ -1,7 +1,9 @@
 """The pair-batched kernels (K6 flow_iter_pairs, K7a
-poly_expansion_planar_batch, K7b coarse_polyexp_fused_batch) and paths B
-(pair_batch, one clip) and C (several clips chained) against the JAX
-reference (Pallas in interpret mode on the CPU).
+poly_expansion_planar_batch, K7b coarse_polyexp_fused_batch, K8-pairs
+flow_update_pairs) and paths B (pair_batch, one clip), C (several clips
+chained) and BX (pair_batch at the exact warp, fast_warp=0) against the
+JAX reference (Pallas in interpret mode on the CPU; the reference's
+exact-warp pair path is plain XLA).
 
 On the CPU each wrapper runs its plain version, so these tests pin the
 arithmetic that the CUDA kernels are held to on the card."""
@@ -22,11 +24,20 @@ from kalman_hydra_tpu.kernels.level_image_pallas import (
     coarse_polyexp_fused_batch as coarse_b_pl)
 from kalman_hydra_tpu.kernels.polyexp_pallas import (
     poly_expansion_planar_batch as pe_b_pl)
+from kalman_hydra_tpu.ops.color import grayscale_u8 as j_gray
+from kalman_hydra_tpu.ops.farneback import (
+    farneback_pairs_from_pyramids as j_pairs,
+    polyexp_pyramid_batch as j_pyr_b)
 from kalman_hydra_tpu_torch import pipeline as tp
 from kalman_hydra_tpu_torch.config import RunConfig as TRunConfig
+from kalman_hydra_tpu_torch.config import FlowConfig as TFlowConfig
 from kalman_hydra_tpu_torch.kernels import (coarse_polyexp_fused_batch,
                                             flow_iter_pairs,
+                                            flow_update_pairs,
                                             poly_expansion_planar_batch)
+from kalman_hydra_tpu_torch.kernels.flow_update import flow_update_plain
+from kalman_hydra_tpu_torch.ops.farneback import (
+    farneback_pairs_from_pyramids, warp_poly_planar)
 
 
 def _np(a):
@@ -185,3 +196,131 @@ def test_pair_path_equals_per_frame_path_on_long_clips(T, reinit_every):
     assert (a["pos"] - b["pos"]).abs().max().item() < 1e-3
     assert torch.equal(a["alive"], b["alive"])
     assert torch.equal(a["track_id"], b["track_id"])
+
+
+@pytest.mark.parametrize("clip_len", [0, 3])
+def test_flow_update_pairs_is_per_pair_flow_update(clip_len, rng):
+    """K8-pairs' plain version equals per-pair K8 bit for bit (f32, no
+    rounding), pair b reading frame p of the stack; with round_m it
+    rounds M to bf16 (a different, close result); a wrong pair count is
+    refused."""
+    N, h, w = 6, 20, 28
+    Rall = torch.from_numpy(rng.normal(size=(N, 5, h, w)).astype(
+        np.float32))
+    B = N - 1 if not clip_len else (N // clip_len) * (clip_len - 1)
+    R1w = torch.from_numpy(rng.normal(size=(B, 5, h, w)).astype(np.float32))
+    fl = torch.from_numpy(rng.uniform(-3, 3, (B, 2, h, w)).astype(
+        np.float32))
+    got = flow_update_pairs(Rall, R1w, fl, 15, False, clip_len)
+    frames = [b + b // (clip_len - 1) if clip_len else b for b in range(B)]
+    want = torch.stack([flow_update_plain(Rall[p], R1w[b], fl[b], 15)
+                        for b, p in enumerate(frames)])
+    assert torch.equal(got, want)
+    rounded = flow_update_pairs(Rall, R1w, fl, 15, False, clip_len,
+                                round_m=True)
+    assert not torch.equal(rounded, got)
+    assert (rounded - got).abs().max().item() < 0.1
+    with pytest.raises(ValueError, match="pairs"):
+        flow_update_pairs(Rall, R1w[:-1], fl[:-1], 15, False, clip_len)
+
+
+def test_warp_poly_planar_batched_is_per_pair(rng):
+    """The exact gather over a leading pair dimension equals the per-pair
+    gather bit for bit."""
+    R1 = torch.from_numpy(rng.normal(size=(3, 5, 17, 23)).astype(
+        np.float32)).to(torch.bfloat16)
+    fl = torch.from_numpy(rng.uniform(-30, 30, (3, 2, 17, 23)).astype(
+        np.float32))
+    got = warp_poly_planar(R1, fl)
+    assert got.dtype == torch.float32
+    for b in range(3):
+        assert torch.equal(got[b], warp_poly_planar(R1[b], fl[b]))
+
+
+@pytest.mark.parametrize("clip_len,bf16", [(0, False), (5, True)])
+def test_pair_exact_warp_flow_matches_reference(clip_len, bf16):
+    """farneback_pairs_from_pyramids at fast_warp=0 (the exact gather and
+    K8-pairs, M rounded to bf16 with bf16 planes as the reference's
+    update_matrices_p stores it) against the reference's vmapped XLA
+    pair path on its own planes: < 1e-4."""
+    clip = _clip()
+    frames = np.concatenate([clip, clip[::-1]]) if clip_len else clip
+    cfg = FlowConfig(levels=3, bf16_poly=bf16)
+    Rs = j_pyr_b(j_gray(jnp.asarray(frames)), cfg, impl="pallas",
+                 interpret=True)
+    ref = np.asarray(j_pairs(Rs, cfg, clip_len=clip_len, impl="pallas",
+                             interpret=True))
+    dt = torch.bfloat16 if bf16 else torch.float32
+    got = farneback_pairs_from_pyramids(
+        tuple(torch.from_numpy(_np(r)).to(dt) for r in Rs),
+        TFlowConfig(levels=3, bf16_poly=bf16), clip_len=clip_len).numpy()
+    assert got.shape == ref.shape == (8 if clip_len else 4, 96, 128, 2)
+    assert np.abs(got - ref).max() < 1e-4
+
+
+def exact_pair_config(bf16: bool) -> RunConfig:
+    """Path BX: the reference's defaults (the exact warp), pair-batched,
+    at 96x128 (3 levels), K=24, a corner-pool refresh every 2 frames."""
+    return RunConfig(flow=FlowConfig(levels=3, bf16_poly=bf16),
+                     tracks=TrackConfig(num_tracks=24, reinit_every=2),
+                     impl="pallas", pallas_interpret=True, pair_batch=True)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_path_bx_matches_reference(bf16):
+    """Path BX: track_arrays (pair-batched, exact warp) on both sides;
+    positions < 1e-3 px, alive and track_id identical."""
+    clip = _clip()
+    cfg = exact_pair_config(bf16)
+    ref = jax.device_get(jax.jit(jp.track_arrays, static_argnames="cfg")(
+        jnp.asarray(clip), cfg))
+    got = {k: v.numpy() for k, v in tp.track_arrays(
+        torch.from_numpy(clip), TRunConfig.from_json(cfg.to_json())).items()}
+    assert got["pos"].shape == (5, 24, 2)
+    _assert_rows(got, ref)
+    assert got["alive"][-1].any()
+
+
+def test_path_cx_matches_reference():
+    """Two clips chained through shared K8-pairs launches (clip_len) at
+    the exact warp on both sides: per clip, positions < 1e-3 px, alive
+    and track_id identical."""
+    clips = np.stack([_clip(0), _clip(1)])
+    cfg = exact_pair_config(False)
+    ref = jax.device_get(jax.jit(jp.track_clips_pairflow,
+                                 static_argnames="cfg")(
+        jnp.asarray(clips), cfg))
+    got = {k: v.numpy() for k, v in tp.track_clips_pairflow(
+        torch.from_numpy(clips), TRunConfig.from_json(cfg.to_json())).items()}
+    for b in range(2):
+        _assert_rows({k: v[b] for k, v in got.items()},
+                     {k: v[b] for k, v in ref.items()})
+
+
+def test_exact_pair_path_equals_per_frame_path():
+    """At f32 the exact-warp pair path gives the per-frame path's
+    trajectories (the same gather and K8 arithmetic per pair): positions
+    < 1e-3 px, alive and track_id identical. Port only, 48x64, T=12."""
+    frames, _ = moving_blob_clip(num_frames=12, height=48, width=64,
+                                 num_points=4, seed=2)
+    cfg = TRunConfig.from_json(exact_pair_config(False).to_json())
+    x = torch.from_numpy(frames)
+    a = tp.track_arrays(x, cfg.replace(pair_batch=False))
+    b = tp.track_arrays(x, cfg)
+    assert (a["pos"] - b["pos"]).abs().max().item() < 1e-3
+    assert torch.equal(a["alive"], b["alive"])
+    assert torch.equal(a["track_id"], b["track_id"])
+
+
+def test_flow_sequence_pair_exact_warp_matches_reference():
+    """api.flow_sequence with RunConfig(pair_batch=True) (the exact warp,
+    pair-batched) gives the reference's flows (< 1e-4)."""
+    from kalman_hydra_tpu_torch import api
+    clip = _clip(t=4)
+    cfg = RunConfig(flow=FlowConfig(levels=2), pair_batch=True)
+    ref = np.asarray(jax.jit(jp.flow_sequence, static_argnames="cfg")(
+        jnp.asarray(clip), cfg))
+    got = api.flow_sequence(clip, TRunConfig.from_json(cfg.to_json()),
+                            device="cpu")
+    assert got.shape == ref.shape == (3, 96, 128, 2)
+    assert np.abs(got - ref).max() < 1e-4

@@ -36,10 +36,11 @@ def _run(args, cwd):
 
 def test_port_never_imports_jax():
     """Importing every module of the port, tracking clips on the CPU
-    through all three paths and with sparse and dense LK, and calling
-    every entry point with its default config (track_video, smooth,
-    flow, flow_sequence) leaves jax, jaxlib and every module of the JAX
-    package out of sys.modules."""
+    through all three paths, with sparse and dense LK, the pair-batched
+    exact warp, fi_pipeline and the measurement channels, calling every
+    entry point with its default config (track_video, smooth, flow,
+    flow_sequence) and track_precomputed_flow leaves jax, jaxlib and
+    every module of the JAX package out of sys.modules."""
     code = (
         "import sys, pkgutil, importlib, numpy as np\n"
         "import kalman_hydra_tpu_torch as p\n"
@@ -69,6 +70,24 @@ def test_port_never_imports_jax():
         "    c = RunConfig(flow=FlowConfig(method=m, levels=2))\n"
         "    tr = api.track_video(clip, c, device='cpu')\n"
         "    assert tr.positions.shape == (3, 256, 2)\n"
+        "from kalman_hydra_tpu_torch.config import EkfConfig, TrackConfig\n"
+        "f2 = FlowConfig(levels=2)\n"
+        "for c in (RunConfig(flow=f2, pair_batch=True),\n"
+        "          RunConfig(flow=FlowConfig(levels=2, fast_warp=8,\n"
+        "                    fi_level_fused=False, fi_pipeline=True)),\n"
+        "          RunConfig(flow=f2, ekf=EkfConfig(\n"
+        "              measurement='implicit_flow', filter_type='ukf')),\n"
+        "          RunConfig(flow=f2, ekf=EkfConfig(\n"
+        "              measurement='photometric', adaptive_q=0.3)),\n"
+        "          RunConfig(flow=f2, ekf=EkfConfig(\n"
+        "              measurement='flow_photometric'),\n"
+        "              tracks=TrackConfig(seed_in_body=True))):\n"
+        "    tr = api.track_video(clip, c, device='cpu')\n"
+        "    assert tr.positions.shape == (3, 256, 2)\n"
+        "fl = api.flow_sequence(clip, RunConfig(flow=f2), device='cpu')\n"
+        "tr = pipeline.track_precomputed_flow(fl, np.ones((4, 2)),\n"
+        "                                     RunConfig(), device='cpu')\n"
+        "assert tr.positions.shape == (3, 4, 2)\n"
         "ref = [m for m in sys.modules if m.split('.')[0]\n"
         "       in ('jax', 'jaxlib', 'kalman_hydra_tpu')]\n"
         "print(ref)\n")
@@ -201,6 +220,10 @@ _ENTRY_POINTS = {
     "api.flow": lambda clip, dev: api.flow(clip[0], clip[1], **dev),
     "api.flow_sequence": lambda clip, dev: api.flow_sequence(clip, **dev),
     "api.smooth": lambda clip, dev: api.smooth(clip, **dev),
+    "pipeline.track_precomputed_flow":
+        lambda clip, dev: pipeline.track_precomputed_flow(
+            np.zeros((1, 48, 64, 2), np.float32), np.ones((2, 2)),
+            tconfig.RunConfig(), **dev),
 }
 
 
@@ -253,26 +276,56 @@ def test_chip_smoke_fails_without_card(alone, tmp_path):
 
 
 _BASE = pipeline.main_path_config(16)
-_OUTSIDE_CONFIGS = {
+_RENDER = dict(tracks=tconfig.TrackConfig(num_tracks=16, reinit=False))
+_OUTSIDE = {
+    "render": lambda: pipeline.check_slice(_BASE.replace(
+        ekf=tconfig.EkfConfig(measurement="render"), **_RENDER)),
+    "flow_render": lambda: pipeline.check_slice(_BASE.replace(
+        ekf=tconfig.EkfConfig(measurement="flow_render"), **_RENDER)),
+    "track_video_streaming": lambda: api.track_video(
+        np.zeros((2, 48, 64), np.uint8), streaming=True, device="cpu"),
+    "track_videos_sharded": lambda: api.track_videos(
+        np.zeros((1, 2, 48, 64), np.uint8), sharded=True, device="cpu"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_OUTSIDE))
+def test_outside_the_slice_raises(name):
+    """What stays outside the ported slices raises NotImplementedError
+    naming its ROADMAP item: the mesh-render channels (P11b), streaming
+    (P12), clips sharded over cards (P13)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _OUTSIDE[name]()
+
+
+_SETTINGS_CONFIGS = {
     "fi_pipeline": dict(flow=dataclasses.replace(_BASE.flow,
                                                  fi_pipeline=True)),
     "pair_batch_implicit_flow": dict(
         pair_batch=True, ekf=tconfig.EkfConfig(measurement="implicit_flow")),
     "pair_batch_exact_warp": dict(
         pair_batch=True, flow=dataclasses.replace(_BASE.flow, fast_warp=0)),
-    "seed_in_body": dict(tracks=tconfig.TrackConfig(seed_in_body=True)),
+    "seed_in_body": dict(tracks=tconfig.TrackConfig(num_tracks=16,
+                                                    seed_in_body=True)),
     "adaptive_q": dict(ekf=tconfig.EkfConfig(state_dim=6, adaptive_q=0.5)),
     "implicit_flow": dict(ekf=tconfig.EkfConfig(
         measurement="implicit_flow")),
 }
-_OUTSIDE = {name: (lambda kw=kw: pipeline.check_slice(_BASE.replace(**kw)))
-            for name, kw in _OUTSIDE_CONFIGS.items()}
 
 
-@pytest.mark.parametrize("name", sorted(_OUTSIDE))
-def test_outside_the_slice_raises(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _OUTSIDE[name]()
+@pytest.mark.parametrize("name", sorted(_SETTINGS_CONFIGS))
+def test_slice_settings_run(name):
+    """The settings the slices before the measurement channels refused
+    (fi_pipeline, the pair-batched exact warp, implicit_flow alone and
+    pair-batched, seed_in_body, adaptive_q) are accepted and run on the
+    CPU with the reference's result shape (T, K, 2)."""
+    cfg = _BASE.replace(**_SETTINGS_CONFIGS[name])
+    pipeline.check_slice(cfg)
+    clip, _ = tsyn.moving_blob_clip(num_frames=3, height=48, width=64)
+    tr = api.track_video(clip, cfg.replace(flow=dataclasses.replace(
+        cfg.flow, levels=2)), device="cpu")
+    assert tr.positions.shape == (3, 16, 2)
+    assert np.isfinite(tr.positions).all()
 
 
 _LK = tconfig.FlowConfig(method="lk_dense")
@@ -352,6 +405,17 @@ _ACCEPTED = {
     "lk_sparse_block_halo": _BASE.replace(flow=dataclasses.replace(
         _BASE.flow, method="lk_sparse", lk_block_halo=8,
         lk_solver="corr_conv")),
+    "fi_pipeline": _BASE.replace(flow=dataclasses.replace(
+        _BASE.flow, fi_pipeline=True)),
+    "pair_batch_exact_warp": tconfig.RunConfig(pair_batch=True),
+    "ukf": _BASE.replace(ekf=tconfig.EkfConfig(
+        measurement="implicit_flow", filter_type="ukf")),
+    "photometric": _BASE.replace(ekf=tconfig.EkfConfig(
+        measurement="photometric")),
+    "flow_photometric_adaptive_q_seed_in_body": _BASE.replace(
+        ekf=tconfig.EkfConfig(measurement="flow_photometric",
+                              adaptive_q=0.3),
+        tracks=tconfig.TrackConfig(seed_in_body=True)),
 }
 
 
@@ -360,10 +424,12 @@ def test_slice_configs_accepted(which):
     """The headline graph (fi_level_fused=True), bench cfg3's pair path,
     the multi-clip pair path, the main path under each setting the
     earlier slices brought in (the exact warp, pe_fused=False,
-    temporal_init, smoothing, init_velocity), and Lucas-Kanade: dense per
-    frame and pair-batched (at fast_warp=0 too: P8b's refusal is
-    Farneback's), sparse with the reference's defaults and with a halo'd
-    block are inside the slice."""
+    temporal_init, smoothing, init_velocity), Lucas-Kanade (dense per
+    frame and pair-batched at both warps, sparse with the reference's
+    defaults and with a halo'd block), fi_pipeline, the pair-batched
+    exact warp and the measurement channels (UKF, photometric,
+    flow_photometric with adaptive_q and seed_in_body) are inside the
+    slice."""
     cfg = _ACCEPTED[which]
     assert cfg.flow.fi_level_fused
     pipeline.check_slice(cfg)
