@@ -12,11 +12,17 @@ prints no result line):
   3. hold each kernel against its plain PyTorch version on the card at
      the shapes its path gives it, with the stated bars, and each batched
      kernel against its per-item kernel (bit for bit; K5 and K13 against
-     n_iters K2 launches, K8-pairs against per-pair K8);
+     n_iters K2 launches, K8-pairs against per-pair K8, K9's and K10's
+     one launch a pyramid against their one-level launches); hold
+     api.flow and pipeline.track_clip against the OpenCV oracle's
+     tests/golden/oracle_v1.npz;
   4. time each kernel, its plain version and, where one PyTorch call
      computes the same function, that call, with CUDA events (warmed up,
-     in turns forward and back); compute each kernel's bound (the larger
-     of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s f32);
+     in turns forward and back), per call and on the device alone (the
+     timed calls replayed as one CUDA graph, or where a call cannot be
+     captured their device events under torch.profiler); compute each
+     kernel's bound (the larger of its bytes over 3.35 TB/s and its FLOPs
+     over 67 TFLOP/s f32);
   5. drive the paths through the public API, with every launch counter
      reset just before each and read just after:
        A. api.track_video, 1080x1920 T=9, K=1024, the headline graph
@@ -56,7 +62,8 @@ prints no result line):
           1024 seeds (K1 only);
      check the launch counts, the outputs against the plain functions,
      the CPU smoothers, the per-frame path and the CPU path, and report
-     frames/s.
+     frames/s; H, H0, W and J again through the per-level K9/K10 launches
+     (the same tracks, bit for bit) and frames/s of both routes in turns.
 The last three lines are the per-kernel JSON summary, the card's name and
 power limit exactly as nvidia-smi prints them, and the JSON result
 {"ok": true, "device": {...}}.
@@ -65,6 +72,7 @@ power limit exactly as nvidia-smi prints them, and the JSON result
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -130,10 +138,47 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20):
+    """(ms per call on the device alone, how it was taken). "graph":
+    `reps` calls captured as one CUDA graph (the wrappers launch on the
+    current stream, which is the capturing one), replayed 5 times and
+    timed with events, so the host's cost per call drops out. "profiler":
+    where a call cannot be captured, the sum of the device events of
+    `reps` calls under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="thread_local"):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        return cuda_ms(g.replay, 5) / reps, "graph"
+    except Exception as e:          # not capturable: the profiler's sum
+        log(f"  (no CUDA graph: {type(e).__name__}: {str(e)[:120]})")
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and e.name != "Activity Buffer Request")
+    return us / 1e3 / reps, "profiler"
+
+
 def time_turns(fns: dict, reps: int = 20) -> dict:
     """ms per call of each function: warmed, then timed in turns, in the
     given order and back (plain, kernel, kernel, plain for two), each a
-    block of `reps` calls; the two blocks of each are averaged."""
+    block of `reps` calls; the two blocks of each are averaged. Every
+    entry but "plain" also gets its device-only time (`device_ms`) under
+    "<name> dev", and how it was taken under "<name> how"."""
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -142,6 +187,9 @@ def time_turns(fns: dict, reps: int = 20) -> dict:
     for order in (names, names[::-1]):
         for n in order:
             ms[n] += cuda_ms(fns[n], reps) / 2
+    for n in names:
+        if n != "plain":
+            ms[f"{n} dev"], ms[f"{n} how"] = device_ms(fns[n], reps)
     return ms
 
 
@@ -170,14 +218,23 @@ def pe_flops(n: int) -> int:
 
 
 def record(results, name, err, ms, plain_ms, nbytes, flops,
-           library_ms=None):
+           library_ms=None, dev=None):
+    """Keep a kernel's numbers; `dev` is the time_turns dict (or a sum of
+    them) holding the device-only times of "kernel" and "library"."""
     b, by = bound(nbytes, flops)
+    dev = dev or {}
+    dms, lib_dms = dev.get("kernel dev"), dev.get("library dev")
     results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b, bound_by=by, library_ms=library_ms)
+                         bound_ms=b, bound_by=by, library_ms=library_ms,
+                         device_ms=dms, device_how=dev.get("kernel how"),
+                         library_device_ms=lib_dms)
     log(f"  {name}: bound {b:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
-        f"{flops / 1e9:.3f} GFLOP); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library "
-        f"{'none' if library_ms is None else '%.4f ms' % library_ms}")
+        f"{flops / 1e9:.3f} GFLOP); kernel {ms:.4f} ms per call, "
+        f"{'not measured' if dms is None else '%.4f' % dms} ms on the "
+        f"device ({dev.get('kernel how')}); plain {plain_ms:.4f} ms, "
+        f"library "
+        f"{'none' if library_ms is None else '%.4f ms' % library_ms}"
+        f"{'' if lib_dms is None else ' (%.4f ms on the device)' % lib_dms}")
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -259,7 +316,7 @@ def check_k1(dev, results):
     # x, P, y, H in; x, P, nis out. ~2n^3 for the predict, ~10n^2 update
     record(results, "ekf_fused_step", err, ms["kernel"], ms["plain"],
            4 * (2 * K * n + 2 * K * n * n + 2 * K + 2 * n + K),
-           K * (4 * n ** 3 + 10 * n * n))
+           K * (4 * n ** 3 + 10 * n * n), dev=ms)
 
 
 @phase("K3 poly_expansion_planar")
@@ -289,7 +346,7 @@ def check_k3(dev, gray, cfg, results):
         "library": conv})
     record(results, "poly_expansion_planar", err, ms["kernel"],
            ms["plain"], H * W * (4 + 5 * 2), H * W * pe_flops(n),
-           ms["library"])
+           ms["library"], dev=ms)
 
 
 def k4_flops(h, w, f) -> int:
@@ -330,7 +387,7 @@ def check_k4(dev, gray, cfg, results):
                                                out_dtype=torch.bfloat16)},
         reps=10)
     record(results, "coarse_polyexp_fused", max(errs), ms["kernel"],
-           ms["plain"], k4_bytes(H, W, f, 2), k4_flops(H, W, f))
+           ms["plain"], k4_bytes(H, W, f, 2), k4_flops(H, W, f), dev=ms)
 
 
 @phase("K2 flow_iter")
@@ -368,7 +425,7 @@ def check_k2(dev, cfg, results):
     log(f"  K2 time ({H}x{W}, bf16 planes)")
     taps = 2 * (f.winsize // 2) + 1
     record(results, "flow_iter", worst, ms["kernel"], ms["plain"],
-           H * W * (10 * 2 + 8 + 8), H * W * fi_flops(taps))
+           H * W * (10 * 2 + 8 + 8), H * W * fi_flops(taps), dev=ms)
 
 
 @phase("K5 flow_level")
@@ -389,7 +446,7 @@ def check_k5(dev, clip, cfg, results):
     g = torch.Generator().manual_seed(5)
     D, it, wins = f.fast_warp, f.iterations, f.winsize
     worst = worst_k2 = 0.0
-    tot = dict(kernel=0.0, plain=0.0, k2=0.0)
+    tot = {"kernel": 0.0, "plain": 0.0, "k2": 0.0, "kernel dev": 0.0}
     nbytes = flops = 0
     taps = 2 * (wins // 2) + 1
     gated = 0
@@ -430,6 +487,7 @@ def check_k5(dev, clip, cfg, results):
             f"{it} x K2 {ms['k2']:.4f} ms, plain {ms['plain']:.4f} ms")
         for k in tot:
             tot[k] += ms[k]
+        how = ms["kernel how"]
         nbytes += lh * lw * (10 * 2 + 8 + 8)
         flops += it * lh * lw * fi_flops(taps)
     log(f"  K5 over the {gated} gated levels: max_abs_err vs plain "
@@ -439,7 +497,7 @@ def check_k5(dev, clip, cfg, results):
         f"{tot['k2']:.4f} ms for the K2 route")
     assert gated > 0 and worst < 1e-4 and worst_k2 == 0.0
     record(results, "flow_level", worst, tot["kernel"], tot["plain"],
-           nbytes, flops)
+           nbytes, flops, dev=dict(tot, **{"kernel how": how}))
     results["flow_level"]["k2_route_ms"] = tot["k2"]
 
 
@@ -468,7 +526,7 @@ def check_k8(dev, clip, cfg, results):
     g = torch.Generator().manual_seed(8)
     taps = 2 * (f.winsize // 2) + 1
     worst = 0.0
-    tot = dict(kernel=0.0, plain=0.0)
+    tot = {"kernel": 0.0, "plain": 0.0, "kernel dev": 0.0}
     nbytes = flops = 0
     for R0, R1 in zip(*pyrs):
         lh, lw = R0.shape[1:]
@@ -490,6 +548,7 @@ def check_k8(dev, clip, cfg, results):
             f"{ms['plain']:.4f} ms")
         for k in tot:
             tot[k] += f.iterations * ms[k]
+        how = ms["kernel how"]
         nbytes += f.iterations * lh * lw * (4 * 10 + 8 + 8)
         flops += f.iterations * lh * lw * update_flops(taps)
     log(f"  K8 max_abs_err {worst:.3e} (bar 1e-4, every level, box and "
@@ -497,7 +556,7 @@ def check_k8(dev, clip, cfg, results):
         f"{f.iterations} x {len(pyrs[0])} calls {tot['kernel']:.4f} ms")
     assert worst < 1e-4
     record(results, "flow_update", worst, tot["kernel"], tot["plain"],
-           nbytes, flops)
+           nbytes, flops, dev=dict(tot, **{"kernel how": how}))
 
 
 @phase("K11 coarse_level_images")
@@ -522,7 +581,7 @@ def check_k11(dev, gray, cfg, results):
     fl = sum(2 * lh * W * iv.shape[1] + 2 * lh * lw * ih.shape[1]
              for (lh, lw, iv, _wv, ih, _wh) in tabs)
     record(results, "coarse_level_images", max(errs), ms["kernel"],
-           ms["plain"], H * W * 4 + px * 4, fl)
+           ms["plain"], H * W * 4 + px * 4, fl, dev=ms)
 
 
 def pyr_conv(x: torch.Tensor):
@@ -536,82 +595,148 @@ def pyr_conv(x: torch.Tensor):
     return lambda: torch.nn.functional.conv2d(xp, k[None, None], stride=2)
 
 
-@phase("K9 pyr_down")
+ODD_SIZES = ((1079, 1919), (37, 53), (19, 27), (3, 4), (2, 2), (1, 5))
+
+
+@phase("K9 pyr_down_levels")
 def check_k9(dev, gray, results):
-    """K9 on every level of a 1080p pyramid (1080x1920 down to 34x60) and
-    on odd and tiny sizes, against the plain version (bar 1e-3); the
-    kernels line keeps one frame's pyramid (the four calls of a 5-level
-    lk_pyramid), against four cuDNN calls."""
-    from kalman_hydra_tpu_torch.kernels.pyramid import (pyr_down,
-                                                        pyr_down_plain)
-    errs, lib_errs = [], []
-    x, chain = gray, []
-    for _ in range(5):
-        got = pyr_down(x)
-        errs.append(max_err(got, pyr_down_plain(x)))
-        lib_errs.append(max_err(pyr_conv(x)()[0, 0], got))
-        chain.append(x)
-        x = got
+    """K9's one launch for a 1080p frame's four levels (1080x1920 down to
+    68x120) and for the odd and tiny sizes, against the plain chain and
+    against the per-level launches (pyr_down, the one-level call), bit
+    for bit; the kernels line keeps the frame's one launch, against four
+    cuDNN calls in the same turns."""
+    from kalman_hydra_tpu_torch.kernels.pyramid import (
+        pyr_down, pyr_down_levels, pyr_down_levels_plain)
+
+    def errs(img, n):
+        got = pyr_down_levels(img, n)
+        chain = [img]
+        for _ in range(n):
+            chain.append(pyr_down(chain[-1]))
+        return (max(max_err(a, b) for a, b in zip(
+            got, pyr_down_levels_plain(img, n))),
+            max(max_err(a, b) for a, b in zip(got, chain[1:])))
+    e_plain, e_levels = errs(gray, 4)
+    e7 = errs(gray, 7)           # two launches: 4 levels, then 3 more
+    frame = [gray] + pyr_down_levels(gray, 4)
+    lib_err = max(max_err(pyr_conv(a)()[0, 0], b)
+                  for a, b in zip(frame, frame[1:]))
     g = torch.Generator().manual_seed(9)
     odd = {}
-    for shp in ((37, 53), (19, 27), (3, 4), (2, 2), (1, 5), (1079, 1919)):
+    for shp in ODD_SIZES:
         x = (torch.rand(shp, generator=g) * 255).to(dev)
-        odd[shp] = max_err(pyr_down(x), pyr_down_plain(x))
-    log(f"  K9 1080p levels {[tuple(c.shape) for c in chain]}: max_abs_err "
-        f"{['%.2e' % e for e in errs]} (bar 1e-3); cuDNN yardstick vs "
-        f"kernel {max(lib_errs):.2e}; odd/tiny sizes "
-        f"{ {k: '%.1e' % v for k, v in odd.items()} }")
-    err = max(errs + list(odd.values()))
-    assert err < 1e-3
-    frame = chain[:4]
-    convs = [pyr_conv(c) for c in frame]
+        odd[shp] = errs(x, 4 if min(shp) > 2 else 1)
+    log(f"  K9 1080p levels {[tuple(c.shape) for c in frame]}: one launch "
+        f"vs plain {e_plain:.1e}, vs per-level launches {e_levels:.1e} (bar "
+        f"0 for both); 7 levels (two launches) {e7[0]:.1e}, {e7[1]:.1e}; "
+        f"cuDNN yardstick vs kernel {lib_err:.2e}; odd/tiny sizes (vs "
+        f"plain, vs per level) "
+        f"{ {k: '%.1e, %.1e' % v for k, v in odd.items()} }")
+    err = max([e_plain, e7[0]] + [v[0] for v in odd.values()])
+    assert err == 0 and max([e_levels, e7[1]]
+                            + [v[1] for v in odd.values()]) == 0
+    convs = [pyr_conv(c) for c in frame[:4]]
     ms = time_turns({
-        "plain": lambda: [pyr_down_plain(c) for c in frame],
-        "kernel": lambda: [pyr_down(c) for c in frame],
+        "plain": lambda: pyr_down_levels_plain(gray, 4),
+        "kernel": lambda: pyr_down_levels(gray, 4),
+        "per_level": lambda: [pyr_down(c) for c in frame[:4]],
         "library": lambda: [f() for f in convs]})
-    px_in = sum(c.shape[0] * c.shape[1] for c in frame)
-    px_out = sum(((c.shape[0] + 1) // 2) * ((c.shape[1] + 1) // 2)
-                 for c in frame)
+    log(f"  K9 one 1080p frame's 4 levels: one launch {ms['kernel']:.4f} ms "
+        f"a call ({ms['kernel dev']:.4f} on the device), 4 one-level "
+        f"launches {ms['per_level']:.4f} ({ms['per_level dev']:.4f}), 4 "
+        f"cuDNN calls {ms['library']:.4f} ({ms['library dev']:.4f})")
+    px_out = sum(c.shape[0] * c.shape[1] for c in frame[1:])
     # separable need: 10 FLOPs per (output row x input column) for the
     # vertical taps, 10 per output pixel for the horizontal ones
-    flops = sum(10 * ((c.shape[0] + 1) // 2) * c.shape[1] for c in frame) \
-        + 10 * px_out
-    record(results, "pyr_down", err, ms["kernel"], ms["plain"],
-           4 * (px_in + px_out), flops, ms["library"])
+    flops = sum(10 * b.shape[0] * a.shape[1]
+                for a, b in zip(frame, frame[1:])) + 10 * px_out
+    # the image read once, the four levels written once
+    record(results, "pyr_down_levels", err, ms["kernel"], ms["plain"],
+           4 * (H * W + px_out), flops, ms["library"], dev=ms)
 
 
-@phase("K10 scharr_gradients")
+@phase("K10 scharr_gradients_levels")
 def check_k10(dev, gray, results):
-    """K10 at 1080x1920 and on tiny sizes against the plain version (bar
-    1e-3); timed against one cuDNN call with the two 3x3 kernels."""
+    """K10's one launch over a 1080p pyramid's five levels against the
+    one-level launches (bit for bit) and the plain version (bar 1e-3),
+    and on tiny sizes; timed at the 1080p level against one cuDNN call
+    with the two 3x3 kernels (the kernels line), and over the pyramid
+    against five."""
+    from kalman_hydra_tpu_torch.kernels.pyramid import pyr_down_levels
     from kalman_hydra_tpu_torch.kernels.scharr import (
-        SCHARR_EDGE, SCHARR_SMOOTH, scharr_gradients, scharr_gradients_plain)
-    got = scharr_gradients(gray)
-    err = max(max_err(a, b) for a, b in zip(got, scharr_gradients_plain(
-        gray)))
+        SCHARR_EDGE, SCHARR_SMOOTH, scharr_gradients, scharr_gradients_levels,
+        scharr_gradients_plain)
+    pyr = [gray] + pyr_down_levels(gray, 4)
+    got = scharr_gradients_levels(pyr)
+    e_one = max(max_err(a, b) for g2, lvl in zip(got, pyr)
+                for a, b in zip(g2, scharr_gradients(lvl)))
+    errs = [max(max_err(a, b) for a, b in zip(g2, scharr_gradients_plain(
+        lvl))) for g2, lvl in zip(got, pyr)]
     g = torch.Generator().manual_seed(10)
     small = {}
-    for shp in ((3, 4), (1, 1), (5, 7)):
+    for shp in ((3, 4), (1, 1), (5, 7)) + ODD_SIZES:
         x = (torch.rand(shp, generator=g) * 255).to(dev)
         small[shp] = max(max_err(a, b) for a, b in zip(
             scharr_gradients(x), scharr_gradients_plain(x)))
     wts = torch.tensor(np.stack([np.outer(SCHARR_SMOOTH, SCHARR_EDGE),
                                  np.outer(SCHARR_EDGE, SCHARR_SMOOTH)]),
                        device=dev)[:, None]
-    xp = torch.nn.functional.pad(gray[None, None], (1, 1, 1, 1),
-                                 mode="replicate")
-    conv = lambda: torch.nn.functional.conv2d(xp, wts)   # noqa: E731
-    lib = max(max_err(conv()[0, i], got[i]) for i in (0, 1))
-    log(f"  K10 {H}x{W}: max_abs_err {err:.2e} (bar 1e-3); tiny sizes "
+    convs = [(lambda xp=torch.nn.functional.pad(
+        a[None, None], (1, 1, 1, 1), mode="replicate"):
+        torch.nn.functional.conv2d(xp, wts)) for a in pyr]
+    lib = max(max_err(convs[0]()[0, i], got[0][i]) for i in (0, 1))
+    log(f"  K10 levels {[tuple(a.shape) for a in pyr]}: one launch vs "
+        f"one-level launches {e_one:.1e} (bar 0); vs plain per level "
+        f"{['%.1e' % e for e in errs]} (bar 1e-3); tiny and odd sizes "
         f"{ {k: '%.1e' % v for k, v in small.items()} }; cuDNN yardstick "
         f"vs kernel {lib:.2e}")
-    err = max([err] + list(small.values()))
-    assert err < 1e-3
+    err = max(errs + list(small.values()))
+    assert err < 1e-3 and e_one == 0
+    ms5 = time_turns({
+        "plain": lambda: [scharr_gradients_plain(a) for a in pyr],
+        "kernel": lambda: scharr_gradients_levels(pyr),
+        "per_level": lambda: [scharr_gradients(a) for a in pyr],
+        "library": lambda: [f() for f in convs]})
+    log(f"  K10 the 5-level pyramid: one launch {ms5['kernel']:.4f} ms a "
+        f"call ({ms5['kernel dev']:.4f} on the device), 5 one-level "
+        f"launches {ms5['per_level']:.4f} ({ms5['per_level dev']:.4f}), 5 "
+        f"cuDNN calls {ms5['library']:.4f} ({ms5['library dev']:.4f})")
     ms = time_turns({"plain": lambda: scharr_gradients_plain(gray),
                      "kernel": lambda: scharr_gradients(gray),
-                     "library": conv})
-    record(results, "scharr_gradients", err, ms["kernel"], ms["plain"],
-           H * W * 4 * 3, H * W * 12, ms["library"])
+                     "library": convs[0]})
+    px = sum(a.shape[0] * a.shape[1] for a in pyr)
+    log(f"  K10 the 5-level pyramid's bound {bound(px * 12, px * 12)[0]:.4f}"
+        f" ms (bytes)")
+    record(results, "scharr_gradients_levels", err, ms["kernel"],
+           ms["plain"], H * W * 4 * 3, H * W * 12, ms["library"], dev=ms)
+
+
+@phase("golden (api.flow, pipeline.track_clip vs tests/golden/oracle_v1.npz)")
+def check_golden(dev):
+    """The OpenCV oracle's committed outputs against the port on the card,
+    at tests/integration/test_golden.py's bars: a 96x96 pair's Farneback
+    flow at levels=3 (mean EPE < 0.05, < 0.01 inside an 8-pixel border)
+    and a 6-frame clip's 8 tracks from the oracle's seeds (mean < 1e-2
+    px). Only the npz is read: the card's host needs no cv2."""
+    from kalman_hydra_tpu_torch import api, pipeline
+    from kalman_hydra_tpu_torch.config import (FlowConfig, RunConfig,
+                                               TrackConfig)
+    npz = Path(__file__).resolve().parent / "tests/golden/oracle_v1.npz"
+    with np.load(npz) as z:
+        gold = {k: z[k] for k in z.files}
+    flow = api.flow(gold["pair_a"], gold["pair_b"], FlowConfig(levels=3),
+                    device=dev)
+    epe = np.linalg.norm(flow - gold["farneback_flow"], axis=-1)
+    cfg = RunConfig(flow=FlowConfig(levels=3),
+                    tracks=TrackConfig(num_tracks=8, reinit=False))
+    tr = pipeline.track_clip(gold["clip_frames"], cfg, gold["clip_seeds"],
+                             device=dev)
+    d = np.linalg.norm(tr.positions - gold["track_positions"], axis=-1)
+    log(f"  golden flow: mean EPE {epe.mean():.5f} px (bar 0.05), inside "
+        f"the 8-px border {epe[8:-8, 8:-8].mean():.5f} (bar 0.01); tracks: "
+        f"mean {d.mean():.2e} px (bar 1e-2), max {d.max():.2e}")
+    assert epe.mean() < 0.05 and epe[8:-8, 8:-8].mean() < 0.01
+    assert d.mean() < 1e-2
 
 
 def lk_border_points(h, w):
@@ -695,7 +820,7 @@ def check_k12(dev, clip, cfg_h, results):
     log(f"  K12 one frame pair, halo {f.lk_block_halo}: {steps} Gauss-Newton "
         f"steps over {len(calls)} levels x {K} points")
     record(results, "lk_level", worst, ms["kernel"], ms["plain"], nbytes,
-           flops)
+           flops, dev=ms)
 
 
 @phase("K13 flow_iters_pipelined")
@@ -750,7 +875,7 @@ def check_k13(dev, clip, cfg, results):
         f"{'bit-identical' if worst_k2 == 0 else 'NOT'})")
     assert worst < 1e-4 and worst_k2 == 0.0
     it = f.iterations
-    tot = dict(kernel=0.0, plain=0.0, k2=0.0)
+    tot = {"kernel": 0.0, "plain": 0.0, "k2": 0.0, "kernel dev": 0.0}
     nbytes = flops = 0
     taps = 2 * (wins // 2) + 1
     for R0f, R1f in levels[:2]:
@@ -774,10 +899,12 @@ def check_k13(dev, clip, cfg, results):
             f"{ms['plain']:.4f} ms")
         for k in tot:
             tot[k] += ms[k]
+        how = ms["kernel how"]
         nbytes += lh * lw * (10 * 2 + 8 + 8)
         flops += it * lh * lw * fi_flops(taps)
     record(results, "flow_iters_pipelined", worst, tot["kernel"],
-           tot["plain"], nbytes, flops)
+           tot["plain"], nbytes, flops,
+           dev=dict(tot, **{"kernel how": how}))
     results["flow_iters_pipelined"]["k2_route_ms"] = tot["k2"]
 
 
@@ -842,7 +969,7 @@ def check_k8_pairs(dev, clip_b, cfg, results):
     # R0 (B frames) and R1w, 5 f32 planes each, the flow in and out
     record(results, "flow_update_pairs", worst, ms["kernel"], ms["plain"],
            B * H_B * W_B * (2 * 5 * 4 + 8 + 8),
-           B * H_B * W_B * update_flops(taps))
+           B * H_B * W_B * update_flops(taps), dev=ms)
     results["flow_update_pairs"]["k8_route_ms"] = ms["k8"]
 
 
@@ -894,7 +1021,7 @@ def check_k6(dev, clip_b, cfg, results):
     taps = 2 * (f.winsize // 2) + 1
     record(results, "flow_iter_pairs", worst, ms["kernel"], ms["plain"],
            T_B * 5 * H_B * W_B * 2 + 16 * H_B * W_B * 16,
-           16 * H_B * W_B * fi_flops(taps))
+           16 * H_B * W_B * fi_flops(taps), dev=ms)
     results["flow_iter_pairs"]["k2_route_ms"] = ms["k2"]
 
 
@@ -963,7 +1090,7 @@ def check_k7(dev, clip_b, clips_c, cfg, results):
             f"{ms['per_frame']:.4f} ms")
         record(results, "poly_expansion_planar_batch", e7a, ms["kernel"],
                ms["plain"], N * h * w * (4 + 5 * 2),
-               N * h * w * pe_flops(n), ms["library"])
+               N * h * w * pe_flops(n), ms["library"], dev=ms)
         ms = time_turns({
             "plain": lambda: coarse_polyexp_fused_plain(grays, *args,
                                                         out_dtype=bf),
@@ -976,7 +1103,7 @@ def check_k7(dev, clip_b, clips_c, cfg, results):
             f"{ms['per_frame']:.4f} ms")
         record(results, "coarse_polyexp_fused_batch", e7b, ms["kernel"],
                ms["plain"], N * k4_bytes(h, w, f, 2),
-               N * k4_flops(h, w, f))
+               N * k4_flops(h, w, f), dev=ms)
 
 
 def takes_k1(cfg) -> bool:
@@ -1000,17 +1127,21 @@ def per_frame_expected(cfg, h, w, t) -> dict:
     e = dict.fromkeys(kernels.WRAPPERS, 0)
     if cfg.ekf.measurement == "photometric":
         return e
+    if f.method in ("lk_sparse", "lk_dense"):
+        from kalman_hydra_tpu_torch.kernels.pyramid import LAUNCH_LEVELS
+        k9 = -(-(f.levels - 1) // LAUNCH_LEVELS)    # K9 launches a pyramid
     if f.method == "lk_sparse":
-        # one lk_pyramid per frame (frame 0's is cached), one K12 per
-        # level per step; the position update is plain torch, not K1
-        e.update(pyr_down=(f.levels - 1) * t, scharr_gradients=f.levels * t,
+        # one lk_pyramid per frame (frame 0's is cached): one K9 and one
+        # K10 launch; one K12 per level per step; the position update is
+        # plain torch, not K1
+        e.update(pyr_down_levels=k9 * t, scharr_gradients_levels=t,
                  lk_level=f.levels * (t - 1))
         return e
     if f.method == "lk_dense":
         # per step both frames' pyramids and the previous frame's Scharr
-        # planes on every level, then K1
-        e.update(pyr_down=2 * (f.levels - 1) * (t - 1),
-                 scharr_gradients=f.levels * (t - 1),
+        # planes of every level (one K10 launch), then K1
+        e.update(pyr_down_levels=2 * k9 * (t - 1),
+                 scharr_gradients_levels=t - 1,
                  ekf_fused_step=(t - 1) * takes_k1(cfg))
         return e
     plan = farneback_levels(h, w, f.levels, f.pyr_scale)
@@ -1086,6 +1217,72 @@ def same_tracks(a, b, what):
     assert (a.smoothed is None) == (b.smoothed is None)
     if a.smoothed is not None:
         assert np.abs(a.smoothed - b.smoothed).max() < 1e-3
+
+
+@contextlib.contextmanager
+def per_level_route():
+    """The Lucas-Kanade pyramids as they ran before one launch a
+    pyramid: K9 and K10 once a level, through their one-level calls
+    (pyr_down, scharr_gradients), patched into ops.lk for the comparison
+    of routes alone; the same kernels, so the same values."""
+    from kalman_hydra_tpu_torch.kernels.pyramid import pyr_down
+    from kalman_hydra_tpu_torch.kernels.scharr import scharr_gradients
+    from kalman_hydra_tpu_torch.ops import lk
+
+    def build(img, levels):
+        pyr = [img]
+        for _ in range(levels - 1):
+            pyr.append(pyr_down(pyr[-1]))
+        return pyr
+    saved = lk.build_pyramid, lk.scharr_gradients_levels
+    lk.build_pyramid = build
+    lk.scharr_gradients_levels = lambda pyr: tuple(scharr_gradients(a)
+                                                   for a in pyr)
+    try:
+        yield
+    finally:
+        lk.build_pyramid, lk.scharr_gradients_levels = saved
+
+
+def route_compare(label, fn, cfg, expect, tr, steps, name, reps=2):
+    """The per-level route against one launch a pyramid: its launches
+    (K9 levels - 1 and K10 levels a pyramid), its tracks equal to `tr`
+    (0 px; alive, track_id and any smoothed positions identical), and
+    frames/s of both in 8 alternating turns of `reps` runs (new, old,
+    old, new, ...), medians and ranges reported. A record of the routes,
+    not a claim: these paths are host-bound."""
+    from kalman_hydra_tpu_torch.kernels.pyramid import LAUNCH_LEVELS
+    lv = cfg.flow.levels
+    k9 = -(-(lv - 1) // LAUNCH_LEVELS)
+    old = dict(expect)
+    old["pyr_down_levels"] = expect["pyr_down_levels"] // k9 * (lv - 1)
+    old["scharr_gradients_levels"] = expect["scharr_gradients_levels"] * lv
+    with per_level_route():
+        tr_old = drive(f"{label} per-level route", fn, old, {})
+    same = (np.array_equal(tr.positions, tr_old.positions)
+            and np.array_equal(tr.alive, tr_old.alive)
+            and np.array_equal(tr.track_id, tr_old.track_id)
+            and (tr.smoothed is None) == (tr_old.smoothed is None)
+            and (tr.smoothed is None
+                 or np.array_equal(tr.smoothed, tr_old.smoothed)))
+    log(f"  {label}: per-level route's tracks identical to one launch a "
+        f"pyramid (positions, alive, track_id): {same}")
+    assert same
+    ts = {"new": [], "old": []}
+    for route in ("new", "old", "old", "new") * 2:
+        if route == "old":
+            with per_level_route():
+                ts[route] += clip_seconds(fn, reps)
+        else:
+            ts[route] += clip_seconds(fn, reps)
+    fps = {k: steps / statistics.median(v) for k, v in ts.items()}
+    rng = {k: f"{steps / max(v):.2f}-{steps / min(v):.2f}"
+           for k, v in ts.items()}
+    log(f"  {label} frames/s in turns: one launch a pyramid {fps['new']:.2f}"
+        f" ({rng['new']}), per-level launches {fps['old']:.2f} "
+        f"({rng['old']}) (medians and ranges of {4 * reps} runs each; "
+        f"{name})")
+    return fps
 
 
 def clip_seconds(fn, reps=3):
@@ -1410,12 +1607,13 @@ def path_h(dev, clip, cfg_h, counts_by_path, name):
     """Sparse LK with the block window (lk_block_halo 8): K9 and K10 per
     frame, K12 per level per step, the plain position update."""
     from kalman_hydra_tpu_torch import api
-    tr = drive("H", lambda: api.track_video(clip, cfg_h, device=dev),
-               per_frame_expected(cfg_h, H, W, T), counts_by_path)
+    fn = lambda: api.track_video(clip, cfg_h, device=dev)   # noqa: E731
+    e = per_frame_expected(cfg_h, H, W, T)
+    tr = drive("H", fn, e, counts_by_path)
     check_tracks(tr, T, K)
-    return per_frame_fps("H", lambda: api.track_video(clip, cfg_h,
-                                                      device=dev),
-                         T - 1, f"1080p, T={T}, K={K}; {name}")
+    med = per_frame_fps("H", fn, T - 1, f"1080p, T={T}, K={K}; {name}")
+    route_compare("H", fn, cfg_h, e, tr, T - 1, name)
+    return med
 
 
 @phase("path H0 (api.track_video, RunConfig(flow=FlowConfig(method="
@@ -1424,12 +1622,13 @@ def path_h0(dev, clip, cfg_h0, counts_by_path, name):
     """The reference's sparse-LK defaults: K12's exact window."""
     from kalman_hydra_tpu_torch import api
     k = cfg_h0.tracks.num_tracks
-    tr = drive("H0", lambda: api.track_video(clip, cfg_h0, device=dev),
-               per_frame_expected(cfg_h0, H, W, T), counts_by_path)
+    fn = lambda: api.track_video(clip, cfg_h0, device=dev)   # noqa: E731
+    e = per_frame_expected(cfg_h0, H, W, T)
+    tr = drive("H0", fn, e, counts_by_path)
     check_tracks(tr, T, k)
-    return per_frame_fps("H0", lambda: api.track_video(clip, cfg_h0,
-                                                       device=dev),
-                         T - 1, f"1080p, T={T}, K={k}; {name}")
+    med = per_frame_fps("H0", fn, T - 1, f"1080p, T={T}, K={k}; {name}")
+    route_compare("H0", fn, cfg_h0, e, tr, T - 1, name)
+    return med
 
 
 def torch_ops(fn) -> int:
@@ -1457,8 +1656,9 @@ def path_j(dev, clip_j, cfg_j, counts_by_path, name):
     from kalman_hydra_tpu_torch.ops.color import grayscale_u8
     from kalman_hydra_tpu_torch.ops.lk import lk_dense
     k = cfg_j.tracks.num_tracks
-    tr = drive("J", lambda: api.track_video(clip_j, cfg_j, device=dev),
-               per_frame_expected(cfg_j, H_J, W_J, T_J), counts_by_path)
+    fn = lambda: api.track_video(clip_j, cfg_j, device=dev)   # noqa: E731
+    e = per_frame_expected(cfg_j, H_J, W_J, T_J)
+    tr = drive("J", fn, e, counts_by_path)
     check_tracks(tr, T_J, k)
     same_tracks(tr, api.track_video(clip_j, cfg_j.replace(pair_batch=True),
                                     device=dev),
@@ -1467,9 +1667,9 @@ def path_j(dev, clip_j, cfg_j, counts_by_path, name):
               for i in (0, 1))
     log(f"  J: one frame pair's lk_dense dispatches "
         f"{torch_ops(lambda: lk_dense(g0, g1, cfg_j.flow))} ATen operators")
-    return per_frame_fps("J", lambda: api.track_video(clip_j, cfg_j,
-                                                      device=dev),
-                         T_J - 1, f"256x256, T={T_J}, K={k}; {name}")
+    med = per_frame_fps("J", fn, T_J - 1, f"256x256, T={T_J}, K={k}; {name}")
+    route_compare("J", fn, cfg_j, e, tr, T_J - 1, name, reps=1)
+    return med
 
 
 @phase("path AP (api.track_video, 1080p T=9 K=1024, fi_pipeline=True)")
@@ -1553,13 +1753,14 @@ def path_w(dev, clip, cfg_w, counts_by_path, name):
     finite."""
     from kalman_hydra_tpu_torch import api
     k = cfg_w.tracks.num_tracks
-    tr = drive("W", lambda: api.track_video(clip, cfg_w, device=dev),
-               per_frame_expected(cfg_w, H, W, T), counts_by_path)
+    fn = lambda: api.track_video(clip, cfg_w, device=dev)   # noqa: E731
+    e = per_frame_expected(cfg_w, H, W, T)
+    tr = drive("W", fn, e, counts_by_path)
     check_tracks(tr, T, k)
     assert tr.smoothed is not None and np.isfinite(tr.smoothed).all()
-    return per_frame_fps("W", lambda: api.track_video(clip, cfg_w,
-                                                      device=dev),
-                         T - 1, f"1080p, T={T}, K={k}; {name}")
+    med = per_frame_fps("W", fn, T - 1, f"1080p, T={T}, K={k}; {name}")
+    route_compare("W", fn, cfg_w, e, tr, T - 1, name)
+    return med
 
 
 @phase("path Q (pipeline.track_precomputed_flow over AP's 8 flows)")
@@ -1651,8 +1852,8 @@ _KERNELS = {   # wrapper: (CUDA source, TPU entry point it replaces, in
                                    "level_image_pallas.py:246"),
     "flow_update": ("flow_update.cu", "flow_update_pallas.py:105"),
     "coarse_level_images": ("level_image.cu", "level_image_pallas.py:306"),
-    "pyr_down": ("pyramid.cu", "pyramid_pallas.py:76"),
-    "scharr_gradients": ("scharr.cu", "scharr_pallas.py:71"),
+    "pyr_down_levels": ("pyramid.cu", "pyramid_pallas.py:76"),
+    "scharr_gradients_levels": ("scharr.cu", "scharr_pallas.py:71"),
     "lk_level": ("lk.cu", "lk_pallas.py:256"),
     "flow_iters_pipelined": ("flow_iters_pipe.cu",
                              "flow_iter_pallas.py:717"),
@@ -1794,6 +1995,7 @@ def main() -> int:
     check_k12(dev, clip, cfgs["H"], results)
     check_k13(dev, clip, cfgs["AP"], results)
     check_k8_pairs(dev, clip_b, cfgs["BX"], results)
+    check_golden(dev)
     path_a(dev, clip, cfg, counts_by_path)
     flow_vs_plain(dev, clip, {k: cfgs[k]
                               for k in ("A", "D", "D2", "E", "AP")})
@@ -1855,7 +2057,10 @@ def main() -> int:
                      "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),
                      "bound_by": r.get("bound_by"),
-                     "library_ms": r.get("library_ms")})
+                     "library_ms": r.get("library_ms"),
+                     "device_ms": r.get("device_ms"),
+                     "device_how": r.get("device_how"),
+                     "library_device_ms": r.get("library_device_ms")})
     if set(_KERNELS) != set(kernels.WRAPPERS):
         FAILURES.append("the kernels line does not list every wrapper")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "

@@ -28,7 +28,8 @@ from .ops.lk import lk_dense
 
 
 def flow(a: np.ndarray, b: np.ndarray, cfg: Optional[FlowConfig] = None,
-         initial: Optional[np.ndarray] = None, device="cuda") -> np.ndarray:
+         initial: Optional[np.ndarray] = None, *,
+         device="cuda") -> np.ndarray:
     """Dense flow between two frames, Farneback or dense LK by
     cfg.method, (H, W, 2) float32 on the host. Accepts uint8 or float
     frames, gray or colour; [0, 1]-normalized float frames are rescaled
@@ -57,9 +58,9 @@ def flow(a: np.ndarray, b: np.ndarray, cfg: Optional[FlowConfig] = None,
 
 
 def track_video(source: np.ndarray, cfg: Optional[RunConfig] = None,
-                device="cuda", out_path: Optional[str] = None,
-                streaming: bool = False,
-                max_frames: Optional[int] = None) -> Trajectories:
+                out_path: Optional[str] = None, streaming: bool = False,
+                max_frames: Optional[int] = None, *,
+                device="cuda") -> Trajectories:
     """Track a (T, H, W[, 3]) uint8 clip on `device`; optionally export."""
     if isinstance(source, str) or streaming:
         raise NotImplementedError("video files and streaming are outside "
@@ -73,7 +74,7 @@ def track_video(source: np.ndarray, cfg: Optional[RunConfig] = None,
 
 
 def flow_sequence(frames: np.ndarray, cfg: Optional[RunConfig] = None,
-                  smooth: bool = False, device="cuda") -> np.ndarray:
+                  smooth: bool = False, *, device="cuda") -> np.ndarray:
     """Dense flow for each consecutive pair of a (T, H, W[, 3]) uint8
     clip, (T - 1, H, W, 2) on the host, optionally per-pixel-KF smoothed
     (BASELINE.json:8)."""
@@ -82,18 +83,21 @@ def flow_sequence(frames: np.ndarray, cfg: Optional[RunConfig] = None,
                                    smooth).cpu().numpy()
 
 
-def smooth(frames: np.ndarray, cfg: Optional[RunConfig] = None,
-           device="cuda") -> Trajectories:
-    """Track with the RTS smoother on (BASELINE.json:11); a config whose
-    smoother is off gets the default SmoothConfig(enabled=True)."""
+def smooth(frames_or_tracks: np.ndarray, cfg: Optional[RunConfig] = None,
+           *, device="cuda") -> Trajectories:
+    """Track a (T, H, W[, 3]) uint8 clip with the RTS smoother on
+    (BASELINE.json:11); a config whose smoother is off gets the default
+    SmoothConfig(enabled=True). The parameter keeps the reference's
+    name, which also admits a video path there (ROADMAP P12)."""
     cfg = cfg or RunConfig()
     if not cfg.smooth.enabled:
         cfg = cfg.replace(smooth=cfg.smooth.__class__(enabled=True))
-    return track_video(frames, cfg, device=device)
+    return track_video(frames_or_tracks, cfg, device=device)
 
 
 def track_videos(clips: np.ndarray, cfg: Optional[RunConfig] = None,
-                 device="cuda", sharded: bool = False) -> List[Trajectories]:
+                 sharded: bool = False, *,
+                 device="cuda") -> List[Trajectories]:
     """Track a (B, T, H, W[, 3]) uint8 clip batch on one device
     (BASELINE.json:10's multi-clip batch); returns B Trajectories.
 

@@ -11,8 +11,8 @@
 | polyexp.poly_expansion_planar_batch (K7a) | csrc/polyexp.cu | polyexp_pallas.py::poly_expansion_planar_batch |
 | level_image.coarse_polyexp_fused_batch (K7b) | csrc/level_image.cu | level_image_pallas.py::coarse_polyexp_fused_batch |
 | flow_update.flow_update (K8) | csrc/flow_update.cu | flow_update_pallas.py::flow_update |
-| pyramid.pyr_down (K9) | csrc/pyramid.cu | pyramid_pallas.py::pyr_down |
-| scharr.scharr_gradients (K10) | csrc/scharr.cu | scharr_pallas.py::scharr_gradients |
+| pyramid.pyr_down_levels (K9) | csrc/pyramid.cu | pyramid_pallas.py::pyr_down (once per level) |
+| scharr.scharr_gradients_levels (K10) | csrc/scharr.cu | scharr_pallas.py::scharr_gradients (once per level) |
 | level_image.coarse_level_images (K11) | csrc/level_image.cu | level_image_pallas.py::farneback_images_pallas |
 | lk.lk_level (K12) | csrc/lk.cu | lk_pallas.py::lk_sparse (_lk_level) |
 | flow_iter.flow_iters_pipelined (K13) | csrc/flow_iters_pipe.cu | flow_iter_pallas.py::flow_iters_pipelined |
@@ -21,7 +21,8 @@
 Each wrapper dispatches by device: a CPU tensor takes the plain PyTorch
 version beside it, a CUDA tensor launches the kernel or raises. Each
 carries a plain-int `launches` counter, bumped once per call that launched
-its kernel.
+its kernel. `pyramid.pyr_down` and `scharr.scharr_gradients` are the
+one-level calls of K9's and K10's wrappers and count there.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ from .level_image import (coarse_level_images, coarse_polyexp_fused,
                           coarse_polyexp_fused_batch)
 from .lk import lk_level
 from .polyexp import poly_expansion_planar, poly_expansion_planar_batch
-from .pyramid import pyr_down
-from .scharr import scharr_gradients
+from .pyramid import pyr_down, pyr_down_levels
+from .scharr import scharr_gradients, scharr_gradients_levels
 
 WRAPPERS = {
     "ekf_fused_step": ekf_fused_step,
@@ -48,8 +49,8 @@ WRAPPERS = {
     "coarse_polyexp_fused_batch": coarse_polyexp_fused_batch,
     "flow_update": flow_update,
     "coarse_level_images": coarse_level_images,
-    "pyr_down": pyr_down,
-    "scharr_gradients": scharr_gradients,
+    "pyr_down_levels": pyr_down_levels,
+    "scharr_gradients_levels": scharr_gradients_levels,
     "lk_level": lk_level,
     "flow_iters_pipelined": flow_iters_pipelined,
     "flow_update_pairs": flow_update_pairs,

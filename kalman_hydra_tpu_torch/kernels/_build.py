@@ -135,8 +135,10 @@ def check(rc: int, name: str) -> None:
 
 
 def stream(t: torch.Tensor) -> int:
-    """Raw handle of PyTorch's current stream on t's device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Raw handle of PyTorch's current stream on t's device (the
+    capturing stream inside a CUDA graph capture). Read without building
+    a torch.cuda.Stream object: it is on every launch's host path."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:

@@ -2,20 +2,22 @@
 kalman_hydra_tpu/ops/lk.py).
 
 Sparse (cv2.calcOpticalFlowPyrLK): Scharr/32 derivatives of each level of
-the previous frame's pyramid (K9 and K10 on the card, `lk_pyramid`,
-cached per frame by the pipeline), then coarsest level first one K12
-launch per level for all points: bilinear patches, the structure tensor
-and its min-eigenvalue gate, Gauss-Newton steps with the eps early exit,
-x2 between levels. `FlowConfig.lk_block_halo` > 0 clamps each level's
-moving guess to a halo'd block around its initial guess (the reference's
-batched solvers); `lk_solver` and `lk_blocked_gather` choose TPU layouts
-of that same computation and are ignored here, as `impl` is.
+the previous frame's pyramid (one K9 and one K10 launch on the card,
+`lk_pyramid`, cached per frame by the pipeline), then coarsest level
+first one K12 launch per level for all points: bilinear patches, the
+structure tensor and its min-eigenvalue gate, Gauss-Newton steps with
+the eps early exit, x2 between levels. `FlowConfig.lk_block_halo` > 0
+clamps each level's moving guess to a halo'd block around its initial
+guess (the reference's batched solvers); `lk_solver` and
+`lk_blocked_gather` choose TPU layouts of that same computation and are
+ignored here, as `impl` is.
 
 Dense: the same normal equations with the window as unnormalised box
 sums over the whole image (per-pixel G and b), re-solved for the total
 flow `lk_max_iter` times per level with a backward warp of the next
 frame (the fast select-sum warp at fast_warp > 0), coarse to fine; plain
-torch around K9 and K10, as the reference's is XLA around its ops.
+torch around K9 (one launch per frame's pyramid) and K10 (one launch for
+the previous frame's levels), as the reference's is XLA around its ops.
 """
 
 from __future__ import annotations
@@ -26,19 +28,21 @@ import torch
 
 from ..config import FlowConfig
 from ..kernels.lk import lk_level
-from ..kernels.scharr import scharr_gradients
+from ..kernels.scharr import scharr_gradients_levels
+from ..kernels.scharr import scharr_gradients  # noqa: F401  (ops.lk's API,
+#                                                 as in the reference)
 from .filters import box_filter
 from .pyramid import build_pyramid, resize_linear
 from .warp import warp_image, warp_selectsum
 
 
 def lk_pyramid(img: torch.Tensor, cfg: FlowConfig) -> Tuple[tuple, tuple]:
-    """(pyr, grads) of one frame: `levels` pyrDown images (levels - 1
-    K9 launches) and the Scharr planes (gx, gy) of each (levels K10
-    launches). The pipeline carries the previous frame's pair, so each
-    frame's pyramid is built once."""
+    """(pyr, grads) of one frame: `levels` pyrDown images (one K9
+    launch) and the Scharr planes (gx, gy) of each (one K10 launch). The
+    pipeline carries the previous frame's pair, so each frame's pyramid
+    is built once."""
     pyr = build_pyramid(img.to(torch.float32).contiguous(), cfg.levels)
-    return tuple(pyr), tuple(scharr_gradients(a) for a in pyr)
+    return tuple(pyr), scharr_gradients_levels(pyr)
 
 
 def _clamp_xy(p: torch.Tensor, lo, hi_x, hi_y) -> torch.Tensor:
@@ -125,6 +129,7 @@ def lk_dense(prev: torch.Tensor, nxt: torch.Tensor,
     """Dense pyramidal LK flow, (H, W, 2) f32 (x, y displacement)."""
     pyr_a = build_pyramid(prev.to(torch.float32).contiguous(), cfg.levels)
     pyr_b = build_pyramid(nxt.to(torch.float32).contiguous(), cfg.levels)
+    grads = scharr_gradients_levels(pyr_a)
     w = cfg.lk_winsize
 
     def wsum(v):
@@ -142,7 +147,7 @@ def lk_dense(prev: torch.Tensor, nxt: torch.Tensor,
         else:
             flow = resize_linear(flow.movedim(-1, 0), h_l,
                                  w_l).movedim(0, -1) * 2.0
-        gx, gy = scharr_gradients(ia)
+        gx, gy = grads[lvl]
         gxx, gxy, gyy = gx * gx, gx * gy, gy * gy
         g11, g12, g22 = wsum(gxx), wsum(gxy), wsum(gyy)
         det = g11 * g22 - g12 * g12

@@ -1,8 +1,8 @@
 """Gaussian pyramids and OpenCV-compatible linear resize (port of
 kalman_hydra_tpu/ops/pyramid.py).
 
-`build_pyramid`: cv2.pyrDown levels (K9 on the card), the pyramid of both
-Lucas-Kanade flows. `farneback_images` builds each level
+`build_pyramid`: cv2.pyrDown levels (one K9 launch on the card), the
+pyramid of both Lucas-Kanade flows. `farneback_images` builds each level
 the way cv2.calcOpticalFlowFarneback does — GaussianBlur of the ORIGINAL
 image, then an INTER_LINEAR resize — and is the per-stage reference for
 the fused K4 kernel (kernels/level_image.py).
@@ -20,12 +20,10 @@ from .filters import cv_round, gaussian_blur
 
 def build_pyramid(img: torch.Tensor, levels: int) -> List[torch.Tensor]:
     """LK pyramid: `levels` images, level 0 = the input, each next one
-    cv2.pyrDown of the last (the K9 wrapper, kernels/pyramid.py)."""
-    from ..kernels.pyramid import pyr_down
-    pyr = [img]
-    for _ in range(levels - 1):
-        pyr.append(pyr_down(pyr[-1]))
-    return pyr
+    cv2.pyrDown of the last: all `levels - 1` of them in one K9 launch
+    (kernels/pyramid.py::pyr_down_levels)."""
+    from ..kernels.pyramid import pyr_down_levels
+    return [img] + pyr_down_levels(img, levels - 1)
 
 
 def resize_coeffs(n_out: int, n_in: int):

@@ -581,7 +581,8 @@ def _smooth_history_chunked(outs: dict, cfg: RunConfig,
 
 
 def track_precomputed_flow(flows: np.ndarray, seeds: np.ndarray,
-                           cfg: RunConfig, device="cuda") -> Trajectories:
+                           cfg: RunConfig, *,
+                           device="cuda") -> Trajectories:
     """Track from a supplied (T - 1, H, W, 2) flow sequence: the filter
     stack alone (measurement update, gate, kill) from the (K, 2) `seeds`,
     with no flow computation and no re-seeding (there are no frames for a
@@ -606,12 +607,21 @@ def track_precomputed_flow(flows: np.ndarray, seeds: np.ndarray,
                           for k in _ROWS})
 
 
-def track_clip(frames: np.ndarray, cfg: RunConfig, device="cuda",
-               seeds: Optional[np.ndarray] = None) -> Trajectories:
+def track_clip(frames: np.ndarray, cfg: RunConfig,
+               seeds: Optional[np.ndarray] = None,
+               with_history: bool = False, render_tmpl=None, *,
+               device="cuda") -> Trajectories:
     """Track a whole (T, H, W[, 3]) uint8 clip on `device` (the card
     unless the caller asks for "cpu"). With smooth.chunk > 0 and no lag
     the filter history is moved to host memory and smoothed a chunk at a
-    time (the long-horizon memory plan)."""
+    time (the long-horizon memory plan). The reference's parameters, in
+    its order: `with_history` has no effect there either (Trajectories
+    carries no filter history); `render_tmpl`, the mesh-render channels'
+    template, is not ported yet."""
+    if render_tmpl is not None:
+        raise NotImplementedError("track_clip(render_tmpl=...): the "
+                                  "mesh-render channels are outside the "
+                                  "ported slice (ROADMAP P11b)")
     frames_d = upload(frames, device)
     seeds_d = _seeds(seeds, device)
     if cfg.smooth.enabled and cfg.smooth.chunk > 0 and cfg.smooth.lag == 0:
@@ -625,8 +635,9 @@ def track_clip(frames: np.ndarray, cfg: RunConfig, device="cuda",
     return _trajectories(track_arrays(frames_d, cfg, seeds=seeds_d))
 
 
-def track_clips(clips: np.ndarray, cfg: RunConfig, device="cuda",
-                seeds: Optional[np.ndarray] = None) -> List[Trajectories]:
+def track_clips(clips: np.ndarray, cfg: RunConfig,
+                seeds: Optional[np.ndarray] = None, *,
+                device="cuda") -> List[Trajectories]:
     """Track a (B, T, H, W[, 3]) uint8 clip batch on `device`: through
     `track_clips_pairflow` with cfg.pair_batch, else clip after clip
     through `track_arrays`. `seeds` is (K, 2) or (B, K, 2)."""

@@ -161,6 +161,8 @@ def test_cpu_wrappers_do_not_count_launches(rng):
     kernels.flow_update(R, R, torch.zeros(2, 64, 80), 15)
     kernels.coarse_level_images(img, 2, 0.5)
     kernels.pyr_down(img)
+    pyr = [img] + kernels.pyr_down_levels(img, 3)
+    kernels.scharr_gradients_levels(pyr)
     gx, gy = kernels.scharr_gradients(img)
     pts = torch.full((3, 2), 30.0)
     kernels.lk_level(img, img, gx, gy, pts, pts, torch.zeros(3, 2),

@@ -241,6 +241,59 @@ def test_entry_points_default_to_the_card(name):
     _ENTRY_POINTS[name](clip, {"device": "cpu"})
 
 
+_SMALL = tconfig.RunConfig(flow=tconfig.FlowConfig(levels=2),
+                           tracks=tconfig.TrackConfig(num_tracks=8))
+# each entry point called as a caller of the reference writes it: every
+# parameter of the reference positional, `device` by keyword
+_REFERENCE_FORM = {
+    "api.track_video": lambda clip, tmp: api.track_video(
+        clip, _SMALL, str(tmp / "t.npz"), False, 3, device="cpu"),
+    "api.track_videos": lambda clip, tmp: api.track_videos(
+        clip[None], _SMALL, False, device="cpu"),
+    "api.flow": lambda clip, tmp: api.flow(
+        clip[0], clip[1], _SMALL.flow, None, device="cpu"),
+    "api.flow_sequence": lambda clip, tmp: api.flow_sequence(
+        clip, _SMALL, False, device="cpu"),
+    "api.smooth": lambda clip, tmp: api.smooth(clip, _SMALL, device="cpu"),
+    "pipeline.track_clip": lambda clip, tmp: pipeline.track_clip(
+        clip, _SMALL, np.full((8, 2), 20.0, np.float32), False, None,
+        device="cpu"),
+    "pipeline.track_precomputed_flow":
+        lambda clip, tmp: pipeline.track_precomputed_flow(
+            np.zeros((2, 48, 64, 2), np.float32), np.ones((2, 2)), _SMALL,
+            device="cpu"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_REFERENCE_FORM))
+def test_entry_points_take_the_reference_positional_form(name, tmp_path):
+    """Each entry point has the reference's positional parameters, in
+    its order, and `device` only as a keyword; a call in the reference's
+    positional form runs on the CPU with the reference's result shape."""
+    from kalman_hydra_tpu import api as japi
+    from kalman_hydra_tpu import pipeline as jpipeline
+    mod, fn = name.split(".")
+    ours = inspect.signature(getattr(api if mod == "api" else pipeline, fn))
+    ref = inspect.signature(getattr(japi if mod == "api" else jpipeline, fn))
+
+    def positional(sig):
+        return [p.name for p in sig.parameters.values()
+                if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
+    assert positional(ours) == positional(ref)
+    assert ours.parameters["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    clip, _ = tsyn.moving_blob_clip(num_frames=3, height=48, width=64)
+    out = _REFERENCE_FORM[name](clip, tmp_path)
+    if name == "api.track_videos":
+        out = out[0]
+    shape = out.shape if isinstance(out, np.ndarray) else out.positions.shape
+    assert shape == {"api.flow": (48, 64, 2),
+                     "api.flow_sequence": (2, 48, 64, 2)}.get(
+        name, (3, 2 if "precomputed" in name else 8, 2))
+    if name == "api.track_video":
+        assert texport.load(str(tmp_path / "t.npz")).positions.shape == \
+            (3, 8, 2)
+
+
 @pytest.mark.parametrize("kw", [
     dict(num_frames=3, height=64, width=80),
     dict(num_frames=4, height=90, width=120, blob_sigma=9.0,
@@ -286,14 +339,18 @@ _OUTSIDE = {
         np.zeros((2, 48, 64), np.uint8), streaming=True, device="cpu"),
     "track_videos_sharded": lambda: api.track_videos(
         np.zeros((1, 2, 48, 64), np.uint8), sharded=True, device="cpu"),
+    "track_clip_render_tmpl": lambda: pipeline.track_clip(
+        np.zeros((2, 48, 64), np.uint8), tconfig.RunConfig(), None, False,
+        object(), device="cpu"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_OUTSIDE))
 def test_outside_the_slice_raises(name):
     """What stays outside the ported slices raises NotImplementedError
-    naming its ROADMAP item: the mesh-render channels (P11b), streaming
-    (P12), clips sharded over cards (P13)."""
+    naming its ROADMAP item: the mesh-render channels (P11b, also as
+    track_clip's render_tmpl), streaming (P12), clips sharded over cards
+    (P13)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _OUTSIDE[name]()
 
