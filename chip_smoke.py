@@ -13,7 +13,9 @@ prints no result line):
      the shapes its path gives it, with the stated bars, and each batched
      kernel against its per-item kernel (bit for bit; K5 and K13 against
      n_iters K2 launches, K8-pairs against per-pair K8, K9's and K10's
-     one launch a pyramid against their one-level launches); hold
+     one launch a pyramid against their one-level launches), and the
+     fused K2 against the output bytes of the three-launch K2 it
+     replaced (K2_WITNESS) and against K5 at one iteration; hold
      api.flow and pipeline.track_clip against the OpenCV oracle's
      tests/golden/oracle_v1.npz;
   4. time each kernel, its plain version and, where one PyTorch call
@@ -390,42 +392,150 @@ def check_k4(dev, gray, cfg, results):
            ms["plain"], k4_bytes(H, W, f, 2), k4_flops(H, W, f), dev=ms)
 
 
+# Odd shapes: one short band (1x5), levels smaller than one tile (20x30,
+# 37x53), ragged bands and columns (70x90, 45x100: 100 is not a multiple
+# of the 64-column tile) and a ragged 1080p-sized frame.
+FI_ODD_SIZES = ((37, 53), (70, 90), (1, 5), (20, 30), (45, 100),
+                (1079, 1919))
+
+
+def smooth_flow(h, w, dev):
+    """A smooth prior flow (+-2.5 px across, +-1.5 px down), as the
+    coarse-to-fine warm start gives the fine levels: K2's gathers of R1
+    then fall on few rows, where the random +-3 px flow of the timed
+    calls scatters them over seven."""
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32),
+                            indexing="ij")
+    return torch.stack([2.5 * torch.sin(xx * (2 * np.pi / 300)),
+                        1.5 * torch.cos(yy * (2 * np.pi / 200))]).to(dev)
+
+
 @phase("K2 flow_iter")
 def check_k2(dev, cfg, results):
-    from kalman_hydra_tpu_torch.kernels.flow_iter import (flow_iter,
+    """K2 on the six 1080p levels and the odd shapes, random planes and a
+    random prior flow of +-10 px (beyond the +-8 clamp), f32 and bf16
+    planes, box and Gaussian windows at the configuration's winsize (the
+    kernel's taps-15 build) and at winsizes 5 and 31 (its generic build):
+    against the plain version (< 1e-4). Timed at 1080p bf16 on a random
+    +-3 px flow (the table's figure, as in earlier runs) and on a smooth
+    one."""
+    from kalman_hydra_tpu_torch.kernels.flow_iter import (TILE, flow_iter,
                                                           flow_iter_plain)
     from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
     g = torch.Generator().manual_seed(2)
     worst = 0.0
-    for (_k, lh, lw, _s, _ks) in farneback_levels(H, W, f.levels,
-                                                  f.pyr_scale):
+    shapes = [(lh, lw) for (_k, lh, lw, _s, _ks)
+              in farneback_levels(H, W, f.levels, f.pyr_scale)]
+    for lh, lw in shapes + list(FI_ODD_SIZES):
         R0 = torch.randn(5, lh, lw, generator=g).to(dev)
         R1 = torch.randn(5, lh, lw, generator=g).to(dev)
         fl = (torch.rand(2, lh, lw, generator=g) * 20 - 10).to(dev)
         line = []
+        wins = (f.winsize,) if (lh, lw) in shapes else (f.winsize, 5, 31)
         for dt in (torch.float32, torch.bfloat16):
             a, b = R0.to(dt), R1.to(dt)
             for gw in (False, True):
-                e = max_err(flow_iter(a, b, fl, f.winsize, f.fast_warp, gw),
-                            flow_iter_plain(a, b, fl, f.winsize, f.fast_warp,
-                                            gw))
-                worst = max(worst, e)
-                line.append(f"{str(dt)[6:]}{'/gauss' if gw else ''} "
-                            f"{e:.2e}")
+                for ws in wins:
+                    e = max_err(flow_iter(a, b, fl, ws, f.fast_warp, gw),
+                                flow_iter_plain(a, b, fl, ws, f.fast_warp,
+                                                gw))
+                    worst = max(worst, e)
+                    line.append(f"{str(dt)[6:]}{'/g' if gw else ''}"
+                                f"{'' if ws == f.winsize else '/w%d' % ws} "
+                                f"{e:.1e}")
         log(f"  K2 {lh}x{lw}: " + ", ".join(line))
     log(f"  K2 max_abs_err {worst:.3e} (bar 1e-4, f32 and bf16 planes)")
     assert worst < 1e-4
     R0 = torch.randn(5, H, W, generator=g).to(dev).to(torch.bfloat16)
     R1 = torch.randn(5, H, W, generator=g).to(dev).to(torch.bfloat16)
     fl = (torch.rand(2, H, W, generator=g) * 6 - 3).to(dev)
+    fs = smooth_flow(H, W, dev)
     ms = time_turns({
         "plain": lambda: flow_iter_plain(R0, R1, fl, f.winsize, f.fast_warp),
-        "kernel": lambda: flow_iter(R0, R1, fl, f.winsize, f.fast_warp)})
-    log(f"  K2 time ({H}x{W}, bf16 planes)")
+        "kernel": lambda: flow_iter(R0, R1, fl, f.winsize, f.fast_warp),
+        "smooth": lambda: flow_iter(R0, R1, fs, f.winsize, f.fast_warp)})
+    log(f"  K2 time ({H}x{W}, bf16 planes, tile {TILE[0]}x{TILE[1]}): "
+        f"random flow {ms['kernel']:.4f} ms per call, "
+        f"{ms['kernel dev']:.4f} on the device; smooth flow "
+        f"{ms['smooth']:.4f}, {ms['smooth dev']:.4f} on the device")
     taps = 2 * (f.winsize // 2) + 1
     record(results, "flow_iter", worst, ms["kernel"], ms["plain"],
            H * W * (10 * 2 + 8 + 8), H * W * fi_flops(taps), dev=ms)
+    results["flow_iter"]["smooth_device_ms"] = ms["smooth dev"]
+
+
+# sha256 of the output bytes of the three-launch K2 that the fused kernel
+# replaced (commit 2f41914, M and its vertical pass in device memory) on
+# witness_inputs at winsize 15, max_disp 8, computed as check_k2_witness
+# computes them, on an NVIDIA H100 80GB HBM3. K5 at one iteration gave
+# the same bytes there.
+K2_WITNESS = {
+    "1080x1920 float32 box":
+        "051ac8a57f592d4177b5ae15148007dcd1c5ddfba6a9bf47a4f5cb310c2c70a5",
+    "1080x1920 float32 gauss":
+        "0228dcb69f7c7f6ef257fefdf2a6b07d6a8a43ab9939cf01243ad8f9e7d42bf2",
+    "1080x1920 bfloat16 box":
+        "ee50d084b09e585607c9febcaf80b366ac0463896d94bff4c7f91f8e37fae999",
+    "1080x1920 bfloat16 gauss":
+        "b4a5c359024cd51b9df85b8712e3a270f5706655825e5dbf2988faf5242e00af",
+    "540x960 float32 box":
+        "01a1c2a805f476050f4621c777db644d2786aab25cbd93bac0212a1e0bc7a3c7",
+    "540x960 float32 gauss":
+        "0d646bfa70aea1c6fb34609175924819ca8d6def2cb82472633eea06390957f5",
+    "540x960 bfloat16 box":
+        "21a47aa339f087111bf19fe51e5a51f3a6ae58887f11d62bad3c6afea1f4bb65",
+    "540x960 bfloat16 gauss":
+        "341968987e4e4453c1b22669afc1db5e06a8931dd8b077faf97164549ca91e5d",
+    "37x53 float32 box":
+        "d8b38baceb907f3b0b41e7ce34f60e32e11e6d40402fd1698a9f88d2cb275d7c",
+    "37x53 float32 gauss":
+        "649beee59c1c696b6382d76ae9d80fe0c163d1ab0d538dcaf1ca242860f6dbd7",
+    "37x53 bfloat16 box":
+        "867cb387d09a26416a77f9a3ee3c4e34595a4e5cec2ed700fe8e49eb1cd78e97",
+    "37x53 bfloat16 gauss":
+        "01786c87c6fa43853b8103fc78c747b425fe3951e044e6b22510b8e2e2f35c20",
+}
+
+
+def witness_inputs(h, w, seed=7):
+    """R0, R1 (5, h, w) and a +-10 px prior flow (2, h, w), f32, from
+    numpy's legacy generator (the same numbers on every machine)."""
+    rs = np.random.RandomState(seed)
+    R0 = rs.standard_normal((5, h, w)).astype(np.float32)
+    R1 = rs.standard_normal((5, h, w)).astype(np.float32)
+    fl = (rs.random_sample((2, h, w)) * 20 - 10).astype(np.float32)
+    return R0, R1, fl
+
+
+@phase("K2 against the three-launch K2's outputs (bit for bit)")
+def check_k2_witness(dev):
+    """The fused K2 against the old K2 it replaced: its output bytes on
+    witness_inputs at 1080x1920, 540x960 and 37x53 (f32 and bf16 planes,
+    box and Gaussian windows) hash to K2_WITNESS; and K5 at one iteration
+    (csrc/flow_level.cu, the per-pixel code on (5, h, w) planes in device
+    memory) gives the same output bit for bit."""
+    import hashlib
+    from kalman_hydra_tpu_torch.kernels.flow_iter import flow_iter
+    from kalman_hydra_tpu_torch.kernels.flow_level import flow_level
+    bad = []
+    for key in K2_WITNESS:
+        shape, dt, win = key.split()
+        h, w = map(int, shape.split("x"))
+        R0, R1, fl = (torch.from_numpy(a).to(dev)
+                      for a in witness_inputs(h, w))
+        dt = getattr(torch, dt)
+        a, b = R0.to(dt), R1.to(dt)
+        out = flow_iter(a, b, fl, 15, 8, win == "gauss")
+        same_hash = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest() \
+            == K2_WITNESS[key]
+        e5 = max_err(out, flow_level(a, b, fl, 15, 8, 1, win == "gauss"))
+        log(f"  K2 {key}: {'same bytes' if same_hash else 'DIFFERENT bytes'}"
+            f" as the three-launch K2; vs K5 at one iteration {e5:.1e}")
+        if not same_hash or e5 != 0.0:
+            bad.append(key)
+    assert not bad, f"the fused K2 differs from the old one on {bad}"
 
 
 @phase("K5 flow_level")
@@ -446,7 +556,8 @@ def check_k5(dev, clip, cfg, results):
     g = torch.Generator().manual_seed(5)
     D, it, wins = f.fast_warp, f.iterations, f.winsize
     worst = worst_k2 = 0.0
-    tot = {"kernel": 0.0, "plain": 0.0, "k2": 0.0, "kernel dev": 0.0}
+    tot = {"kernel": 0.0, "plain": 0.0, "k2": 0.0, "kernel dev": 0.0,
+           "k2 dev": 0.0}
     nbytes = flops = 0
     taps = 2 * (wins // 2) + 1
     gated = 0
@@ -483,8 +594,10 @@ def check_k5(dev, clip, cfg, results):
             "kernel": lambda a=a, b=b, fl=fl: flow_level(a, b, fl, wins, D,
                                                          it),
             "k2": k2_route})
-        log(f"  K5 {lh}x{lw} bf16 time: kernel {ms['kernel']:.4f} ms, "
-            f"{it} x K2 {ms['k2']:.4f} ms, plain {ms['plain']:.4f} ms")
+        log(f"  K5 {lh}x{lw} bf16 time: kernel {ms['kernel']:.4f} ms "
+            f"({ms['kernel dev']:.4f} on the device), {it} x K2 "
+            f"{ms['k2']:.4f} ms ({ms['k2 dev']:.4f}), plain "
+            f"{ms['plain']:.4f} ms")
         for k in tot:
             tot[k] += ms[k]
         how = ms["kernel how"]
@@ -498,7 +611,8 @@ def check_k5(dev, clip, cfg, results):
     assert gated > 0 and worst < 1e-4 and worst_k2 == 0.0
     record(results, "flow_level", worst, tot["kernel"], tot["plain"],
            nbytes, flops, dev=dict(tot, **{"kernel how": how}))
-    results["flow_level"]["k2_route_ms"] = tot["k2"]
+    results["flow_level"].update(k2_route_ms=tot["k2"],
+                                 k2_route_device_ms=tot["k2 dev"])
 
 
 def update_flops(taps: int, gaussian: bool = False) -> int:
@@ -835,7 +949,7 @@ def check_k13(dev, clip, cfg, results):
     against the 3 x K2 route; the kernels line keeps one frame pair's two
     calls."""
     from kalman_hydra_tpu_torch.kernels.flow_iter import (
-        flow_iter, flow_iters_pipelined, flow_iters_pipelined_plain)
+        TILE, flow_iter, flow_iters_pipelined, flow_iters_pipelined_plain)
     from kalman_hydra_tpu_torch.kernels.flow_level import fits
     from kalman_hydra_tpu_torch.ops.color import grayscale_u8
     from kalman_hydra_tpu_torch.ops.farneback import polyexp_pyramid
@@ -875,7 +989,8 @@ def check_k13(dev, clip, cfg, results):
         f"{'bit-identical' if worst_k2 == 0 else 'NOT'})")
     assert worst < 1e-4 and worst_k2 == 0.0
     it = f.iterations
-    tot = {"kernel": 0.0, "plain": 0.0, "k2": 0.0, "kernel dev": 0.0}
+    tot = {"kernel": 0.0, "plain": 0.0, "k2": 0.0, "kernel dev": 0.0,
+           "k2 dev": 0.0}
     nbytes = flops = 0
     taps = 2 * (wins // 2) + 1
     for R0f, R1f in levels[:2]:
@@ -895,17 +1010,21 @@ def check_k13(dev, clip, cfg, results):
                 a, b, fl, wins, D, it),
             "k2": k2_route})
         log(f"  K13 {lh}x{lw} bf16 {it} iterations: kernel "
-            f"{ms['kernel']:.4f} ms, {it} x K2 {ms['k2']:.4f} ms, plain "
+            f"{ms['kernel']:.4f} ms ({ms['kernel dev']:.4f} on the device), "
+            f"{it} x K2 {ms['k2']:.4f} ms ({ms['k2 dev']:.4f}), plain "
             f"{ms['plain']:.4f} ms")
         for k in tot:
             tot[k] += ms[k]
         how = ms["kernel how"]
         nbytes += lh * lw * (10 * 2 + 8 + 8)
         flops += it * lh * lw * fi_flops(taps)
+    log(f"  K13 both levels on the device: tiles {TILE[0]}x{TILE[1]} "
+        f"{tot['kernel dev']:.4f} ms; {it} x K2 {tot['k2 dev']:.4f} ms")
     record(results, "flow_iters_pipelined", worst, tot["kernel"],
            tot["plain"], nbytes, flops,
            dev=dict(tot, **{"kernel how": how}))
-    results["flow_iters_pipelined"]["k2_route_ms"] = tot["k2"]
+    results["flow_iters_pipelined"].update(
+        k2_route_ms=tot["k2"], k2_route_device_ms=tot["k2 dev"])
 
 
 @phase("K8-pairs flow_update_pairs")
@@ -1016,13 +1135,15 @@ def check_k6(dev, clip_b, cfg, results):
         "k2": lambda: [flow_iter(Rall[b], Rall[b + 1], fl[b], f.winsize,
                                  f.fast_warp) for b in range(16)]},
         reps=5)
-    log(f"  K6 {H_B}x{W_B} bf16 B=16: kernel {ms['kernel']:.4f} ms, 16 x K2 "
-        f"{ms['k2']:.4f} ms, plain {ms['plain']:.4f} ms")
+    log(f"  K6 {H_B}x{W_B} bf16 B=16: kernel {ms['kernel']:.4f} ms "
+        f"({ms['kernel dev']:.4f} on the device), 16 x K2 {ms['k2']:.4f} ms "
+        f"({ms['k2 dev']:.4f}), plain {ms['plain']:.4f} ms")
     taps = 2 * (f.winsize // 2) + 1
     record(results, "flow_iter_pairs", worst, ms["kernel"], ms["plain"],
            T_B * 5 * H_B * W_B * 2 + 16 * H_B * W_B * 16,
            16 * H_B * W_B * fi_flops(taps), dev=ms)
-    results["flow_iter_pairs"]["k2_route_ms"] = ms["k2"]
+    results["flow_iter_pairs"].update(k2_route_ms=ms["k2"],
+                                      k2_route_device_ms=ms["k2 dev"])
 
 
 @phase("K7a poly_expansion_planar_batch, K7b coarse_polyexp_fused_batch")
@@ -1985,6 +2106,7 @@ def main() -> int:
     check_k3(dev, gray, cfg, results)
     check_k4(dev, gray, cfg, results)
     check_k2(dev, cfg, results)
+    check_k2_witness(dev)
     check_k5(dev, clip, cfg, results)
     check_k6(dev, clip_b, pair_cfg, results)
     check_k7(dev, clip_b, clips_c, cfg, results)

@@ -3,119 +3,127 @@
 //
 // Replaces kalman_hydra_tpu/kernels/flow_iter_pallas.py::flow_iter
 // (_flow_iter_kernel, _tile_body, _box_solve) and ::flow_iter_pairs
-// (_flow_iter_pairs_kernel). The per-pixel math is csrc/flow_iter.cuh.
-// K2 is K6 with one pair: both go through the same three kernels, so a
-// batched launch equals its per-pair launches bit for bit. Pair b reads
-// frames p and p + 1 of the stack, p = b + b / ppc when ppc (pairs per
-// clip) chains clips end to end, else p = b; both frames are read in
-// place, with no gathered copy.
+// (_flow_iter_pairs_kernel). The per-pixel math is csrc/flow_iter.cuh, the
+// tile body csrc/flow_tile.cuh. K2 is K6 with one pair: both launch the
+// same kernel, so a batched launch equals its per-pair launches bit for
+// bit. Pair b reads frames p and p + 1 of the stack, p = b + b / ppc when
+// ppc (pairs per clip) chains clips end to end, else p = b; both frames
+// are read in place, with no gathered copy.
 //
 // Bound on Hopper: memory. At 1080p bf16 one iteration must move 20 B/px
 // of planes and 16 B/px of flow in and out (75 MB, 22 us at 3.35 TB/s);
 // the function needs ~136 FLOPs per pixel with the box window as sliding
-// sums (0.28 GFLOP, 4 us at 67 TFLOP/s f32), well below that; this code
-// sums every tap (~400 FLOPs per pixel at winsize 15). This design also
-// writes and reads two f32 M intermediates
-// (5 planes each). Design: three launches, each a thread per pixel with
-// coalesced row-major access, and the pair index in blockIdx.z. The warp
-// is two clamped indexed loads per tap instead of the TPU's (2D+2)-term
-// select chain (gathers are cheap here; the chain was a workaround for
-// TPU gathers). The window is split into a vertical and a horizontal
-// pass over M so each pixel reads 2 x winsize values per plane instead
-// of winsize^2; neighbouring threads share those reads in L1/L2. Fusing
-// the three passes in shared memory is later work.
-#include "flow_iter.cuh"
+// sums (0.28 GFLOP, 4 us at 67 TFLOP/s f32), well below that. This code
+// sums every tap (~420 FLOPs per pixel at winsize 15, 13 us at the f32
+// rate), because K5, K8 and K13 sum the same taps in the same order and
+// all of them must agree bit for bit.
+//
+// Design: ONE launch per iteration, grid = (column tiles, row tiles,
+// pairs), one block of 256 threads per 32 x 64 output tile (two blocks an
+// SM), the three steps fused in shared memory (flow_tile.cuh): M and its
+// vertical pass never reach device memory, so a call moves the 36 B/px
+// the function needs plus the halo's reads, which hit L1/L2. The price is
+// recomputing M on the halo: (TH + 2 bw)(TW + 2 bw) / (TH TW), 1.75x at
+// 32 x 64 and winsize 15. The kernel runs far above both bounds: its time
+// goes to M's 29 loads a pixel (20 of them gathers of R1), times the
+// halo (PERF.md). The warp is two
+// clamped indexed loads per tap instead of the TPU's (2D+2)-term select
+// chain (gathers are cheap here; the chain was a workaround for TPU
+// gathers). The window's taps are the launch's parameters, a build for
+// 15 taps (every configuration's winsize) and one for any other count.
+#include "flow_tile.cuh"
 
 namespace {
 
-using kh::fi::m_at;
-using kh::fi::window_h_solve_at;
-using kh::fi::window_v_at;
-
-constexpr int kThreads = 128;
+using kh::fi::kTileThreads;
+using kh::fi::Window;
 
 __device__ __forceinline__ long frame_of(int b, int ppc) {
   return ppc > 0 ? b + b / ppc : b;
 }
 
-template <typename PT>
-__global__ void __launch_bounds__(kThreads)
-flow_m_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
-              int ppc, const float* __restrict__ flow, int h, int w,
-              float D, float* __restrict__ M) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= w) return;
+using kh::fi::kTileH;
+using kh::fi::kTileW;
+
+template <int TAPS, typename PT>
+__global__ void __launch_bounds__(kTileThreads, 2)
+flow_iter_tile_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
+                      int ppc, const float* __restrict__ flow, int h, int w,
+                      float D, const Window win, float* __restrict__ out) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float s_w[kh::fi::kMaxTaps];
   const int b = blockIdx.z;
   const long plane = (long)h * w;
   const long f = frame_of(b, ppc) * 5 * plane;
-  m_at(R0 + f, R1 + f, flow + b * 2 * plane, h, w, D, r, c,
-       M + b * 5 * plane);
+  kh::fi::tile_body<kTileH, kTileW, TAPS>(
+      R0 + f, R1 + f, flow + b * 2 * plane, h, w, D, win, blockIdx.y * kTileH,
+      blockIdx.x * kTileW, out + b * 2 * plane, sm, s_w);
 }
 
-__global__ void __launch_bounds__(kThreads)
-window_v_kernel(const float* __restrict__ M, int h, int w,
-                const float* __restrict__ wts, int taps,
-                float* __restrict__ Mv) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= w) return;
-  const long off = blockIdx.z * 5 * (long)h * w;
-  window_v_at(M + off, h, w, wts, taps, r, c, Mv + off);
-}
-
-__global__ void __launch_bounds__(kThreads)
-window_h_solve_kernel(const float* __restrict__ Mv, int h, int w,
-                      const float* __restrict__ wts, int taps,
-                      float post_scale, float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= w) return;
-  const long plane = (long)h * w;
-  window_h_solve_at(Mv + blockIdx.z * 5 * plane, h, w, wts, taps,
-                    post_scale, r, c, out + blockIdx.z * 2 * plane);
+template <int TAPS, typename PT>
+int launch(const void* R0, const void* R1, int pairs, int ppc,
+           const float* flow, int h, int w, int D, const Window& win,
+           int smem, float* out, cudaStream_t s) {
+  auto kern = flow_iter_tile_kernel<TAPS, PT>;
+  if (smem != kh::fi::tile_smem_bytes(kTileH, kTileW, win.taps / 2) ||
+      kh::cdiv(h, kTileH) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the attribute is per function and device: set it up to the largest
+  // size asked for on each card
+  constexpr int kMaxDevices = 64;
+  static int smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices || smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) smem_set[dev] = smem;
+  }
+  const dim3 grid(kh::cdiv(w, kTileW), kh::cdiv(h, kTileH), pairs);
+  kern<<<grid, kTileThreads, smem, s>>>(
+      static_cast<const PT*>(R0), static_cast<const PT*>(R1), ppc, flow, h,
+      w, static_cast<float>(D), win, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename PT>
-int run(const void* R0, const void* R1, int pairs, int ppc,
-        const float* flow, int h, int w, int D, const float* wts, int taps,
-        float post_scale, float* M, float* Mv, float* out, cudaStream_t s) {
-  const dim3 grid(kh::cdiv(w, kThreads), h, pairs);
-  flow_m_kernel<PT><<<grid, kThreads, 0, s>>>(
-      static_cast<const PT*>(R0), static_cast<const PT*>(R1), ppc, flow, h,
-      w, static_cast<float>(D), M);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  window_v_kernel<<<grid, kThreads, 0, s>>>(M, h, w, wts, taps, Mv);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  window_h_solve_kernel<<<grid, kThreads, 0, s>>>(Mv, h, w, wts, taps,
-                                                  post_scale, out);
-  return static_cast<int>(cudaGetLastError());
+int dispatch(const void* R0, const void* R1, int pairs, int ppc,
+             const float* flow, int h, int w, int D, const Window& win,
+             int smem, float* out, cudaStream_t s) {
+  return win.taps == 15
+             ? launch<15, PT>(R0, R1, pairs, ppc, flow, h, w, D, win, smem,
+                              out, s)
+             : launch<0, PT>(R0, R1, pairs, ppc, flow, h, w, D, win, smem,
+                             out, s);
 }
 
 }  // namespace
 
 // Pair b (b < pairs) reads R0 + p * 5hw and R1 + p * 5hw (p as above;
 // K2 passes pairs = 1, ppc = 0, K6 passes R1 = R0 + 5hw). Planes bf16
-// [bf16 = 1] or f32; flow (pairs, 2, h, w) f32; wts (taps,) f32 on the
-// device; scratch M, Mv (pairs, 5, h, w) f32; out (pairs, 2, h, w) f32.
+// [bf16 = 1] or f32; flow (pairs, 2, h, w) f32; wts (taps,) f32 in HOST
+// memory (copied into the launch's parameters); smem, the dynamic shared
+// memory of one 32 x 64 tile in bytes, as kernels/flow_iter.py::tile_plan
+// computes it; out (pairs, 2, h, w) f32.
 KH_API int kh_flow_iter(const void* R0, const void* R1, int bf16, int pairs,
                         int ppc, const void* flow, int h, int w, int D,
-                        const void* wts, int taps, float post_scale, void* M,
-                        void* Mv, void* out, void* stream) {
-  if (h <= 0 || w <= 0 || taps <= 0 || D < 0 || pairs <= 0 || ppc < 0 ||
-      pairs > 65535 || h > 65535)
+                        const void* wts, int taps, float post_scale,
+                        int smem, void* out, void* stream) {
+  if (h <= 0 || w <= 0 || taps <= 0 || taps > kh::fi::kMaxTaps || D < 0 ||
+      pairs <= 0 || ppc < 0 || pairs > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  Window win;
+  for (int k = 0; k < taps; ++k) win.w[k] = static_cast<const float*>(wts)[k];
+  for (int k = taps; k < kh::fi::kMaxTaps; ++k) win.w[k] = 0.f;
+  win.taps = taps;
+  win.post = post_scale;
   auto f = static_cast<const float*>(flow);
-  auto wt = static_cast<const float*>(wts);
-  auto m = static_cast<float*>(M);
-  auto mv = static_cast<float*>(Mv);
   auto o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return run<__nv_bfloat16>(R0, R1, pairs, ppc, f, h, w, D, wt, taps,
-                              post_scale, m, mv, o, s);
-  return run<float>(R0, R1, pairs, ppc, f, h, w, D, wt, taps, post_scale, m,
-                    mv, o, s);
+    return dispatch<__nv_bfloat16>(R0, R1, pairs, ppc, f, h, w, D, win,
+                                   smem, o, s);
+  return dispatch<float>(R0, R1, pairs, ppc, f, h, w, D, win, smem, o, s);
 }

@@ -1,6 +1,7 @@
 // Per-pixel device code of one fast-warp Farneback iteration, shared by
-// K2/K6 (csrc/flow_iter.cu) and K5 (csrc/flow_level.cu), so that the
-// three kernels compute the same values bit for bit. Semantics, per pixel:
+// K2/K6 (csrc/flow_iter.cu), K13 (csrc/flow_iters_pipe.cu), K5
+// (csrc/flow_level.cu) and K8 (csrc/flow_update.cu, steps 2-4), so that
+// these kernels compute the same values bit for bit. Semantics, per pixel:
 //   1. warp: flow clamped to +-D; y_idx = floor(dy), ay = dy - y_idx, the
 //      same for x. v(r, c) = lerp_ay(r,c)(R1[clamp(r + y_idx)],
 //      R1[clamp(r + y_idx + 1)]) and R1w(r, c) = lerp_ax(r,c)(v(r, c0),
@@ -14,8 +15,14 @@
 //   4. 2x2 solve, idet = 1 / (g11 g22 - g12^2 + 1e-3).
 // Planes load as bf16 or f32; flow, M and all arithmetic are f32.
 //
+// Each step's arithmetic is written once: warp_m / normal_eqs return M's
+// five values, tap() is the one window multiply-add, solve() the 2x2
+// solve. The *_at functions store and load them in (5, h, w) planes (K5,
+// K8); csrc/flow_tile.cuh keeps them in shared memory (K2, K6, K13).
+//
 // M, Mv and the flow carry no __restrict__: K5 writes and reads them in
-// one launch (across grid syncs), where read-only loads would be wrong.
+// one launch (across grid syncs), and K13 reads flows that other blocks
+// of its launch wrote, where read-only loads would be wrong.
 #pragma once
 
 #include "common.cuh"
@@ -48,13 +55,13 @@ __device__ __forceinline__ void vlerp(const PT* __restrict__ R1,
 }
 
 // Step 2 at (r, c), given the warped R1 planes q[5] there: the
-// averaged-matrix normal equations, damped, into M (5, h, w). Shared by
-// the select-sum warp (m_at) and the exact warp (K8, csrc/flow_update.cu).
+// averaged-matrix normal equations, damped, into m[5]. Shared by the
+// select-sum warp (warp_m) and the exact warp (K8, csrc/flow_update.cu).
 template <typename PT>
-__device__ __forceinline__ void normal_eqs_at(const PT* __restrict__ R0,
-                                              const float q[5], float dx,
-                                              float dy, int h, int w, int r,
-                                              int c, float* M) {
+__device__ __forceinline__ void normal_eqs(const PT* __restrict__ R0,
+                                           const float q[5], float dx,
+                                           float dy, int h, int w, int r,
+                                           int c, float m[5]) {
   const long plane = (long)h * w;
   const long o = (long)r * w + c;
   float a_xx = (load(R0 + 2 * plane + o) + q[2]) * 0.5f;
@@ -68,11 +75,31 @@ __device__ __forceinline__ void normal_eqs_at(const PT* __restrict__ R0,
   axy *= damp;
   db_x *= damp;
   db_y *= damp;
-  M[o] = a_xx * a_xx + axy * axy;
-  M[plane + o] = (a_xx + a_yy) * axy;
-  M[2 * plane + o] = a_yy * a_yy + axy * axy;
-  M[3 * plane + o] = a_xx * db_x + axy * db_y;
-  M[4 * plane + o] = axy * db_x + a_yy * db_y;
+  m[0] = a_xx * a_xx + axy * axy;
+  m[1] = (a_xx + a_yy) * axy;
+  m[2] = a_yy * a_yy + axy * axy;
+  m[3] = a_xx * db_x + axy * db_y;
+  m[4] = axy * db_x + a_yy * db_y;
+}
+
+// m[5] into M (5, h, w) at (r, c).
+__device__ __forceinline__ void store_m(const float m[5], int h, int w,
+                                        int r, int c, float* M) {
+  const long plane = (long)h * w;
+  const long o = (long)r * w + c;
+#pragma unroll
+  for (int p = 0; p < 5; ++p) M[p * plane + o] = m[p];
+}
+
+// normal_eqs into M (5, h, w).
+template <typename PT>
+__device__ __forceinline__ void normal_eqs_at(const PT* __restrict__ R0,
+                                              const float q[5], float dx,
+                                              float dy, int h, int w, int r,
+                                              int c, float* M) {
+  float m[5];
+  normal_eqs(R0, q, dx, dy, h, w, r, c, m);
+  store_m(m, h, w, r, c, M);
 }
 
 // normal_eqs_at with every product and sum rounded on its own, in the
@@ -113,12 +140,13 @@ __device__ __forceinline__ void normal_eqs_exact_at(const PT* __restrict__ R0,
   M[4 * plane + o] = __fadd_rn(__fmul_rn(axy, db_x), __fmul_rn(a_yy, db_y));
 }
 
-// Phase 1 at (r, c): warp R1 by `flow` (2, h, w), write M (5, h, w).
+// Phase 1 at (r, c): warp R1 by `flow` (2, h, w), M's five values into
+// m[5].
 template <typename PT>
-__device__ __forceinline__ void m_at(const PT* __restrict__ R0,
-                                     const PT* __restrict__ R1,
-                                     const float* flow, int h, int w,
-                                     float D, int r, int c, float* M) {
+__device__ __forceinline__ void warp_m(const PT* __restrict__ R0,
+                                       const PT* __restrict__ R1,
+                                       const float* flow, int h, int w,
+                                       float D, int r, int c, float m[5]) {
   const long plane = (long)h * w;
   const long o = (long)r * w + c;
   const float dx = flow[o], dy = flow[plane + o];
@@ -133,7 +161,35 @@ __device__ __forceinline__ void m_at(const PT* __restrict__ R0,
 #pragma unroll
   for (int p = 0; p < 5; ++p)
     q[p] = (1.f - ax) * va[p] + ax * vb[p];   // warped R1 plane p
-  normal_eqs_at(R0, q, dx, dy, h, w, r, c, M);
+  normal_eqs(R0, q, dx, dy, h, w, r, c, m);
+}
+
+// warp_m into M (5, h, w).
+template <typename PT>
+__device__ __forceinline__ void m_at(const PT* __restrict__ R0,
+                                     const PT* __restrict__ R1,
+                                     const float* flow, int h, int w,
+                                     float D, int r, int c, float* M) {
+  float m[5];
+  warp_m(R0, R1, flow, h, w, D, r, c, m);
+  store_m(m, h, w, r, c, M);
+}
+
+// One window tap: acc += wk * x, one fused multiply-add in every kernel.
+// Every window sum runs its taps k = 0 ... taps - 1 in this order.
+__device__ __forceinline__ void tap(float& acc, float wk, float x) {
+  acc += wk * x;
+}
+
+// Step 4 on the window sums g[5] (G11, G12, G22, h1, h2): scale, then the
+// 2x2 solve for the new flow (u, v).
+__device__ __forceinline__ void solve(float g[5], float post_scale,
+                                      float* u, float* v) {
+#pragma unroll
+  for (int p = 0; p < 5; ++p) g[p] *= post_scale;
+  const float idet = 1.f / (g[0] * g[2] - g[1] * g[1] + 1e-3f);
+  *u = (g[2] * g[3] - g[1] * g[4]) * idet;
+  *v = (g[0] * g[4] - g[1] * g[3]) * idet;
 }
 
 // Phase 2 at (r, c): Mv[p, r, c] = sum_k wts[k] * M[p, clamp(r + k - bw), c]
@@ -148,7 +204,7 @@ __device__ __forceinline__ void window_v_at(const float* M, int h, int w,
     const long src = (long)clampi(r + k - bw, 0, h - 1) * w + c;
     const float wk = wts[k];
 #pragma unroll
-    for (int p = 0; p < 5; ++p) acc[p] += wk * M[p * plane + src];
+    for (int p = 0; p < 5; ++p) tap(acc[p], wk, M[p * plane + src]);
   }
   const long o = (long)r * w + c;
 #pragma unroll
@@ -168,13 +224,9 @@ __device__ __forceinline__ void window_h_solve_at(
     const long src = row + clampi(c + k - bw, 0, w - 1);
     const float wk = wts[k];
 #pragma unroll
-    for (int p = 0; p < 5; ++p) g[p] += wk * Mv[p * plane + src];
+    for (int p = 0; p < 5; ++p) tap(g[p], wk, Mv[p * plane + src]);
   }
-#pragma unroll
-  for (int p = 0; p < 5; ++p) g[p] *= post_scale;
-  const float idet = 1.f / (g[0] * g[2] - g[1] * g[1] + 1e-3f);
-  out[row + c] = (g[2] * g[3] - g[1] * g[4]) * idet;
-  out[plane + row + c] = (g[0] * g[4] - g[1] * g[3]) * idet;
+  solve(g, post_scale, out + row + c, out + plane + row + c);
 }
 
 }  // namespace fi

@@ -1,186 +1,209 @@
 // K13: all `n_iters` fine-level Farneback iterations of one level in ONE
-// launch, as a skewed pipeline over row bands.
+// launch, as a skewed pipeline over output tiles.
 //
 // Replaces kalman_hydra_tpu/kernels/flow_iter_pallas.py::flow_iters_pipelined
 // (_flow_iters_pipe_kernel). Its result is exactly `n_iters` applications
-// of K2: the per-pixel code is K2's own (csrc/flow_iter.cuh: m_at,
-// window_v_at, window_h_solve_at, on the same (5, h, w) layouts), so K13
-// equals n_iters K2 launches bit for bit.
+// of K2: each work item runs K2's own tile body (csrc/flow_tile.cuh, on
+// the per-pixel code of csrc/flow_iter.cuh), so K13 equals n_iters K2
+// launches bit for bit.
 //
-// Work items and their order. The level is cut into nb row bands of th
-// rows (th >= winsize / 2 = bw, the wrapper's choice; the last band may be
-// shorter). A work item is (iteration j, band b); one launch covers all
-// n_iters * nb items. Each block claims one item from a global ticket in
-// skewed order: by s = b + j, then by j. Item (j, b) computes, for its
-// band:
-//   1. M (the warp and the damped normal equations) on the band's rows and
-//      the bw-row halo above and below (clamped to the image: the rows K2's
-//      clamped window reads), from the flow of iteration j - 1 (the prior
-//      flow for j = 0);
-//   2. the vertical window pass on the band's rows;
-//   3. the horizontal pass and the 2x2 solve into iteration j's flow.
-// M at row r reads the prior flow on row r alone (the fast warp shifts
-// along rows by the flow at neighbouring COLUMNS of the same row: see
-// m_at/vlerp), so the rows item (j, b) reads of iteration j - 1 lie in
-// bands b - 1, b and b + 1 (th >= bw). It waits until iteration j - 1 has
-// published each of those bands: a per-band progress word holds the number
-// of iterations done, stored with release semantics by the writer's
-// thread 0 after a __syncthreads, and spun on with acquire loads by the
-// reader's thread 0 before a __syncthreads. There is no grid-wide
-// barrier: band b runs iteration j + 1 while later bands still run j.
+// Work items and their order. The level is cut into K2's tiles of TH x TW
+// = 32 x 64 pixels: nb row bands of nt column tiles (TH >= bw = taps / 2,
+// which the wrapper's plan guarantees). A work item is (iteration j, band
+// b, tile t); one launch covers all n_iters * nb * nt items. Each block
+// claims one item from a global ticket, in skewed order: by s = b + skew *
+// j, then by j, then by t (skew >= 1, kernels/flow_iter.py::pipe_skew's
+// choice: a larger skew puts more tickets between an item and the items it
+// waits for, a smaller one keeps fewer bands' planes in flight in L2).
+// Item (j, b, t) runs the tile body on tile (b, t) from the flow of
+// iteration j - 1 (the prior flow for j = 0) into iteration j's flow. M at
+// (r, c) reads the prior flow on row r alone, at columns up to D + 1 away
+// (the fast warp shifts along rows by the flow at neighbouring COLUMNS of
+// the same row: see warp_m/vlerp), and the tile's M spans its rows and
+// columns +- bw. So the flow the item reads lies in bands b - 1 ... b + 1
+// (TH >= bw) and in column tiles t - dt ... t + dt, dt = cdiv(bw + D + 1,
+// TW). The item waits until iteration j - 1 has published each of those
+// tiles: a per-tile progress word holds the number of iterations done,
+// stored with release semantics by the writer's thread 0 after a
+// __syncthreads, and spun on with acquire loads by one reader thread per
+// word before a __syncthreads. There is no grid-wide barrier: a tile runs
+// iteration j + 1 while later bands still run j.
 //
 // Why this cannot deadlock. A block takes its ticket only once it runs, so
 // every claimed ticket is held by a resident block, and tickets are handed
-// out in increasing order. Item (j, b) waits only on items (j - 1, b') with
-// b' <= b + 1, whose s' = b' + j - 1 <= s, and at s' = s their j - 1 < j:
-// smaller tickets. The smallest unfinished claimed ticket therefore waits
-// on nothing unfinished and runs to its end; by induction every item does.
-// No cooperative launch is needed. The ticket and the progress words are
-// cleared with cudaMemsetAsync on the launch's stream before every launch.
+// out in increasing order. Item (j, b, t) waits only on items
+// (j - 1, b', t') with b' <= b + 1, whose s' = b' + skew (j - 1) <= s -
+// (skew - 1) <= s, and at s' = s (skew = 1) their j - 1 < j: smaller
+// tickets, whatever t' is. The smallest unfinished claimed ticket
+// therefore waits on nothing unfinished and runs to its end; by induction
+// every item does. No cooperative launch is needed. The ticket and the
+// progress words are cleared with cudaMemsetAsync on the launch's stream
+// before every launch.
 //
-// Memory: a simple layout. Each intermediate iteration's flow gets its own
-// full-frame (2, h, w) buffer (n_iters - 1 of them), so no iteration
-// overwrites a flow another item still reads. M lives in three full-frame
-// (5, h, w) buffers, band b writing its rows (halo included) in buffer
-// b % 3: bands b and b + 3 touch disjoint rows (th >= bw), and band b's
-// next iteration reuses its rows only after waiting for this one. The
-// vertical pass Mv is written on the band's own rows only, so one
-// full-frame buffer serves all bands. Each band recomputes the M rows of
-// its halo (2 bw rows per band).
+// Memory. Each intermediate iteration's flow gets its own full-frame
+// (2, h, w) buffer (n_iters - 1 of them), so no iteration overwrites a
+// flow another item still reads. M and its vertical pass live in the
+// block's shared memory only.
 //
 // Bound on Hopper: memory. R0 and R1 must be read once, the prior flow
 // once and the final flow written once: at 1080p with bf16 planes 20 B/px
 // + 8 + 8 = 74.6 MB, 0.0223 ms at 3.35 TB/s (the same bytes as one K2
 // call, for all n_iters iterations); at 540x960 18.7 MB, 0.0056 ms. The
 // FLOPs (~136 per pixel and iteration with the box window as sliding sums)
-// are below that. This first design is far from it: every iteration reads
-// R0 and R1 again and moves M, Mv and the flow through device memory (L2
-// for the smaller levels), one band per block (8-row bands: 135 items an
-// iteration at 1080p, 68 at 540x960; taller bands were slower). Keeping
-// each band's R slabs in shared memory (TMA) and fusing the three phases
-// is later work.
+// are below that. This design reads R0 and R1 once per iteration (from L2
+// while the skewed order keeps a few bands' slabs there) and the
+// intermediate flows through L2, and recomputes M on each tile's halo as
+// K2 does; its floor is about n_iters K2 launches' device time.
 #include <cuda/atomic>
 
-#include "flow_iter.cuh"
+#include "flow_tile.cuh"
 
 namespace {
 
-using kh::fi::m_at;
-using kh::fi::window_h_solve_at;
-using kh::fi::window_v_at;
+using kh::fi::kTileH;
+using kh::fi::kTileThreads;
+using kh::fi::kTileW;
+using kh::fi::Window;
 
-constexpr int kThreads = 512;
-
-// Item t of the skewed order -> (j, b): items by s = b + j, then by j.
-__device__ void item_of(int t, int n_iters, int nb, int* j_out,
-                        int* b_out) {
+// Item q of the skewed order -> (j, b, t): items by s = b + skew * j,
+// then by j, then by t. kernels/flow_iter.py::pipe_items is its Python
+// twin.
+__device__ void item_of(int q, int n_iters, int nb, int nt, int skew,
+                        int* j_out, int* b_out, int* t_out) {
   for (int s = 0;; ++s) {
-    const int j0 = max(0, s - nb + 1), j1 = min(n_iters - 1, s);
-    const int n = j1 - j0 + 1;
-    if (t < n) {
-      *j_out = j0 + t;
-      *b_out = s - (j0 + t);
+    // the j with 0 <= s - skew * j < nb
+    const int j0 = s < nb ? 0 : (s - nb + skew) / skew;
+    const int j1 = min(n_iters - 1, s / skew);
+    const int n = j1 >= j0 ? (j1 - j0 + 1) * nt : 0;
+    if (q < n) {
+      *j_out = j0 + q / nt;
+      *b_out = s - skew * *j_out;
+      *t_out = q % nt;
       return;
     }
-    t -= n;
+    q -= n;
   }
 }
 
-template <typename PT>
-__global__ void __launch_bounds__(kThreads)
+template <int TAPS, typename PT>
+__global__ void __launch_bounds__(kTileThreads, 2)
 flow_iters_pipe_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
                        const float* flow_in, int h, int w, float D,
-                       const float* __restrict__ wts, int taps,
-                       float post_scale, int n_iters, int th, int nb,
-                       float* M, float* Mv, float* inter, float* out,
-                       int* counters) {
-  __shared__ int s_item[2];
+                       const Window win, int n_iters, int nb, int nt, int dt,
+                       int skew, float* inter, float* out, int* counters) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float s_w[kh::fi::kMaxTaps];
+  __shared__ int s_item[3];
   int* ticket = counters;
-  int* progress = counters + 1;
+  int* progress = counters + 1;           // (nb, nt): iterations done
   if (threadIdx.x == 0) {
-    const int t = atomicAdd(ticket, 1);
-    item_of(t, n_iters, nb, &s_item[0], &s_item[1]);
+    const int q = atomicAdd(ticket, 1);
+    item_of(q, n_iters, nb, nt, skew, &s_item[0], &s_item[1], &s_item[2]);
   }
   __syncthreads();
-  const int j = s_item[0], b = s_item[1];
-  const int bw = taps / 2;
-  const long plane = (long)h * w;
-  const int r0 = b * th, r1 = min(h, r0 + th);          // core rows
-  const int m0 = max(0, r0 - bw), m1 = min(h, r1 + bw);  // M rows
-  // wait for iteration j - 1 on every band the M rows read (and on this
-  // band, whose M rows this item rewrites)
-  if (threadIdx.x == 0 && j > 0) {
-    for (int bb = m0 / th; bb <= (m1 - 1) / th; ++bb) {
-      cuda::atomic_ref<int, cuda::thread_scope_device> p(progress[bb]);
-      while (p.load(cuda::memory_order_acquire) < j) __nanosleep(100);
+  const int j = s_item[0], b = s_item[1], t = s_item[2];
+  // wait for iteration j - 1 on bands b - 1 ... b + 1 and tiles
+  // t - dt ... t + dt, one thread per progress word
+  if (j > 0) {
+    const int b0 = max(0, b - 1), b1 = min(nb - 1, b + 1);
+    const int t0 = max(0, t - dt), t1 = min(nt - 1, t + dt);
+    const int ntw = t1 - t0 + 1;
+    for (int i = threadIdx.x; i < (b1 - b0 + 1) * ntw; i += blockDim.x) {
+      cuda::atomic_ref<int, cuda::thread_scope_device> p(
+          progress[(b0 + i / ntw) * nt + t0 + i % ntw]);
+      while (p.load(cuda::memory_order_acquire) < j) __nanosleep(64);
+      __threadfence();
     }
-    __threadfence();
   }
   __syncthreads();
+  const long plane = (long)h * w;
   const float* src = j == 0 ? flow_in : inter + (long)(j - 1) * 2 * plane;
   float* dst = j == n_iters - 1 ? out : inter + (long)j * 2 * plane;
-  float* Mb = M + (long)(b % 3) * 5 * plane;
-  for (long i = threadIdx.x; i < (long)(m1 - m0) * w; i += blockDim.x)
-    m_at(R0, R1, src, h, w, D, m0 + static_cast<int>(i / w),
-         static_cast<int>(i % w), Mb);
-  __syncthreads();
-  for (long i = threadIdx.x; i < (long)(r1 - r0) * w; i += blockDim.x)
-    window_v_at(Mb, h, w, wts, taps, r0 + static_cast<int>(i / w),
-                static_cast<int>(i % w), Mv);
-  __syncthreads();
-  for (long i = threadIdx.x; i < (long)(r1 - r0) * w; i += blockDim.x)
-    window_h_solve_at(Mv, h, w, wts, taps, post_scale,
-                      r0 + static_cast<int>(i / w), static_cast<int>(i % w),
-                      dst);
+  kh::fi::tile_body<kTileH, kTileW, TAPS>(R0, R1, src, h, w, D, win,
+                                          b * kTileH, t * kTileW, dst, sm,
+                                          s_w);
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
-    cuda::atomic_ref<int, cuda::thread_scope_device> p(progress[b]);
+    cuda::atomic_ref<int, cuda::thread_scope_device> p(progress[b * nt + t]);
     p.store(j + 1, cuda::memory_order_release);
   }
 }
 
-template <typename PT>
-int run(const void* R0, const void* R1, const float* flow, int h, int w,
-        int D, const float* wts, int taps, float post_scale, int n_iters,
-        int th, float* M, float* Mv, float* inter, float* out, int* counters,
-        cudaStream_t s) {
-  const int nb = static_cast<int>(kh::cdiv(h, th));
-  cudaError_t err = cudaMemsetAsync(counters, 0, sizeof(int) * (nb + 1), s);
+template <int TAPS, typename PT>
+int launch(const void* R0, const void* R1, const float* flow, int h, int w,
+           int D, const Window& win, int n_iters, int skew, int smem,
+           float* inter, float* out, int* counters, cudaStream_t s) {
+  auto kern = flow_iters_pipe_kernel<TAPS, PT>;
+  const int bw = win.taps / 2;
+  if (smem != kh::fi::tile_smem_bytes(kTileH, kTileW, bw) || kTileH < bw)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = static_cast<int>(kh::cdiv(h, kTileH));
+  const int nt = static_cast<int>(kh::cdiv(w, kTileW));
+  const int dt = static_cast<int>(kh::cdiv(bw + D + 1, kTileW));
+  if ((long)n_iters * nb * nt > 2147483647L)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kMaxDevices = 64;
+  static int smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flow_iters_pipe_kernel<PT><<<n_iters * nb, kThreads, 0, s>>>(
+  if (dev >= kMaxDevices || smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) smem_set[dev] = smem;
+  }
+  err = cudaMemsetAsync(counters, 0, sizeof(int) * (1 + (long)nb * nt), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<n_iters * nb * nt, kTileThreads, smem, s>>>(
       static_cast<const PT*>(R0), static_cast<const PT*>(R1), flow, h, w,
-      static_cast<float>(D), wts, taps, post_scale, n_iters, th, nb, M, Mv,
-      inter, out, counters);
+      static_cast<float>(D), win, n_iters, nb, nt, dt, skew, inter, out,
+      counters);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename PT>
+int dispatch(const void* R0, const void* R1, const float* flow, int h,
+             int w, int D, const Window& win, int n_iters, int skew,
+             int smem, float* inter, float* out, int* counters,
+             cudaStream_t s) {
+  return win.taps == 15
+             ? launch<15, PT>(R0, R1, flow, h, w, D, win, n_iters, skew,
+                              smem, inter, out, counters, s)
+             : launch<0, PT>(R0, R1, flow, h, w, D, win, n_iters, skew, smem,
+                             inter, out, counters, s);
 }
 
 }  // namespace
 
 // R0, R1 (5, h, w) bf16 [bf16 = 1] or f32; flow (2, h, w) f32 prior;
-// wts (taps,) f32 on the device; n_iters >= 2; band height th >= taps / 2;
-// scratch M (3, 5, h, w), Mv (5, h, w) and inter (n_iters - 1, 2, h, w)
-// f32, counters (cdiv(h, th) + 1,) int32; out (2, h, w) f32.
+// wts (taps,) f32 in HOST memory; n_iters >= 2; skew >= 1 (the order
+// above); smem, the dynamic shared memory of one 32 x 64 tile, as
+// kernels/flow_iter.py::tile_plan computes it; scratch inter (n_iters - 1,
+// 2, h, w) f32 and counters (1 + cdiv(h, 32) * cdiv(w, 64),) int32; out
+// (2, h, w) f32.
 KH_API int kh_flow_iters_pipe(const void* R0, const void* R1, int bf16,
                               const void* flow, int h, int w, int D,
                               const void* wts, int taps, float post_scale,
-                              int n_iters, int th, void* M, void* Mv,
-                              void* inter, void* out, void* counters,
-                              void* stream) {
-  if (h <= 0 || w <= 0 || taps <= 0 || D < 0 || n_iters < 2 ||
-      th < taps / 2 || th <= 0 || (long)n_iters * kh::cdiv(h, th) > 2147483647L)
+                              int n_iters, int skew, int smem, void* inter,
+                              void* out, void* counters, void* stream) {
+  if (h <= 0 || w <= 0 || taps <= 0 || taps > kh::fi::kMaxTaps || D < 0 ||
+      n_iters < 2 || skew < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  Window win;
+  for (int k = 0; k < taps; ++k) win.w[k] = static_cast<const float*>(wts)[k];
+  for (int k = taps; k < kh::fi::kMaxTaps; ++k) win.w[k] = 0.f;
+  win.taps = taps;
+  win.post = post_scale;
   auto f = static_cast<const float*>(flow);
-  auto wt = static_cast<const float*>(wts);
-  auto m = static_cast<float*>(M);
-  auto mv = static_cast<float*>(Mv);
   auto in = static_cast<float*>(inter);
   auto o = static_cast<float*>(out);
   auto c = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return run<__nv_bfloat16>(R0, R1, f, h, w, D, wt, taps, post_scale,
-                              n_iters, th, m, mv, in, o, c, s);
-  return run<float>(R0, R1, f, h, w, D, wt, taps, post_scale, n_iters, th,
-                    m, mv, in, o, c, s);
+    return dispatch<__nv_bfloat16>(R0, R1, f, h, w, D, win, n_iters, skew,
+                                   smem, in, o, c, s);
+  return dispatch<float>(R0, R1, f, h, w, D, win, n_iters, skew, smem, in, o,
+                         c, s);
 }

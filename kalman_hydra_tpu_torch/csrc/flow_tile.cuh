@@ -1,0 +1,210 @@
+// The fused tile body of one fast-warp Farneback iteration in shared
+// memory, shared by K2/K6 (csrc/flow_iter.cu) and K13
+// (csrc/flow_iters_pipe.cu).
+//
+// A block of kTileThreads threads owns an output tile of TH x TW pixels at
+// (r0, c0) and runs the three steps of csrc/flow_iter.cuh on it without
+// sending M or its vertical pass to device memory:
+//   1. M (warp_m, 5 f32 planes) on the tile plus a bw = taps / 2 halo on
+//      every side, into shared memory: MH = TH + 2 bw rows of MW = TW +
+//      2 bw columns, row stride S = MW | 1 (odd, so that 32 rows read in
+//      one warp hit 32 banks). A halo row or column outside the image
+//      holds M of the clamped row or column, which is what the clamped
+//      window of window_v_at / window_h_solve_at reads. Each thread
+//      computes two pixels at a time, so that their chains of dependent
+//      loads (the flow, then dy at the warp's columns, then R1) overlap.
+//      R0, R1 and the flow are read through L1, which the block's 73 KB
+//      of shared memory (two blocks an SM) leaves at ~90 KB for the
+//      gathers of R1. This phase takes most of a tile's time; staging R1
+//      or the flow in shared memory, or sharing the warp's vertical lerp
+//      between pixels there, was slower (less L1, fewer blocks an SM;
+//      PERF.md).
+//   2. The vertical window over the TH output rows x MW columns, in
+//      place: one thread per (column, plane) walks the column top down,
+//      and output row o overwrites M row o once no later output needs it
+//      (output o reads rows o ... o + 2 bw; rows below o are never read
+//      again by this thread, and no other thread touches this column and
+//      plane). With the taps known at compile time (TAPS > 0) the sums
+//      of TAPS consecutive outputs stay in a register ring and each M
+//      value is read once; otherwise each output reads its taps.
+//   3. The horizontal window and the 2x2 solve on the TH x TW pixels: one
+//      thread per (row, RH consecutive columns), lanes on consecutive rows
+//      (conflict-free with the odd stride), the RH sums in registers, each
+//      Mv value read once per thread. The flow goes out through shared
+//      memory, one coalesced row at a time, masked at the image edge.
+// Every sum runs its taps in the order k = 0 ... taps - 1 through
+// flow_iter.cuh's tap(), and every M value comes from warp_m, so a tile
+// computes the (5, h, w)-plane kernels' values bit for bit.
+//
+// The window's taps are passed by value (Window, in the kernel's
+// parameter space): with TAPS > 0 each tap is a constant operand of its
+// multiply-add; the generic path reads a copy in shared memory.
+#pragma once
+
+#include "flow_iter.cuh"
+
+namespace kh {
+namespace fi {
+
+constexpr int kTileThreads = 256;
+constexpr int kTileH = 32;       // the tile K2, K6 and K13 launch:
+constexpr int kTileW = 64;       // kernels/flow_iter.py::TILE
+constexpr int kMaxTaps = 61;     // winsize <= 61: the largest that fits
+
+struct Window {
+  float w[kMaxTaps];
+  int taps;
+  float post;
+};
+
+// Dynamic shared memory of one tile: M, 5 f32 planes of MH x S. The
+// wrapper's plan computes the same number and passes it in; a mismatch is
+// refused.
+__host__ __device__ constexpr int tile_smem_bytes(int th, int tw, int bw) {
+  return static_cast<int>(sizeof(float)) * 5 * (th + 2 * bw) *
+         ((tw + 2 * bw) | 1);
+}
+
+// Output columns per thread in phase 3: enough that one pass covers the
+// tile with kTileThreads threads, at most 8.
+__host__ __device__ constexpr int tile_rh(int th, int tw) {
+  return th * tw / kTileThreads >= 8 ? 8
+         : th * tw / kTileThreads >= 1 ? th * tw / kTileThreads : 1;
+}
+
+template <int TH, int TW, int TAPS, typename PT>
+__device__ __forceinline__ void tile_body(
+    const PT* __restrict__ R0, const PT* __restrict__ R1, const float* flow,
+    int h, int w, float D, const Window& win, int r0, int c0, float* out,
+    float* sm, float* s_w) {
+  constexpr int RH = tile_rh(TH, TW);
+  static_assert(TW % RH == 0, "tile width must split into RH columns");
+  const int taps = TAPS > 0 ? TAPS : win.taps;
+  const int bw = taps / 2;
+  const int MH = TH + 2 * bw, MW = TW + 2 * bw, S = MW | 1;
+  const int plane_s = MH * S;      // one M plane in shared memory
+  const int tid = threadIdx.x;
+  const long plane = (long)h * w;
+  if (TAPS == 0) {   // read after phase 1's barriers
+    for (int k = tid; k < taps; k += kTileThreads) s_w[k] = win.w[k];
+  }
+
+  // 1. M on the tile and its halo, two pixels a thread at a time
+#pragma unroll 2
+  for (int i = tid; i < MH * MW; i += kTileThreads) {
+    const int y = i / MW, x = i - y * MW;
+    float m[5];
+    warp_m(R0, R1, flow, h, w, D, clampi(r0 - bw + y, 0, h - 1),
+           clampi(c0 - bw + x, 0, w - 1), m);
+#pragma unroll
+    for (int p = 0; p < 5; ++p) sm[p * plane_s + y * S + x] = m[p];
+  }
+  __syncthreads();
+
+  // 2. vertical window, in place: Mv row o into M row o
+  for (int i = tid; i < 5 * MW; i += kTileThreads) {
+    const int p = i / MW, x = i - p * MW;
+    float* col = sm + p * plane_s + x;
+    if constexpr (TAPS > 0) {
+      float acc[TAPS];
+#pragma unroll
+      for (int m = 0; m < TH + TAPS - 1; ++m) {
+        const float v = col[m * S];
+#pragma unroll
+        for (int k = 0; k < TAPS; ++k) {
+          const int o = m - k;            // the output tap k of row m feeds
+          if (o < 0 || o >= TH) continue;
+          if (k == 0) acc[o % TAPS] = 0.f;
+          tap(acc[o % TAPS], win.w[k], v);
+        }
+        const int o = m - (TAPS - 1);     // complete now
+        if (o >= 0) col[o * S] = acc[o % TAPS];
+      }
+    } else {
+      for (int o = 0; o < TH; ++o) {
+        float acc = 0.f;
+        for (int k = 0; k < taps; ++k) tap(acc, s_w[k], col[(o + k) * S]);
+        col[o * S] = acc;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. horizontal window and solve: RH outputs of one row per item
+  constexpr int kItems = TH * (TW / RH);
+  constexpr int kRounds = (kItems + kTileThreads - 1) / kTileThreads;
+  float uv[kRounds][2][RH];
+#pragma unroll
+  for (int rd = 0; rd < kRounds; ++rd) {
+    const int i = tid + rd * kTileThreads;
+    if (kItems % kTileThreads != 0 && i >= kItems) break;
+    const int y = i % TH, x0 = (i / TH) * RH;
+    const float* row = sm + y * S + x0;     // Mv row y, from column x0
+    float g[RH][5];
+    if constexpr (TAPS > 0) {
+#pragma unroll
+      for (int m = 0; m < RH + TAPS - 1; ++m) {
+        float v[5];
+#pragma unroll
+        for (int p = 0; p < 5; ++p) v[p] = row[p * plane_s + m];
+#pragma unroll
+        for (int o = 0; o < RH; ++o) {
+          const int k = m - o;
+          if (k < 0 || k >= TAPS) continue;
+#pragma unroll
+          for (int p = 0; p < 5; ++p) {
+            if (k == 0) g[o][p] = 0.f;
+            tap(g[o][p], win.w[k], v[p]);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int o = 0; o < RH; ++o)
+#pragma unroll
+        for (int p = 0; p < 5; ++p) g[o][p] = 0.f;
+      for (int m = 0; m < RH + taps - 1; ++m) {
+        float v[5];
+#pragma unroll
+        for (int p = 0; p < 5; ++p) v[p] = row[p * plane_s + m];
+#pragma unroll
+        for (int o = 0; o < RH; ++o) {
+          const int k = m - o;
+          if (k < 0 || k >= taps) continue;
+          const float wk = s_w[k];
+#pragma unroll
+          for (int p = 0; p < 5; ++p) tap(g[o][p], wk, v[p]);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < RH; ++o)
+      solve(g[o], win.post, &uv[rd][0][o], &uv[rd][1][o]);
+  }
+  __syncthreads();
+
+  // the flow through shared memory (2 planes of TH x (TW + 1)), coalesced
+  constexpr int SO = TW + 1;
+#pragma unroll
+  for (int rd = 0; rd < kRounds; ++rd) {
+    const int i = tid + rd * kTileThreads;
+    if (kItems % kTileThreads != 0 && i >= kItems) break;
+    const int y = i % TH, x0 = (i / TH) * RH;
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int o = 0; o < RH; ++o)
+        sm[(q * TH + y) * SO + x0 + o] = uv[rd][q][o];
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * TH * TW; i += kTileThreads) {
+    const int q = i / (TH * TW), yx = i - q * (TH * TW);
+    const int y = yx / TW, x = yx - y * TW;
+    const int r = r0 + y, c = c0 + x;
+    if (r < h && c < w)
+      out[q * plane + (long)r * w + c] = sm[(q * TH + y) * SO + x];
+  }
+}
+
+}  // namespace fi
+}  // namespace kh

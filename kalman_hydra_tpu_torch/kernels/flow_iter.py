@@ -12,9 +12,13 @@ XLA twin's bf16 rounding of both.
 
 K6 replaces flow_iter_pallas.py::flow_iter_pairs: Rall (N, 5, h, w),
 flow_b (B, 2, h, w) -> (B, 2, h, w); pair b reads frames p and p + 1 of
-Rall (`pair_frames`). Both wrappers launch the same CUDA kernels, so K6
+Rall (`pair_frames`). Both wrappers launch the same CUDA kernel, so K6
 equals per-pair K2 bit for bit. The planes go in unpadded: the kernels
 clamp their indices where the TPU kernels read edge-padded slabs.
+
+K2, K6 and K13 run one tile body in shared memory (csrc/flow_tile.cuh):
+`tile_plan` is the tile and shared-memory plan the wrappers pass to the
+kernels, `pipe_items` / `pipe_waits` K13's work order and wait set.
 
 CPU tensors take `flow_iter_plain` / `flow_iter_pairs_plain` /
 `flow_iters_pipelined_plain`; CUDA tensors launch the kernel, or raise.
@@ -23,6 +27,7 @@ CPU tensors take `flow_iter_plain` / `flow_iter_pairs_plain` /
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -146,7 +151,7 @@ _device_weights: dict = {}
 
 
 def device_window(device, winsize: int, gaussian: bool):
-    """(window taps on `device`, post_scale), cached per device."""
+    """(window taps on `device`, post_scale), cached per device (K5, K8)."""
     key = (str(device), winsize, bool(gaussian))
     if key not in _device_weights:
         wts, post = window_weights(winsize, bool(gaussian))
@@ -154,22 +159,101 @@ def device_window(device, winsize: int, gaussian: bool):
     return _device_weights[key]
 
 
+SMEM_LIMIT = 232_448     # bytes of shared memory one H100 block may use
+MAX_TAPS = 61            # csrc/flow_tile.cuh::kMaxTaps
+STATIC_SMEM = 4 * MAX_TAPS + 16   # the kernels' static shared memory
+TILE = (32, 64)          # (rows, columns): csrc/flow_tile.cuh kTileH, kTileW
+
+
+class TilePlan(NamedTuple):
+    th: int          # tile rows
+    tw: int          # tile columns
+    taps: int        # window taps, 2 * (winsize // 2) + 1
+    rows: int        # tiles down the level (K13's bands)
+    cols: int        # tiles across it
+    smem: int        # dynamic shared memory of one block, bytes
+
+
+def tile_plan(h: int, w: int, winsize: int) -> TilePlan:
+    """The tiles of an h x w level and one block's shared memory: M on the
+    tile and its bw = taps // 2 halo, 5 f32 planes of (th + 2 bw) rows at
+    an odd row stride of (tw + 2 bw) | 1 (csrc/flow_tile.cuh). Raises
+    where the window does not fit one block's shared memory."""
+    th, tw = TILE
+    if h < 1 or w < 1:
+        raise ValueError(f"level {h}x{w} is empty")
+    taps = 2 * (winsize // 2) + 1
+    bw = taps // 2
+    smem = 4 * 5 * (th + 2 * bw) * ((tw + 2 * bw) | 1)
+    if taps > MAX_TAPS or smem + STATIC_SMEM > SMEM_LIMIT:
+        raise ValueError(
+            f"winsize {winsize}: a {th}x{tw} tile with its {bw}-pixel "
+            f"halo needs {smem + STATIC_SMEM} B of shared memory, and one "
+            f"block may use {SMEM_LIMIT} B (at most {MAX_TAPS} taps, "
+            f"winsize <= {MAX_TAPS})")
+    return TilePlan(th, tw, taps, -(-h // th), -(-w // tw), smem)
+
+
+def pipe_dt(plan: TilePlan, max_disp: int) -> int:
+    """Column tiles on each side whose prior flow a K13 tile reads: M on
+    the halo (bw columns) warps by up to max_disp + 1 columns."""
+    return -(-(plan.taps // 2 + int(max_disp) + 1) // plan.tw)
+
+
+def pipe_skew(plan: TilePlan, n_iters: int, sms: int) -> int:
+    """K13's skew: enough that, once all n_iters iterations are in
+    flight, the tickets between an item and the items it waits for,
+    (skew - 1) * cols * n_iters, outnumber twice the blocks the card
+    holds at once (2 an SM), so that a waiting item rarely finds its
+    neighbours still running; at most the band count. 7 at 1080p and 13
+    at 540x960 on 132 SMs (winsize 15; PERF.md has the measured skews)."""
+    resident = 2 * sms
+    return max(1, min(plan.rows,
+                      -(-2 * resident // (plan.cols * n_iters)) + 1))
+
+
+def pipe_items(n_iters: int, nb: int, nt: int, skew: int = 1) -> list:
+    """K13's work items (j, b, t) in ticket order: by s = b + skew * j,
+    then j, then t (csrc/flow_iters_pipe.cu::item_of)."""
+    out = []
+    for s in range(nb + skew * (n_iters - 1)):
+        for j in range(n_iters):
+            if 0 <= s - skew * j < nb:
+                out.extend((j, s - skew * j, t) for t in range(nt))
+    return out
+
+
+def pipe_waits(j: int, b: int, t: int, nb: int, nt: int, dt: int) -> list:
+    """The items (j - 1, b', t') item (j, b, t) waits for: bands b - 1 ...
+    b + 1 and tiles t - dt ... t + dt, clipped to the level."""
+    if j == 0:
+        return []
+    return [(j - 1, bb, tt)
+            for bb in range(max(0, b - 1), min(nb - 1, b + 1) + 1)
+            for tt in range(max(0, t - dt), min(nt - 1, t + dt) + 1)]
+
+
+def _host_window(winsize: int, gaussian: bool):
+    """(taps as a C float pointer, count, post_scale): the kernels copy
+    the taps into their launch parameters."""
+    wts, post = window_weights(winsize, bool(gaussian))
+    return wts.ctypes.data, wts.shape[0], post
+
+
 def _launch(R0, R1, flow_b, ppc: int, winsize: int, max_disp: int,
             gaussian: bool) -> torch.Tensor:
     """kh_flow_iter over the pairs of flow_b (B, 2, h, w); pair b reads
     R0 and R1 offset by its first frame (see csrc/flow_iter.cu)."""
     B, _, h, w = flow_b.shape
-    wts, post = device_window(R0.device, winsize, gaussian)
-    M = torch.empty((B, 5, h, w), dtype=torch.float32, device=R0.device)
-    Mv = torch.empty_like(M)
+    plan = tile_plan(h, w, winsize)
+    wts, taps, post = _host_window(winsize, gaussian)
     out = torch.empty((B, 2, h, w), dtype=torch.float32, device=R0.device)
     P, I = _build.P, _build.I
     fn = _build.function("kh_flow_iter", P, P, I, I, I, P, I, I, I, P, I,
-                         _build.F, P, P, P, P)
+                         _build.F, I, P, P)
     rc = fn(R0.data_ptr(), R1.data_ptr(), int(R0.dtype == torch.bfloat16),
-            B, ppc, flow_b.data_ptr(), h, w, int(max_disp), wts.data_ptr(),
-            wts.shape[0], post, M.data_ptr(), Mv.data_ptr(), out.data_ptr(),
-            _build.stream(R0))
+            B, ppc, flow_b.data_ptr(), h, w, int(max_disp), wts, taps, post,
+            plan.smem, out.data_ptr(), _build.stream(R0))
     _build.check(rc, "kh_flow_iter")
     return out
 
@@ -218,11 +302,9 @@ def flow_iter_pairs(Rall, flow_b, winsize: int, max_disp: int,
 flow_iter_pairs.launches = 0
 
 
-def band_rows(winsize: int) -> int:
-    """K13's band height: 8 rows (the fastest of 7-32 at 1080p and
-    540x960 on an H100, PERF.md), and never fewer than the window's half
-    width (a band's M halo must lie in its two neighbours)."""
-    return max(8, winsize // 2)
+@lru_cache(maxsize=8)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def flow_iters_pipelined_plain(R0, R1, flow, winsize: int, max_disp: int,
@@ -252,26 +334,36 @@ def flow_iters_pipelined(R0, R1, flow, winsize: int, max_disp: int,
     if R0.shape[0] != 5 or R1.shape != R0.shape or flow.shape != (2, h, w):
         raise ValueError(f"flow_iters_pipelined: R0 {tuple(R0.shape)}, R1 "
                          f"{tuple(R1.shape)}, flow {tuple(flow.shape)}")
-    wts, post = device_window(R0.device, winsize, gaussian)
-    th = band_rows(winsize)
-    dev = R0.device
-    M = torch.empty((3, 5, h, w), dtype=torch.float32, device=dev)
-    Mv = torch.empty((5, h, w), dtype=torch.float32, device=dev)
-    inter = torch.empty((n_iters - 1, 2, h, w), dtype=torch.float32,
-                        device=dev)
-    out = torch.empty((2, h, w), dtype=torch.float32, device=dev)
-    counters = torch.empty(-(-h // th) + 1, dtype=torch.int32, device=dev)
-    P, I = _build.P, _build.I
-    fn = _build.function("kh_flow_iters_pipe", P, P, I, P, I, I, I, P, I,
-                         _build.F, I, I, P, P, P, P, P, P)
-    rc = fn(R0.data_ptr(), R1.data_ptr(), int(R0.dtype == torch.bfloat16),
-            flow.data_ptr(), h, w, int(max_disp), wts.data_ptr(),
-            wts.shape[0], post, int(n_iters), th, M.data_ptr(),
-            Mv.data_ptr(), inter.data_ptr(), out.data_ptr(),
-            counters.data_ptr(), _build.stream(R0))
-    _build.check(rc, "kh_flow_iters_pipe")
+    out = _launch_pipe(R0, R1, flow, winsize, max_disp, n_iters, gaussian)
     flow_iters_pipelined.launches += 1
     return out
 
 
 flow_iters_pipelined.launches = 0
+
+
+def _launch_pipe(R0, R1, flow, winsize: int, max_disp: int, n_iters: int,
+                 gaussian: bool) -> torch.Tensor:
+    """kh_flow_iters_pipe on one level, in pipe_skew's order."""
+    _, h, w = R0.shape
+    plan = tile_plan(h, w, winsize)
+    if plan.th < plan.taps // 2:
+        raise ValueError(f"flow_iters_pipelined: winsize {winsize} reaches "
+                         f"past the neighbouring band of {plan.th} rows")
+    wts, taps, post = _host_window(winsize, gaussian)
+    dev = R0.device
+    skew = pipe_skew(plan, n_iters, _sm_count(dev))
+    inter = torch.empty((n_iters - 1, 2, h, w), dtype=torch.float32,
+                        device=dev)
+    out = torch.empty((2, h, w), dtype=torch.float32, device=dev)
+    counters = torch.empty(1 + plan.rows * plan.cols, dtype=torch.int32,
+                           device=dev)
+    P, I = _build.P, _build.I
+    fn = _build.function("kh_flow_iters_pipe", P, P, I, P, I, I, I, P, I,
+                         _build.F, I, I, I, P, P, P, P)
+    rc = fn(R0.data_ptr(), R1.data_ptr(), int(R0.dtype == torch.bfloat16),
+            flow.data_ptr(), h, w, int(max_disp), wts, taps, post,
+            int(n_iters), int(skew), plan.smem, inter.data_ptr(),
+            out.data_ptr(), counters.data_ptr(), _build.stream(R0))
+    _build.check(rc, "kh_flow_iters_pipe")
+    return out
