@@ -13,9 +13,12 @@ prints no result line):
      the shapes its path gives it, with the stated bars, and each batched
      kernel against its per-item kernel (bit for bit; K5 and K13 against
      n_iters K2 launches, K8-pairs against per-pair K8, K9's and K10's
-     one launch a pyramid against their one-level launches), and the
-     fused K2 against the output bytes of the three-launch K2 it
-     replaced (K2_WITNESS) and against K5 at one iteration; hold
+     one launch a pyramid against their one-level launches), the fused
+     K2 against the output bytes of the three-launch K2 it replaced
+     (K2_WITNESS) and against K5 at one iteration, and K8 and K8-pairs,
+     the exact gather in the kernel, against the output bytes of the
+     parent route they replaced, the plain gather then the three-launch
+     kernel (K8_WITNESS); hold
      api.flow and pipeline.track_clip against the OpenCV oracle's
      tests/golden/oracle_v1.npz;
   4. time each kernel, its plain version and, where one PyTorch call
@@ -34,7 +37,8 @@ prints no result line):
        C. api.track_videos, 4 clips of 1080x1920 T=9, K=1024, the main
           path with pair_batch;
        D. api.track_video with no config (the reference's RunConfig():
-          exact warp, K8 on every level iteration), 1080x1920 T=9;
+          exact warp, one K8 launch, the gather in it, on every level
+          iteration), 1080x1920 T=9;
        D2. RunConfig() at pe_fused=False (K11 + K3 per level), T=5;
        E. bench's temporal warm-1 stage, 1080x1920 T=9, K=1024;
        F. bench cfg5 through api.smooth (RTS, pair-batched), 480x854
@@ -51,8 +55,8 @@ prints no result line):
        AP. A with fi_pipeline=True (bench KH_FI_PIPE=1): K13 on the two
           levels above K5's gate;
        BX. api.track_video with RunConfig(pair_batch=True) (the
-          reference's defaults, pair-batched: the exact gather and
-          K8-pairs), B's clip;
+          reference's defaults, pair-batched: K8-pairs, the exact gather
+          in it), B's clip;
        I. AP with the 6-state implicit-flow IEKF (iekf_iters 2), then
           the UKF: no K1 (a nonlinear measurement);
        P. RunConfig() with measurement="photometric" (no flow, no
@@ -616,61 +620,169 @@ def check_k5(dev, clip, cfg, results):
 
 
 def update_flops(taps: int, gaussian: bool = False) -> int:
-    """FLOPs per pixel that one K8 call needs: ~39 for the damped normal
-    equations, ~21 for the solve, and the two window passes over M's 5
-    planes counted as in fi_flops (the gather is outside K8)."""
-    return 60 + (20 * taps if gaussian else 20)
+    """FLOPs per pixel that one K8 call needs: ~67 for the exact gather
+    (the sample point and its weights, ~12; per plane 8 multiplies and 3
+    adds, 55), ~39 for the damped normal equations, ~21 for the solve,
+    and the two window passes over M's 5 planes counted as in
+    fi_flops."""
+    return 127 + (20 * taps if gaussian else 20)
 
 
 @phase("K8 flow_update")
 def check_k8(dev, clip, cfg, results):
     """K8 at each of the six 1080p level shapes, on path D's frame 0 -> 1
-    pyramids (RunConfig(): f32 planes) and the exact gather, box and
-    Gaussian windows, zero and random +-2 px prior flows: against the
-    plain version (< 1e-4). Timed per level with the box window; the
-    kernels line keeps one frame pair's 6 x `iterations` calls."""
+    pyramids (RunConfig(): f32 planes, and the same planes in bf16), box
+    and Gaussian windows, zero and random +-2 px prior flows: against the
+    plain version, the exact gather included (< 1e-4). Timed per level
+    with the box window on the f32 planes, from the +-2 px flow and from
+    zero; the kernels line keeps one frame pair's 6 x `iterations` calls
+    (+-2 px)."""
     from kalman_hydra_tpu_torch.kernels.flow_update import (
         flow_update, flow_update_plain)
     from kalman_hydra_tpu_torch.ops.color import grayscale_u8
-    from kalman_hydra_tpu_torch.ops.farneback import (polyexp_pyramid,
-                                                      warp_poly_planar)
+    from kalman_hydra_tpu_torch.ops.farneback import polyexp_pyramid
     f = cfg.flow
     grays = [grayscale_u8(torch.from_numpy(clip[i]).to(dev)) for i in (0, 1)]
     pyrs = [polyexp_pyramid(gr, f) for gr in grays]
     g = torch.Generator().manual_seed(8)
     taps = 2 * (f.winsize // 2) + 1
     worst = 0.0
-    tot = {"kernel": 0.0, "plain": 0.0, "kernel dev": 0.0}
+    tot = {"kernel": 0.0, "plain": 0.0, "kernel dev": 0.0, "zero dev": 0.0}
     nbytes = flops = 0
     for R0, R1 in zip(*pyrs):
         lh, lw = R0.shape[1:]
+        zero = torch.zeros(2, lh, lw, device=dev)
+        fl = (torch.rand(2, lh, lw, generator=g) * 4 - 2).to(dev)
         line = []
-        for fname, fl in (("zero", torch.zeros(2, lh, lw, device=dev)),
-                          ("+-2px", (torch.rand(2, lh, lw, generator=g) * 4
-                                     - 2).to(dev))):
-            R1w = warp_poly_planar(R1, fl)
-            for gw in (False, True):
-                e = max_err(flow_update(R0, R1w, fl, f.winsize, gw),
-                            flow_update_plain(R0, R1w, fl, f.winsize, gw))
-                worst = max(worst, e)
-                line.append(f"{fname}{'/gauss' if gw else ''} {e:.2e}")
+        for fname, flow in (("zero", zero), ("+-2px", fl)):
+            for dt in (torch.float32, torch.bfloat16):
+                a, b = R0.to(dt), R1.to(dt)
+                for gw in (False, True):
+                    e = max_err(flow_update(a, b, flow, f.winsize, gw),
+                                flow_update_plain(a, b, flow, f.winsize, gw))
+                    worst = max(worst, e)
+                    line.append(f"{fname}/{str(dt)[6:]}"
+                                f"{'/gauss' if gw else ''} {e:.2e}")
         log(f"  K8 {lh}x{lw}: " + ", ".join(line))
         ms = time_turns({
-            "plain": lambda: flow_update_plain(R0, R1w, fl, f.winsize),
-            "kernel": lambda: flow_update(R0, R1w, fl, f.winsize)})
-        log(f"  K8 {lh}x{lw} time: kernel {ms['kernel']:.4f} ms, plain "
-            f"{ms['plain']:.4f} ms")
+            "plain": lambda: flow_update_plain(R0, R1, fl, f.winsize),
+            "kernel": lambda: flow_update(R0, R1, fl, f.winsize),
+            "zero": lambda: flow_update(R0, R1, zero, f.winsize)})
+        log(f"  K8 {lh}x{lw} time: kernel {ms['kernel']:.4f} ms "
+            f"({ms['kernel dev']:.4f} on the device; from a zero flow "
+            f"{ms['zero dev']:.4f}), plain {ms['plain']:.4f} ms")
         for k in tot:
             tot[k] += f.iterations * ms[k]
         how = ms["kernel how"]
         nbytes += f.iterations * lh * lw * (4 * 10 + 8 + 8)
         flops += f.iterations * lh * lw * update_flops(taps)
     log(f"  K8 max_abs_err {worst:.3e} (bar 1e-4, every level, box and "
-        f"Gaussian, zero and +-2 px flows); one frame pair's "
-        f"{f.iterations} x {len(pyrs[0])} calls {tot['kernel']:.4f} ms")
+        f"Gaussian, zero and +-2 px flows, f32 and bf16 planes); one frame "
+        f"pair's {f.iterations} x {len(pyrs[0])} calls {tot['kernel']:.4f} "
+        f"ms, {tot['kernel dev']:.4f} on the device ({tot['zero dev']:.4f} "
+        f"from zero flows)")
     assert worst < 1e-4
     record(results, "flow_update", worst, tot["kernel"], tot["plain"],
            nbytes, flops, dev=dict(tot, **{"kernel how": how}))
+    results["flow_update"]["zero_flow_device_ms"] = tot["zero dev"]
+
+
+# sha256 of the output bytes of the parent route that K8 and K8-pairs
+# replaced (commit 8db1409: the plain torch gather ops/farneback.py::
+# warp_poly_planar, after an index_select of each pair's second frame for
+# K8-pairs, then the three-launch K8 / K8-pairs with M and Mv in device
+# memory) on witness_inputs at winsize 15 (K8) and on
+# witness_pair_inputs with round_m (K8-pairs), computed by
+# tools/torch_k8_ab.py on that commit, on an NVIDIA H100 80GB HBM3.
+K8_WITNESS = {
+    "K8 1080x1920 float32 box":
+        "fdd25775a8d063ec05bc3a98bcf6644ee406b006b88fd2fea06dc3a2472fe8a1",
+    "K8 1080x1920 float32 gauss":
+        "500c5a2082fed1cdcebc19bdb932e75bfdf2ceb3b9f93747e2f2838f854e240f",
+    "K8 1080x1920 bfloat16 box":
+        "4d4610270f37e2c4b5a6730e49d58dc32a5e5744616d6ccd7905a70379a45055",
+    "K8 1080x1920 bfloat16 gauss":
+        "f4835fcd32047fc01fce0ed52230ab59a69e3ed7ae133d3c85af66151fb9f3a5",
+    "K8 540x960 float32 box":
+        "85b13dcef0520d94e63a6fa52b05173f5d15b272360d521e40441ba11c3c17c3",
+    "K8 540x960 float32 gauss":
+        "d468961b91d8efb9634d4bf545069a62c04abee31bee13e5a49f5f08d4365388",
+    "K8 540x960 bfloat16 box":
+        "42789251ca399842e87d5d545a74b1952edfd871d7196c63709c9d04fe9df18c",
+    "K8 540x960 bfloat16 gauss":
+        "33aad0d611a114ba54a31920c33609e1357b71bcaa49cb7f0506eebbce6b4f0a",
+    "K8 37x53 float32 box":
+        "8429c74493e2277acbcbe5c332f05e7709237931bd06aff4740511b5a3bbea17",
+    "K8 37x53 float32 gauss":
+        "add8f10810e45e00013b157919b462e5d9c113a95edba6ca9a6f9e8cd1f58dfe",
+    "K8 37x53 bfloat16 box":
+        "3c4afd85692c772889e11354592728a0b2007e522bec8afe9a0c9845e3fd51e5",
+    "K8 37x53 bfloat16 gauss":
+        "64a1006fcacaa9223c52d8141b104405ae4d1bae4b3c9b341c9cc09d757f7e65",
+    "K8-pairs 540x960 bfloat16 box":
+        "e518fc482bc18c78e37fe4a126ddce43e835f2f5481c68db35ccc012f95c7ee7",
+    "K8-pairs 540x960 bfloat16 gauss":
+        "0544f8852ab8817454a0a0327d6ea48dd90c9dfae638b3d4ca2564753743c2e1",
+    "K8-pairs 37x53 bfloat16 box":
+        "fe6bbff9488ceaccef727911b7c96cce5e2dc2f65edd6882eb0a101a857088a6",
+    "K8-pairs 37x53 bfloat16 gauss":
+        "261221a06df1ee4670277d434eaa1afda09993159d91935ae31a34836f56c54c",
+}
+
+
+def witness_pair_inputs(h, w, n=6, clip_len=3, seed=11):
+    """An (n, 5, h, w) plane stack of n // clip_len chained clips and the
+    +-10 px prior flows (B, 2, h, w) of its B pairs, f32, from numpy's
+    legacy generator."""
+    rs = np.random.RandomState(seed)
+    Rall = rs.standard_normal((n, 5, h, w)).astype(np.float32)
+    B = (n // clip_len) * (clip_len - 1)
+    fl = (rs.random_sample((B, 2, h, w)) * 20 - 10).astype(np.float32)
+    return Rall, fl
+
+
+def k8_witness_case(key, dev):
+    """The inputs of a K8_WITNESS key, "K8 <h>x<w> <dtype> <box|gauss>"
+    or "K8-pairs <h>x<w> <dtype> <box|gauss>" (clip_len 3, round_m),
+    as a call: (kind, planes, flow, gaussian)."""
+    kind, shape, dt, win = key.split()
+    h, w = map(int, shape.split("x"))
+    dt = getattr(torch, dt)
+    if kind == "K8":
+        R0, R1, fl = (torch.from_numpy(a).to(dev)
+                      for a in witness_inputs(h, w))
+        return kind, (R0.to(dt), R1.to(dt)), fl, win == "gauss"
+    Rall, fl = (torch.from_numpy(a).to(dev)
+                for a in witness_pair_inputs(h, w))
+    return kind, (Rall.to(dt),), fl, win == "gauss"
+
+
+@phase("K8 against the parent route's outputs (bit for bit)")
+def check_k8_witness(dev):
+    """K8 and K8-pairs, the gather in the kernel, against the parent
+    route they replaced (the plain torch gather, then the three-launch
+    kernel): their output bytes on every K8_WITNESS case (1080x1920,
+    540x960 and 37x53, f32 and bf16 planes, box and Gaussian windows for
+    K8; a bf16 stack of two chained 3-frame clips with M rounded to bf16
+    for K8-pairs) hash to the parent's."""
+    import hashlib
+    from kalman_hydra_tpu_torch.kernels.flow_update import (
+        flow_update, flow_update_pairs)
+    bad = []
+    assert K8_WITNESS, "no witness hashes"
+    for key, want in K8_WITNESS.items():
+        kind, planes, fl, gw = k8_witness_case(key, dev)
+        if kind == "K8":
+            out = flow_update(*planes, fl, 15, gw)
+        else:
+            out = flow_update_pairs(*planes, fl, 15, gw, 3, round_m=True)
+        same = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest() \
+            == want
+        log(f"  {key}: {'same bytes' if same else 'DIFFERENT bytes'} as "
+            f"the parent route")
+        if not same:
+            bad.append(key)
+    assert not bad, f"K8 differs from the parent route on {bad}"
 
 
 @phase("K11 coarse_level_images")
@@ -1032,16 +1144,15 @@ def check_k8_pairs(dev, clip_b, cfg, results):
     """K8-pairs on path BX's planes (B's 720p clip at RunConfig()'s f32
     planes), 16 pairs of 17 frames and 16 pairs of two chained 9-frame
     clips (clip_len), the coarsest and the finest level, random +-2 px
-    flows and the exact gather: against per-pair K8 (bit for bit) and the
-    plain version (< 1e-4); and at bf16 planes with M rounded to bf16
-    against the plain version. The kernels line keeps one call at the
-    fine level."""
+    flows, the exact gather in the kernel: against per-pair K8 (bit for
+    bit) and the plain version (< 1e-4); and at bf16 planes with M
+    rounded to bf16 against the plain version. The kernels line keeps one
+    call at the fine level."""
     from kalman_hydra_tpu_torch.kernels.flow_iter import pair_frames
     from kalman_hydra_tpu_torch.kernels.flow_update import (
         flow_update, flow_update_pairs, flow_update_pairs_plain)
     from kalman_hydra_tpu_torch.ops.color import grayscale_u8
-    from kalman_hydra_tpu_torch.ops.farneback import (polyexp_pyramid_batch,
-                                                      warp_poly_planar)
+    from kalman_hydra_tpu_torch.ops.farneback import polyexp_pyramid_batch
     f = cfg.flow
     grays = grayscale_u8(torch.from_numpy(clip_b).to(dev))
     g = torch.Generator().manual_seed(18)
@@ -1054,18 +1165,16 @@ def check_k8_pairs(dev, clip_b, cfg, results):
             lh, lw = Rl.shape[2:]
             for clip_len, N in ((0, T_B), (9, 2 * 9)):
                 Rall = Rl[:N].contiguous()
-                frames = torch.tensor(pair_frames(B, clip_len), device=dev)
                 fl = (torch.rand(B, 2, lh, lw, generator=g) * 4 - 2).to(dev)
-                R1w = warp_poly_planar(Rall.index_select(0, frames + 1), fl)
-                got = flow_update_pairs(Rall, R1w, fl, f.winsize, False,
+                got = flow_update_pairs(Rall, fl, f.winsize, False,
                                         clip_len, round_m=bf16)
                 e = max_err(got, flow_update_pairs_plain(
-                    Rall, R1w, fl, f.winsize, False, clip_len, bf16))
+                    Rall, fl, f.winsize, False, clip_len, bf16))
                 worst = max(worst, e)
                 line = f"vs plain {e:.3e}"
                 if not bf16:
                     per = torch.stack([
-                        flow_update(Rall[p], R1w[b], fl[b], f.winsize)
+                        flow_update(Rall[p], Rall[p + 1], fl[b], f.winsize)
                         for b, p in enumerate(pair_frames(B, clip_len))])
                     e2 = max_err(got, per)
                     worst_k8 = max(worst_k8, e2)
@@ -1076,20 +1185,22 @@ def check_k8_pairs(dev, clip_b, cfg, results):
     Rs = polyexp_pyramid_batch(grays, f)
     Rall = Rs[-1]
     fl = (torch.rand(B, 2, H_B, W_B, generator=g) * 4 - 2).to(dev)
-    R1w = warp_poly_planar(Rall[1:], fl)
     ms = time_turns({
-        "plain": lambda: flow_update_pairs_plain(Rall, R1w, fl, f.winsize),
-        "kernel": lambda: flow_update_pairs(Rall, R1w, fl, f.winsize),
-        "k8": lambda: [flow_update(Rall[b], R1w[b], fl[b], f.winsize)
+        "plain": lambda: flow_update_pairs_plain(Rall, fl, f.winsize),
+        "kernel": lambda: flow_update_pairs(Rall, fl, f.winsize),
+        "k8": lambda: [flow_update(Rall[b], Rall[b + 1], fl[b], f.winsize)
                        for b in range(B)]}, reps=5)
-    log(f"  K8-pairs {H_B}x{W_B} f32 B={B}: kernel {ms['kernel']:.4f} ms, "
-        f"{B} x K8 {ms['k8']:.4f} ms, plain {ms['plain']:.4f} ms")
+    log(f"  K8-pairs {H_B}x{W_B} f32 B={B}: kernel {ms['kernel']:.4f} ms "
+        f"({ms['kernel dev']:.4f} on the device), {B} x K8 {ms['k8']:.4f} "
+        f"ms ({ms['k8 dev']:.4f}), plain {ms['plain']:.4f} ms")
     taps = 2 * (f.winsize // 2) + 1
-    # R0 (B frames) and R1w, 5 f32 planes each, the flow in and out
+    # the stack's B + 1 frames of 5 f32 planes, read in place, and each
+    # pair's flow in and out
     record(results, "flow_update_pairs", worst, ms["kernel"], ms["plain"],
-           B * H_B * W_B * (2 * 5 * 4 + 8 + 8),
+           H_B * W_B * ((B + 1) * 5 * 4 + B * (8 + 8)),
            B * H_B * W_B * update_flops(taps), dev=ms)
-    results["flow_update_pairs"]["k8_route_ms"] = ms["k8"]
+    results["flow_update_pairs"].update(k8_route_ms=ms["k8"],
+                                        k8_route_device_ms=ms["k8 dev"])
 
 
 @phase("K6 flow_iter_pairs")
@@ -1426,15 +1537,13 @@ def path_a(dev, clip, cfg, counts_by_path):
 
 def plain_flow(g0, g1, f):
     """Frame-pair flow (H, W, 2) composed from the kernels' plain versions
-    only, as ops.farneback composes the kernels (the exact gather is plain
-    torch in both)."""
+    only, as ops.farneback composes the kernels."""
     from kalman_hydra_tpu_torch.kernels.flow_iter import flow_iter_plain
     from kalman_hydra_tpu_torch.kernels.flow_update import flow_update_plain
     from kalman_hydra_tpu_torch.kernels.level_image import (
         coarse_level_images_plain, coarse_polyexp_fused_plain)
     from kalman_hydra_tpu_torch.kernels.polyexp import \
         poly_expansion_planar_plain
-    from kalman_hydra_tpu_torch.ops.farneback import warp_poly_planar
     from kalman_hydra_tpu_torch.ops.pyramid import (gaussian_blur_level,
                                                     resize_linear)
     dt = torch.bfloat16 if f.bf16_poly else torch.float32
@@ -1457,9 +1566,8 @@ def plain_flow(g0, g1, f):
                 else resize_linear(flow, lh, lw) * (1.0 / f.pyr_scale))
         for _ in range(f.iterations):
             if f.fast_warp <= 0:
-                flow = flow_update_plain(R0.float(),
-                                         warp_poly_planar(R1, flow), flow,
-                                         f.winsize, f.gaussian_win)
+                flow = flow_update_plain(R0, R1, flow, f.winsize,
+                                         f.gaussian_win)
             else:
                 flow = flow_iter_plain(R0, R1, flow, f.winsize, f.fast_warp,
                                        f.gaussian_win)
@@ -2056,9 +2164,9 @@ def path_configs(pipeline) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="TRACE_JSON", default=None,
-                    help="also profile one warm run of paths A-D, H and "
-                         "AP and write each Chrome trace beside this name "
-                         "(_A ... _D, _H, _AP)")
+                    help="also profile one warm run of paths A-D, H, AP "
+                         "and BX and write each Chrome trace beside this "
+                         "name (_A ... _D, _H, _AP, _BX)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this check "
@@ -2111,6 +2219,7 @@ def main() -> int:
     check_k6(dev, clip_b, pair_cfg, results)
     check_k7(dev, clip_b, clips_c, cfg, results)
     check_k8(dev, clip, cfgs["D"], results)
+    check_k8_witness(dev)
     check_k11(dev, gray, cfgs["D2"], results)
     check_k9(dev, gray, results)
     check_k10(dev, gray, results)
@@ -2153,7 +2262,9 @@ def main() -> int:
                 "H": (lambda: api.track_video(clip, cfgs["H"], device=dev),
                       T - 1),
                 "AP": (lambda: api.track_video(clip, cfgs["AP"],
-                                               device=dev), T - 1)}
+                                               device=dev), T - 1),
+                "BX": (lambda: api.track_video(clip_b, cfgs["BX"],
+                                               device=dev), T_B - 1)}
         trace = Path(args.profile)
         for label, (fn, steps) in runs.items():
             profile_path(label, fn, steps, str(trace.with_name(

@@ -20,7 +20,9 @@
 //
 // Design: ONE launch per iteration, grid = (column tiles, row tiles,
 // pairs), one block of 256 threads per 32 x 64 output tile (two blocks an
-// SM), the three steps fused in shared memory (flow_tile.cuh): M and its
+// SM), the three steps fused in shared memory (flow_tile.cuh's
+// pairs_tile_kernel with the select-sum SelectSumM, the kernel K8 runs
+// with the exact gather): M and its
 // vertical pass never reach device memory, so a call moves the 36 B/px
 // the function needs plus the halo's reads, which hit L1/L2. The price is
 // recomputing M on the halo: (TH + 2 bw)(TW + 2 bw) / (TH TW), 1.75x at
@@ -32,74 +34,6 @@
 // gathers). The window's taps are the launch's parameters, a build for
 // 15 taps (every configuration's winsize) and one for any other count.
 #include "flow_tile.cuh"
-
-namespace {
-
-using kh::fi::kTileThreads;
-using kh::fi::Window;
-
-__device__ __forceinline__ long frame_of(int b, int ppc) {
-  return ppc > 0 ? b + b / ppc : b;
-}
-
-using kh::fi::kTileH;
-using kh::fi::kTileW;
-
-template <int TAPS, typename PT>
-__global__ void __launch_bounds__(kTileThreads, 2)
-flow_iter_tile_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
-                      int ppc, const float* __restrict__ flow, int h, int w,
-                      float D, const Window win, float* __restrict__ out) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ float s_w[kh::fi::kMaxTaps];
-  const int b = blockIdx.z;
-  const long plane = (long)h * w;
-  const long f = frame_of(b, ppc) * 5 * plane;
-  kh::fi::tile_body<kTileH, kTileW, TAPS>(
-      R0 + f, R1 + f, flow + b * 2 * plane, h, w, D, win, blockIdx.y * kTileH,
-      blockIdx.x * kTileW, out + b * 2 * plane, sm, s_w);
-}
-
-template <int TAPS, typename PT>
-int launch(const void* R0, const void* R1, int pairs, int ppc,
-           const float* flow, int h, int w, int D, const Window& win,
-           int smem, float* out, cudaStream_t s) {
-  auto kern = flow_iter_tile_kernel<TAPS, PT>;
-  if (smem != kh::fi::tile_smem_bytes(kTileH, kTileW, win.taps / 2) ||
-      kh::cdiv(h, kTileH) > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // the attribute is per function and device: set it up to the largest
-  // size asked for on each card
-  constexpr int kMaxDevices = 64;
-  static int smem_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices || smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kMaxDevices) smem_set[dev] = smem;
-  }
-  const dim3 grid(kh::cdiv(w, kTileW), kh::cdiv(h, kTileH), pairs);
-  kern<<<grid, kTileThreads, smem, s>>>(
-      static_cast<const PT*>(R0), static_cast<const PT*>(R1), ppc, flow, h,
-      w, static_cast<float>(D), win, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename PT>
-int dispatch(const void* R0, const void* R1, int pairs, int ppc,
-             const float* flow, int h, int w, int D, const Window& win,
-             int smem, float* out, cudaStream_t s) {
-  return win.taps == 15
-             ? launch<15, PT>(R0, R1, pairs, ppc, flow, h, w, D, win, smem,
-                              out, s)
-             : launch<0, PT>(R0, R1, pairs, ppc, flow, h, w, D, win, smem,
-                             out, s);
-}
-
-}  // namespace
 
 // Pair b (b < pairs) reads R0 + p * 5hw and R1 + p * 5hw (p as above;
 // K2 passes pairs = 1, ppc = 0, K6 passes R1 = R0 + 5hw). Planes bf16
@@ -114,16 +48,9 @@ KH_API int kh_flow_iter(const void* R0, const void* R1, int bf16, int pairs,
   if (h <= 0 || w <= 0 || taps <= 0 || taps > kh::fi::kMaxTaps || D < 0 ||
       pairs <= 0 || ppc < 0 || pairs > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  Window win;
-  for (int k = 0; k < taps; ++k) win.w[k] = static_cast<const float*>(wts)[k];
-  for (int k = taps; k < kh::fi::kMaxTaps; ++k) win.w[k] = 0.f;
-  win.taps = taps;
-  win.post = post_scale;
-  auto f = static_cast<const float*>(flow);
-  auto o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return dispatch<__nv_bfloat16>(R0, R1, pairs, ppc, f, h, w, D, win,
-                                   smem, o, s);
-  return dispatch<float>(R0, R1, pairs, ppc, f, h, w, D, win, smem, o, s);
+  return kh::fi::run_pairs(
+      R0, R1, bf16, pairs, ppc, flow, h, w,
+      kh::fi::SelectSumM{static_cast<float>(D)},
+      kh::fi::make_window(wts, taps, post_scale), smem, out,
+      static_cast<cudaStream_t>(stream));
 }

@@ -119,7 +119,8 @@ flow_iters_pipe_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
   const long plane = (long)h * w;
   const float* src = j == 0 ? flow_in : inter + (long)(j - 1) * 2 * plane;
   float* dst = j == n_iters - 1 ? out : inter + (long)j * 2 * plane;
-  kh::fi::tile_body<kTileH, kTileW, TAPS>(R0, R1, src, h, w, D, win,
+  kh::fi::tile_body<kTileH, kTileW, TAPS>(R0, R1, src, h, w,
+                                          kh::fi::SelectSumM{D}, win,
                                           b * kTileH, t * kTileW, dst, sm,
                                           s_w);
   __syncthreads();
@@ -143,17 +144,9 @@ int launch(const void* R0, const void* R1, const float* flow, int h, int w,
   const int dt = static_cast<int>(kh::cdiv(bw + D + 1, kTileW));
   if ((long)n_iters * nb * nt > 2147483647L)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kMaxDevices = 64;
-  static int smem_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static int smem_set[kh::fi::kMaxDevices] = {};
+  cudaError_t err = kh::fi::allow_smem(kern, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices || smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kMaxDevices) smem_set[dev] = smem;
-  }
   err = cudaMemsetAsync(counters, 0, sizeof(int) * (1 + (long)nb * nt), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<n_iters * nb * nt, kTileThreads, smem, s>>>(
@@ -191,11 +184,7 @@ KH_API int kh_flow_iters_pipe(const void* R0, const void* R1, int bf16,
   if (h <= 0 || w <= 0 || taps <= 0 || taps > kh::fi::kMaxTaps || D < 0 ||
       n_iters < 2 || skew < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Window win;
-  for (int k = 0; k < taps; ++k) win.w[k] = static_cast<const float*>(wts)[k];
-  for (int k = taps; k < kh::fi::kMaxTaps; ++k) win.w[k] = 0.f;
-  win.taps = taps;
-  win.post = post_scale;
+  const Window win = kh::fi::make_window(wts, taps, post_scale);
   auto f = static_cast<const float*>(flow);
   auto in = static_cast<float*>(inter);
   auto o = static_cast<float*>(out);

@@ -1,23 +1,27 @@
-// The fused tile body of one fast-warp Farneback iteration in shared
-// memory, shared by K2/K6 (csrc/flow_iter.cu) and K13
-// (csrc/flow_iters_pipe.cu).
+// The fused tile body of one Farneback iteration in shared memory, and
+// the one-launch-per-iteration kernel over frame pairs built on it, shared
+// by K2/K6 (csrc/flow_iter.cu), K13 (csrc/flow_iters_pipe.cu) and
+// K8/K8-pairs (csrc/flow_update.cu).
 //
 // A block of kTileThreads threads owns an output tile of TH x TW pixels at
 // (r0, c0) and runs the three steps of csrc/flow_iter.cuh on it without
 // sending M or its vertical pass to device memory:
-//   1. M (warp_m, 5 f32 planes) on the tile plus a bw = taps / 2 halo on
-//      every side, into shared memory: MH = TH + 2 bw rows of MW = TW +
-//      2 bw columns, row stride S = MW | 1 (odd, so that 32 rows read in
-//      one warp hit 32 banks). A halo row or column outside the image
-//      holds M of the clamped row or column, which is what the clamped
+//   1. M (5 f32 planes) on the tile plus a bw = taps / 2 halo on every
+//      side, into shared memory: MH = TH + 2 bw rows of MW = TW + 2 bw
+//      columns, row stride S = MW | 1 (odd, so that 32 rows read in one
+//      warp hit 32 banks). M comes from the tile body's MSrc: the
+//      select-sum warp clamped to +-D (SelectSumM: K2, K6, K13) or the
+//      exact bilinear gather, M rounded to bf16 or not (ExactM: K8,
+//      K8-pairs). A halo row or column outside the image holds M of the
+//      clamped row or column (rounded too), which is what the clamped
 //      window of window_v_at / window_h_solve_at reads. Each thread
 //      computes two pixels at a time, so that their chains of dependent
-//      loads (the flow, then dy at the warp's columns, then R1) overlap.
-//      R0, R1 and the flow are read through L1, which the block's 73 KB
-//      of shared memory (two blocks an SM) leaves at ~90 KB for the
-//      gathers of R1. This phase takes most of a tile's time; staging R1
-//      or the flow in shared memory, or sharing the warp's vertical lerp
-//      between pixels there, was slower (less L1, fewer blocks an SM;
+//      loads (the flow, then the warp's rows, then R1) overlap. R0, R1
+//      and the flow are read through L1, which the block's 73 KB of
+//      shared memory (two blocks an SM) leaves at ~90 KB for the gathers
+//      of R1. This phase takes most of a tile's time; staging R1 or the
+//      flow in shared memory, or sharing the warp's vertical lerp between
+//      pixels there, was slower for K2 (less L1, fewer blocks an SM;
 //      PERF.md).
 //   2. The vertical window over the TH output rows x MW columns, in
 //      place: one thread per (column, plane) walks the column top down,
@@ -33,8 +37,8 @@
 //      Mv value read once per thread. The flow goes out through shared
 //      memory, one coalesced row at a time, masked at the image edge.
 // Every sum runs its taps in the order k = 0 ... taps - 1 through
-// flow_iter.cuh's tap(), and every M value comes from warp_m, so a tile
-// computes the (5, h, w)-plane kernels' values bit for bit.
+// flow_iter.cuh's tap(), and every M value comes from warp_m or exact_m,
+// so a tile computes the (5, h, w)-plane kernels' values bit for bit.
 //
 // The window's taps are passed by value (Window, in the kernel's
 // parameter space): with TAPS > 0 each tap is a constant operand of its
@@ -47,7 +51,7 @@ namespace kh {
 namespace fi {
 
 constexpr int kTileThreads = 256;
-constexpr int kTileH = 32;       // the tile K2, K6 and K13 launch:
+constexpr int kTileH = 32;       // the tile K2, K6, K8 and K13 launch:
 constexpr int kTileW = 64;       // kernels/flow_iter.py::TILE
 constexpr int kMaxTaps = 61;     // winsize <= 61: the largest that fits
 
@@ -55,6 +59,46 @@ struct Window {
   float w[kMaxTaps];
   int taps;
   float post;
+};
+
+// The window's taps, in HOST memory, into a launch's Window.
+inline Window make_window(const void* wts, int taps, float post) {
+  Window win;
+  for (int k = 0; k < kMaxTaps; ++k)
+    win.w[k] = k < taps ? static_cast<const float*>(wts)[k] : 0.f;
+  win.taps = taps;
+  win.post = post;
+  return win;
+}
+
+// Phase 1's source of M at one pixel (r, c), into m[5]: the select-sum
+// warp clamped to +-D (K2, K6, K13) ...
+struct SelectSumM {
+  static constexpr bool kPreferL1 = false;    // see allow_smem
+  float D;
+  template <typename PT>
+  __device__ __forceinline__ void operator()(const PT* __restrict__ R0,
+                                             const PT* __restrict__ R1,
+                                             const float* flow, int h,
+                                             int w, int r, int c,
+                                             float m[5]) const {
+    warp_m(R0, R1, flow, h, w, D, r, c, m);
+  }
+};
+
+// ... or the exact bilinear gather, M rounded to bf16 where round_m (K8,
+// K8-pairs).
+struct ExactM {
+  static constexpr bool kPreferL1 = true;
+  int round_m;
+  template <typename PT>
+  __device__ __forceinline__ void operator()(const PT* __restrict__ R0,
+                                             const PT* __restrict__ R1,
+                                             const float* flow, int h,
+                                             int w, int r, int c,
+                                             float m[5]) const {
+    exact_m(R0, R1, flow, h, w, round_m, r, c, m);
+  }
 };
 
 // Dynamic shared memory of one tile: M, 5 f32 planes of MH x S. The
@@ -72,11 +116,11 @@ __host__ __device__ constexpr int tile_rh(int th, int tw) {
          : th * tw / kTileThreads >= 1 ? th * tw / kTileThreads : 1;
 }
 
-template <int TH, int TW, int TAPS, typename PT>
+template <int TH, int TW, int TAPS, typename MSrc, typename PT>
 __device__ __forceinline__ void tile_body(
     const PT* __restrict__ R0, const PT* __restrict__ R1, const float* flow,
-    int h, int w, float D, const Window& win, int r0, int c0, float* out,
-    float* sm, float* s_w) {
+    int h, int w, const MSrc& msrc, const Window& win, int r0, int c0,
+    float* out, float* sm, float* s_w) {
   constexpr int RH = tile_rh(TH, TW);
   static_assert(TW % RH == 0, "tile width must split into RH columns");
   const int taps = TAPS > 0 ? TAPS : win.taps;
@@ -94,8 +138,8 @@ __device__ __forceinline__ void tile_body(
   for (int i = tid; i < MH * MW; i += kTileThreads) {
     const int y = i / MW, x = i - y * MW;
     float m[5];
-    warp_m(R0, R1, flow, h, w, D, clampi(r0 - bw + y, 0, h - 1),
-           clampi(c0 - bw + x, 0, w - 1), m);
+    msrc(R0, R1, flow, h, w, clampi(r0 - bw + y, 0, h - 1),
+         clampi(c0 - bw + x, 0, w - 1), m);
 #pragma unroll
     for (int p = 0; p < 5; ++p) sm[p * plane_s + y * S + x] = m[p];
   }
@@ -204,6 +248,104 @@ __device__ __forceinline__ void tile_body(
     if (r < h && c < w)
       out[q * plane + (long)r * w + c] = sm[(q * TH + y) * SO + x];
   }
+}
+
+// Shared-memory attribute records, one per kernel and device: the
+// attribute is per function and device, and is raised up to the largest
+// size asked for on each card. With prefer_l1 the shared-memory carveout
+// is also set to the least that holds two blocks of `smem` (with their
+// static shared memory and the 1 KB reserved a block), so that the rest
+// of the SM's 256 KB stays L1 for the gathers: left to the driver, K8's
+// kernel (72 registers, so three blocks an SM would fit) ran slower on
+// scattered gathers (PERF.md).
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kern, int smem,
+                              int (&set)[kMaxDevices],
+                              bool prefer_l1 = false) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && smem <= set[dev]))
+    return err;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && prefer_l1) {
+    int cap = 0;     // shared memory an SM can give, bytes
+    err = cudaDeviceGetAttribute(
+        &cap, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    const long two = 2L * (smem + 1024 + 4 * kMaxTaps);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+          static_cast<int>(two >= cap ? 100 : (100 * two + cap - 1) / cap));
+  }
+  if (err == cudaSuccess && dev < kMaxDevices) set[dev] = smem;
+  return err;
+}
+
+// One iteration for `pairs` frame pairs of a plane stack in ONE launch,
+// grid = (column tiles, row tiles, pairs), one block per 32 x 64 output
+// tile: pair b reads R0 and R1 offset by its first frame p = b + b / ppc
+// when ppc (pairs per clip) chains clips end to end, else p = b, in place
+// (R1 = R0 + 5hw for a stack; any two planes for one pair), and its own
+// flow and output. K2/K6 run it with SelectSumM, K8/K8-pairs with ExactM.
+template <int TAPS, typename MSrc, typename PT>
+__global__ void __launch_bounds__(kTileThreads, 2)
+pairs_tile_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
+                  int ppc, const float* __restrict__ flow, int h, int w,
+                  const MSrc msrc, const Window win,
+                  float* __restrict__ out) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float s_w[kMaxTaps];
+  const int b = blockIdx.z;
+  const long plane = (long)h * w;
+  const long f = (ppc > 0 ? b + b / ppc : b) * 5 * plane;
+  tile_body<kTileH, kTileW, TAPS>(
+      R0 + f, R1 + f, flow + b * 2 * plane, h, w, msrc, win,
+      blockIdx.y * kTileH, blockIdx.x * kTileW, out + b * 2 * plane, sm,
+      s_w);
+}
+
+template <int TAPS, typename MSrc, typename PT>
+int launch_pairs(const void* R0, const void* R1, int pairs, int ppc,
+                 const float* flow, int h, int w, const MSrc& msrc,
+                 const Window& win, int smem, float* out, cudaStream_t s) {
+  auto kern = pairs_tile_kernel<TAPS, MSrc, PT>;
+  if (smem != tile_smem_bytes(kTileH, kTileW, win.taps / 2) ||
+      cdiv(h, kTileH) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int smem_set[kMaxDevices] = {};
+  const cudaError_t err =
+      allow_smem(kern, smem, smem_set, MSrc::kPreferL1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(cdiv(w, kTileW), cdiv(h, kTileH), pairs);
+  kern<<<grid, kTileThreads, smem, s>>>(
+      static_cast<const PT*>(R0), static_cast<const PT*>(R1), ppc, flow, h,
+      w, msrc, win, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch_pairs with the planes' type (bf16 = 1, else f32) and the window's
+// build: 15 taps (every configuration's winsize) at compile time, any
+// other count generic.
+template <typename MSrc>
+int run_pairs(const void* R0, const void* R1, int bf16, int pairs, int ppc,
+              const void* flow, int h, int w, const MSrc& msrc,
+              const Window& win, int smem, void* out, cudaStream_t s) {
+  auto f = static_cast<const float*>(flow);
+  auto o = static_cast<float*>(out);
+  if (bf16)
+    return win.taps == 15
+               ? launch_pairs<15, MSrc, __nv_bfloat16>(
+                     R0, R1, pairs, ppc, f, h, w, msrc, win, smem, o, s)
+               : launch_pairs<0, MSrc, __nv_bfloat16>(
+                     R0, R1, pairs, ppc, f, h, w, msrc, win, smem, o, s);
+  return win.taps == 15
+             ? launch_pairs<15, MSrc, float>(R0, R1, pairs, ppc, f, h, w,
+                                             msrc, win, smem, o, s)
+             : launch_pairs<0, MSrc, float>(R0, R1, pairs, ppc, f, h, w,
+                                            msrc, win, smem, o, s);
 }
 
 }  // namespace fi

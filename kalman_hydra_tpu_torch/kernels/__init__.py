@@ -10,13 +10,13 @@
 | flow_iter.flow_iter_pairs (K6) | csrc/flow_iter.cu | flow_iter_pallas.py::flow_iter_pairs |
 | polyexp.poly_expansion_planar_batch (K7a) | csrc/polyexp.cu | polyexp_pallas.py::poly_expansion_planar_batch |
 | level_image.coarse_polyexp_fused_batch (K7b) | csrc/level_image.cu | level_image_pallas.py::coarse_polyexp_fused_batch |
-| flow_update.flow_update (K8) | csrc/flow_update.cu | flow_update_pallas.py::flow_update |
+| flow_update.flow_update (K8) | csrc/flow_update.cu | flow_update_pallas.py::flow_update and the exact gather before it, ops/farneback.py::_warp_poly_planar (:525-528), now in the kernel |
 | pyramid.pyr_down_levels (K9) | csrc/pyramid.cu | pyramid_pallas.py::pyr_down (once per level) |
 | scharr.scharr_gradients_levels (K10) | csrc/scharr.cu | scharr_pallas.py::scharr_gradients (once per level) |
 | level_image.coarse_level_images (K11) | csrc/level_image.cu | level_image_pallas.py::farneback_images_pallas |
 | lk.lk_level (K12) | csrc/lk.cu | lk_pallas.py::lk_sparse (_lk_level) |
 | flow_iter.flow_iters_pipelined (K13) | csrc/flow_iters_pipe.cu | flow_iter_pallas.py::flow_iters_pipelined |
-| flow_update.flow_update_pairs (K8-pairs) | csrc/flow_update.cu | no Pallas kernel: the pair-batched exact warp's plain XLA (ops/farneback.py:633-640) |
+| flow_update.flow_update_pairs (K8-pairs) | csrc/flow_update.cu | no Pallas kernel: the pair-batched exact warp's plain XLA, gather included (ops/farneback.py:633-640) |
 
 Each wrapper dispatches by device: a CPU tensor takes the plain PyTorch
 version beside it, a CUDA tensor launches the kernel or raises. Each

@@ -16,9 +16,10 @@ Rall (`pair_frames`). Both wrappers launch the same CUDA kernel, so K6
 equals per-pair K2 bit for bit. The planes go in unpadded: the kernels
 clamp their indices where the TPU kernels read edge-padded slabs.
 
-K2, K6 and K13 run one tile body in shared memory (csrc/flow_tile.cuh):
-`tile_plan` is the tile and shared-memory plan the wrappers pass to the
-kernels, `pipe_items` / `pipe_waits` K13's work order and wait set.
+K2, K6 and K13 run one tile body in shared memory (csrc/flow_tile.cuh),
+as K8 and K8-pairs do (kernels/flow_update.py): `tile_plan` is the tile
+and shared-memory plan the wrappers pass to the kernels, `pipe_items` /
+`pipe_waits` K13's work order and wait set.
 
 CPU tensors take `flow_iter_plain` / `flow_iter_pairs_plain` /
 `flow_iters_pipelined_plain`; CUDA tensors launch the kernel, or raise.
@@ -151,7 +152,7 @@ _device_weights: dict = {}
 
 
 def device_window(device, winsize: int, gaussian: bool):
-    """(window taps on `device`, post_scale), cached per device (K5, K8)."""
+    """(window taps on `device`, post_scale), cached per device (K5)."""
     key = (str(device), winsize, bool(gaussian))
     if key not in _device_weights:
         wts, post = window_weights(winsize, bool(gaussian))

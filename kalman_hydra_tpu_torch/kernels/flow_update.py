@@ -1,26 +1,30 @@
-"""K8 wrapper: one exact-warp Farneback iteration after the gather
-(csrc/flow_update.cu).
+"""K8 wrapper: one exact-warp Farneback iteration, the bilinear gather
+included (csrc/flow_update.cu).
 
-Replaces kalman_hydra_tpu/kernels/flow_update_pallas.py::flow_update:
-R0 and the already-warped R1w (5, h, w) f32, the prior flow (2, h, w) f32
--> the new absolute flow (2, h, w) f32. Averaged normal equations with
-OpenCV's border taper, the winsize window over M with a replicate border,
-2x2 solve. The window is K8's own: float32(1/n) taps for the box (the
-TPU kernel does not factor it, unlike K2's `window_weights`), the cv2
-Gaussian otherwise, and no post-scale. f32 only, as the TPU kernel is: a
-caller with bf16 planes upcasts (ops/farneback.py does).
+Replaces the reference's `_warp_poly_planar` + Pallas `flow_update` pair
+(kalman_hydra_tpu/ops/farneback.py:525-528;
+kalman_hydra_tpu/kernels/flow_update_pallas.py::flow_update takes R1
+already warped, the gather left to XLA): R0 and the UNWARPED R1
+(5, h, w), both bf16 or both f32, the prior flow (2, h, w) f32 -> the new
+absolute flow (2, h, w) f32. The kernel gathers R1 at (r + dy, c + dx),
+clamped to the image, then runs the averaged normal equations with
+OpenCV's border taper, the winsize window over M with a replicate border
+and the 2x2 solve, in one launch. The window is K8's own: float32(1/n)
+taps for the box (the TPU kernel does not factor it, unlike K2's
+`window_weights`), the cv2 Gaussian otherwise, and no post-scale.
 
 K8-pairs (`flow_update_pairs`) is the port's own pair variant: K8 over
-B frame pairs in one launch (the pair index in blockIdx.z, as K6 is
-K2's), for the pair-batched exact warp, which the reference computes in
-plain XLA (ops/farneback.py:633-640, update_matrices_p/update_flow_p
-vmapped over the pairs; no Pallas kernel). Pair b reads R0 at its first
-frame of the (N, 5, h, w) plane stack (`pair_frames`), in bf16 or f32,
-and its own warped R1w. With round_m M is rounded to bf16 where the
-reference's update_matrices_p stores it in the bf16 plane dtype.
+B frame pairs of an (N, 5, h, w) plane stack in one launch (the pair
+index in blockIdx.z, as K6 is K2's), for the pair-batched exact warp,
+which the reference computes in plain XLA (ops/farneback.py:633-640,
+update_matrices_p/update_flow_p vmapped over the pairs; no Pallas
+kernel). Pair b reads frames p and p + 1 of the stack in place
+(`pair_frames`), bf16 or f32. With round_m M is rounded to bf16 where
+the reference's update_matrices_p stores it in the bf16 plane dtype.
 
-CPU tensors take `flow_update_plain` / `flow_update_pairs_plain`; CUDA
-tensors launch the kernel, or raise.
+The plain versions are the gather (`ops.warp.warp_poly_planar`) followed
+by the plain iteration (`kernels.flow_iter.solve_warped`). CPU tensors
+take them; CUDA tensors launch the kernel, or raise.
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ import torch
 
 from . import _build
 from .flow_iter import (PLANE_DTYPES, check_pairs, pair_frames,
-                        solve_warped)
+                        solve_warped, tile_plan)
 from ..ops.filters import gaussian_kernel
+from ..ops.warp import warp_poly_planar
 
 
 @lru_cache(maxsize=16)
@@ -47,47 +52,66 @@ def update_weights(winsize: int, gaussian: bool) -> np.ndarray:
     return np.full(n, 1.0 / n, np.float64).astype(np.float32)
 
 
-def flow_update_plain(R0, R1w, flow, winsize: int,
+def flow_update_plain(R0, R1, flow, winsize: int,
                       gaussian: bool = False) -> torch.Tensor:
-    return solve_warped(R0, R1w, flow, update_weights(winsize,
-                                                      bool(gaussian)), 1.0)
+    return solve_warped(R0.to(torch.float32), warp_poly_planar(R1, flow),
+                        flow, update_weights(winsize, bool(gaussian)), 1.0)
 
 
-_device_weights: dict = {}
+def _check(name: str, planes, flow, shapes_ok: bool) -> None:
+    """Refuse, on either device, planes of mixed or other dtypes than
+    bf16/f32, a flow that is not f32, shapes that do not match
+    (`shapes_ok`, the caller's test) and a level under 2x2; on the card
+    also tensors elsewhere or not contiguous."""
+    dts = [t.dtype for t in planes]
+    if dts[0] not in PLANE_DTYPES or any(d != dts[0] for d in dts) \
+            or flow.dtype != torch.float32:
+        raise TypeError(f"{name}: planes must be all bf16 or all f32 and "
+                        f"the flow f32, got {dts} and {flow.dtype}")
+    h, w = flow.shape[-2:]
+    if not shapes_ok:
+        shapes = [tuple(t.shape) for t in planes]
+        raise ValueError(f"{name}: planes {shapes}, flow "
+                         f"{tuple(flow.shape)}")
+    if h < 2 or w < 2:
+        raise ValueError(f"{name}: the exact gather needs a level of at "
+                         f"least 2x2, got {h}x{w}")
+    if flow.device.type != "cpu":
+        for t in (*planes, flow):
+            _build.require(t, name, (t.dtype,), t.ndim)
 
 
-def _weights_on(device, winsize: int, gaussian: bool) -> torch.Tensor:
-    key = (str(device), winsize, bool(gaussian))
-    if key not in _device_weights:
-        _device_weights[key] = torch.as_tensor(
-            update_weights(winsize, bool(gaussian)), device=device)
-    return _device_weights[key]
+def _host_window(winsize: int, gaussian: bool):
+    """(taps as a C float pointer, count): the kernel copies the taps
+    into its launch parameters."""
+    wts = update_weights(winsize, bool(gaussian))
+    return wts.ctypes.data, wts.shape[0]
 
 
-def flow_update(R0, R1w, flow, winsize: int,
-                gaussian: bool = False) -> torch.Tensor:
-    """Fused M + window + solve: (5,h,w) f32 x2 + (2,h,w) -> (2,h,w)."""
-    if any(t.dtype != torch.float32 for t in (R0, R1w, flow)):
-        raise TypeError("flow_update takes f32 planes and flow (upcast "
-                        f"first): got {R0.dtype}, {R1w.dtype}, {flow.dtype}")
-    if R0.device.type == "cpu":
-        return flow_update_plain(R0, R1w, flow, winsize, gaussian)
-    for t, name in ((R0, "R0"), (R1w, "R1w"), (flow, "flow")):
-        _build.require(t, name, (torch.float32,), 3)
-    _, h, w = R0.shape
-    if R0.shape[0] != 5 or R1w.shape != R0.shape or flow.shape != (2, h, w):
-        raise ValueError(f"flow_update: R0 {tuple(R0.shape)}, R1w "
-                         f"{tuple(R1w.shape)}, flow {tuple(flow.shape)}")
-    wts = _weights_on(R0.device, winsize, gaussian)
-    M = torch.empty((5, h, w), dtype=torch.float32, device=R0.device)
-    Mv = torch.empty_like(M)
+def _launch(R0, R1, flow, winsize: int, gaussian: bool) -> torch.Tensor:
+    """kh_flow_update on one pair of checked planes."""
+    h, w = flow.shape[-2:]
+    plan = tile_plan(h, w, winsize)
+    wts, taps = _host_window(winsize, gaussian)
     out = torch.empty((2, h, w), dtype=torch.float32, device=R0.device)
     P, I = _build.P, _build.I
-    fn = _build.function("kh_flow_update", P, P, P, I, I, P, I, P, P, P, P)
-    rc = fn(R0.data_ptr(), R1w.data_ptr(), flow.data_ptr(), h, w,
-            wts.data_ptr(), wts.shape[0], M.data_ptr(), Mv.data_ptr(),
-            out.data_ptr(), _build.stream(R0))
+    fn = _build.function("kh_flow_update", P, P, I, P, I, I, P, I, I, P, P)
+    rc = fn(R0.data_ptr(), R1.data_ptr(), int(R0.dtype == torch.bfloat16),
+            flow.data_ptr(), h, w, wts, taps, plan.smem, out.data_ptr(),
+            _build.stream(R0))
     _build.check(rc, "kh_flow_update")
+    return out
+
+
+def flow_update(R0, R1, flow, winsize: int,
+                gaussian: bool = False) -> torch.Tensor:
+    """Gather + M + window + solve: (5,h,w) x2 + (2,h,w) -> (2,h,w)."""
+    h, w = flow.shape[-2:]
+    _check("flow_update", (R0, R1), flow,
+           flow.shape == (2, h, w) and R0.shape == R1.shape == (5, h, w))
+    if R0.device.type == "cpu":
+        return flow_update_plain(R0, R1, flow, winsize, gaussian)
+    out = _launch(R0, R1, flow, winsize, gaussian)
     flow_update.launches += 1
     return out
 
@@ -95,48 +119,49 @@ def flow_update(R0, R1w, flow, winsize: int,
 flow_update.launches = 0
 
 
-def flow_update_pairs_plain(Rall, R1w_b, flow_b, winsize: int,
+def flow_update_pairs_plain(Rall, flow_b, winsize: int,
                             gaussian: bool = False, clip_len: int = 0,
                             round_m: bool = False) -> torch.Tensor:
     check_pairs(Rall.shape[0], flow_b.shape[0], clip_len)
     wts = update_weights(winsize, bool(gaussian))
     return torch.stack([
-        solve_warped(Rall[p].to(torch.float32), R1w_b[b], flow_b[b], wts,
-                     1.0, round_m)
+        solve_warped(Rall[p].to(torch.float32),
+                     warp_poly_planar(Rall[p + 1], flow_b[b]), flow_b[b],
+                     wts, 1.0, round_m)
         for b, p in enumerate(pair_frames(flow_b.shape[0], clip_len))])
 
 
-def flow_update_pairs(Rall, R1w_b, flow_b, winsize: int,
-                      gaussian: bool = False, clip_len: int = 0,
-                      round_m: bool = False) -> torch.Tensor:
-    """K8 for every pair of an (N, 5, h, w) plane stack: R1w_b
-    (B, 5, h, w) and flow_b (B, 2, h, w) f32 -> (B, 2, h, w)."""
-    if Rall.device.type == "cpu":
-        return flow_update_pairs_plain(Rall, R1w_b, flow_b, winsize,
-                                       gaussian, clip_len, round_m)
-    _build.require(Rall, "Rall", PLANE_DTYPES, 4)
-    _build.require(R1w_b, "R1w_b", (torch.float32,), 4)
-    _build.require(flow_b, "flow_b", (torch.float32,), 4)
-    N, _, h, w = Rall.shape
-    B = flow_b.shape[0]
-    if (Rall.shape[1] != 5 or R1w_b.shape != (B, 5, h, w)
-            or flow_b.shape != (B, 2, h, w)):
-        raise ValueError(f"flow_update_pairs: Rall {tuple(Rall.shape)}, "
-                         f"R1w_b {tuple(R1w_b.shape)}, flow_b "
-                         f"{tuple(flow_b.shape)}")
-    check_pairs(N, B, clip_len)
-    wts = _weights_on(Rall.device, winsize, gaussian)
-    M = torch.empty((B, 5, h, w), dtype=torch.float32, device=Rall.device)
-    Mv = torch.empty_like(M)
+def _launch_pairs(Rall, flow_b, winsize: int, gaussian: bool,
+                  clip_len: int, round_m: bool) -> torch.Tensor:
+    """kh_flow_update_pairs on a checked stack and its pairs' flows."""
+    B, _, h, w = flow_b.shape
+    plan = tile_plan(h, w, winsize)
+    wts, taps = _host_window(winsize, gaussian)
     out = torch.empty((B, 2, h, w), dtype=torch.float32, device=Rall.device)
     P, I = _build.P, _build.I
-    fn = _build.function("kh_flow_update_pairs", P, I, I, I, P, P, I, I, P,
-                         I, I, P, P, P, P)
+    fn = _build.function("kh_flow_update_pairs", P, I, I, I, P, I, I, P, I,
+                         I, I, P, P)
     rc = fn(Rall.data_ptr(), int(Rall.dtype == torch.bfloat16), B,
-            max(clip_len - 1, 0), R1w_b.data_ptr(), flow_b.data_ptr(), h, w,
-            wts.data_ptr(), wts.shape[0], int(round_m), M.data_ptr(),
-            Mv.data_ptr(), out.data_ptr(), _build.stream(Rall))
+            max(clip_len - 1, 0), flow_b.data_ptr(), h, w, wts, taps,
+            int(round_m), plan.smem, out.data_ptr(), _build.stream(Rall))
     _build.check(rc, "kh_flow_update_pairs")
+    return out
+
+
+def flow_update_pairs(Rall, flow_b, winsize: int, gaussian: bool = False,
+                      clip_len: int = 0,
+                      round_m: bool = False) -> torch.Tensor:
+    """K8 for every pair of an (N, 5, h, w) plane stack: flow_b
+    (B, 2, h, w) f32 -> (B, 2, h, w)."""
+    h, w = flow_b.shape[-2:]
+    _check("flow_update_pairs", (Rall,), flow_b,
+           flow_b.ndim == 4 and flow_b.shape[1] == 2 and Rall.ndim == 4
+           and Rall.shape[1:] == (5, h, w))
+    if Rall.device.type == "cpu":
+        return flow_update_pairs_plain(Rall, flow_b, winsize, gaussian,
+                                       clip_len, round_m)
+    check_pairs(Rall.shape[0], flow_b.shape[0], clip_len)
+    out = _launch_pairs(Rall, flow_b, winsize, gaussian, clip_len, round_m)
     flow_update_pairs.launches += 1
     return out
 

@@ -8,26 +8,26 @@ through K11, then K3 on every level. Per frame pair:
 `farneback_from_pyramids` runs each level coarsest first, upsampling the
 flow by 1/pyr_scale between levels, from zeros or from a warm start
 `flow0` at the coarsest level. At `fast_warp=0` (the reference's
-`RunConfig()` default) every iteration is the exact bilinear gather of
-`warp_poly_planar`, in plain torch as the reference leaves it to XLA,
-then one K8 launch. At `fast_warp > 0`, with `fi_level_fused`, a level
-that passes K5's gate (`kernels.flow_level.fits`) runs all its
-iterations in one K5 launch; every other level runs all its iterations
-in one K13 launch with `fi_pipeline` (and iterations >= 2), else
-`iterations` K2 launches (the reference's order,
-kalman_hydra_tpu/ops/farneback.py:466-499).
+`RunConfig()` default) every iteration is one K8 launch, the exact
+bilinear gather of the unwarped planes included (the reference gathers
+in XLA, `_warp_poly_planar`, then runs its Pallas kernel; the plain
+gather is `ops.warp.warp_poly_planar`). At `fast_warp > 0`, with
+`fi_level_fused`, a level that passes K5's gate
+(`kernels.flow_level.fits`) runs all its iterations in one K5 launch;
+every other level runs all its iterations in one K13 launch with
+`fi_pipeline` (and iterations >= 2), else `iterations` K2 launches (the
+reference's order, kalman_hydra_tpu/ops/farneback.py:466-499).
 
 The pair-batched twins serve a whole clip, or several chained clips, at
 once: `polyexp_pyramid_batch` expands every frame in one K7b and one K7a
 launch (per frame at `pe_fused=False`), and
 `farneback_pairs_from_pyramids` runs each iteration of a level as one K6
-launch over all frame pairs at fast_warp > 0; at fast_warp = 0 as the
-exact gather of every pair (plain torch, batched) then one K8-pairs
-launch (the reference vmaps plain XLA there; it has no K5 or K13 branch
-on the pair path either). The whole stack stays
-on the card; the TPU's chunks of at most 33 frames (a VMEM limit) are not
-ported. Flow is carried planar, (2, lh, lw); the public result is
-(H, W, 2).
+launch over all frame pairs at fast_warp > 0; at fast_warp = 0 as one
+K8-pairs launch, the gather included (the reference vmaps plain XLA
+there; it has no K5 or K13 branch on the pair path either). The whole
+stack stays on the card; the TPU's chunks of at most 33 frames (a VMEM
+limit) are not ported. Flow is carried planar, (2, lh, lw); the public
+result is (H, W, 2).
 """
 
 from __future__ import annotations
@@ -38,8 +38,7 @@ import torch
 
 from ..config import FlowConfig
 from ..kernels.flow_iter import (flow_iter, flow_iter_pairs,
-                                 flow_iters_pipelined, pair_count,
-                                 pair_frames)
+                                 flow_iters_pipelined, pair_count)
 from ..kernels.flow_level import fits, flow_level
 from ..kernels.flow_update import flow_update, flow_update_pairs
 from ..kernels.level_image import (coarse_level_images, coarse_polyexp_fused,
@@ -69,33 +68,6 @@ def polyexp_pyramid(img: torch.Tensor,
     return tuple(coarse) + (poly_expansion_planar(img0, n, s, out_dtype=dt),)
 
 
-def warp_poly_planar(R1: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Exact bilinear warp of (..., 5, h, w) planes by a (..., 2, h, w)
-    flow (one leading pair dimension or none): the sample point is
-    clamped to the image, its top-left corner to [0, w - 2] x [0, h - 2]
-    (so the last column lerps with ax = 1). bf16 planes are promoted to
-    f32 by the f32 weights."""
-    h, w = R1.shape[-2], R1.shape[-1]
-    dev = R1.device
-    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    fx = torch.clamp(xs + flow[..., 0, :, :], 0.0, w - 1.0)
-    fy = torch.clamp(ys + flow[..., 1, :, :], 0.0, h - 1.0)
-    x0 = torch.clamp(torch.floor(fx), 0, w - 2).to(torch.int64)
-    y0 = torch.clamp(torch.floor(fy), 0, h - 2).to(torch.int64)
-    ax = (fx - x0.to(torch.float32)).unsqueeze(-3)
-    ay = (fy - y0.to(torch.float32)).unsqueeze(-3)
-    flat = R1.flatten(-2)
-    base = (y0 * w + x0).flatten(-2).unsqueeze(-2).expand(flat.shape)
-
-    def corner(offset):
-        i = base if offset == 0 else base + offset
-        return flat.gather(-1, i).unflatten(-1, (h, w))
-
-    return (corner(0) * (1 - ax) * (1 - ay) + corner(1) * ax * (1 - ay)
-            + corner(w) * (1 - ax) * ay + corner(w + 1) * ax * ay)
-
-
 def farneback_from_pyramids(Rs_a, Rs_b, cfg: FlowConfig,
                             flow0: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
@@ -114,10 +86,9 @@ def farneback_from_pyramids(Rs_a, Rs_b, cfg: FlowConfig,
             flow_p = torch.zeros((2, lh, lw), dtype=torch.float32,
                                  device=R0.device)
         if cfg.fast_warp <= 0:
-            R0f = R0.to(torch.float32)
             for _ in range(cfg.iterations):
-                flow_p = flow_update(R0f, warp_poly_planar(R1, flow_p),
-                                     flow_p, cfg.winsize, cfg.gaussian_win)
+                flow_p = flow_update(R0, R1, flow_p, cfg.winsize,
+                                     cfg.gaussian_win)
         elif cfg.fi_level_fused and fits(lh, lw, R0.element_size()):
             flow_p = flow_level(R0, R1, flow_p, cfg.winsize, cfg.fast_warp,
                                 cfg.iterations, cfg.gaussian_win)
@@ -166,13 +137,10 @@ def farneback_pairs_from_pyramids(Rs_all, cfg: FlowConfig,
     of T frames (N = C T, B = C (T - 1)). At fast_warp > 0 per pair the
     same values as `farneback_from_pyramids` at fi_level_fused=False and
     fi_pipeline=False (the reference's pair path has no whole-level or
-    pipelined kernel). At fast_warp = 0 each iteration is the batched
-    exact gather and one K8-pairs launch, M rounded to bf16 with bf16
+    pipelined kernel). At fast_warp = 0 each iteration is one K8-pairs
+    launch (the exact gather in the kernel), M rounded to bf16 with bf16
     planes as the reference's update_matrices_p stores it."""
     B = pair_count(Rs_all[0].shape[0], clip_len)
-    if cfg.fast_warp <= 0:      # each pair's second frame, for the gather
-        second = torch.as_tensor(pair_frames(B, clip_len),
-                                 device=Rs_all[0].device) + 1
     flow_b = None
     for Rl in Rs_all:
         lh, lw = Rl.shape[2], Rl.shape[3]
@@ -182,12 +150,10 @@ def farneback_pairs_from_pyramids(Rs_all, cfg: FlowConfig,
         else:
             flow_b = resize_linear(flow_b, lh, lw) * (1.0 / cfg.pyr_scale)
         if cfg.fast_warp <= 0:
-            R1s = Rl.index_select(0, second)
             for _ in range(cfg.iterations):
-                flow_b = flow_update_pairs(
-                    Rl, warp_poly_planar(R1s, flow_b), flow_b, cfg.winsize,
-                    cfg.gaussian_win, clip_len,
-                    round_m=Rl.dtype == torch.bfloat16)
+                flow_b = flow_update_pairs(Rl, flow_b, cfg.winsize,
+                                           cfg.gaussian_win, clip_len,
+                                           round_m=Rl.dtype == torch.bfloat16)
             continue
         for _ in range(cfg.iterations):
             flow_b = flow_iter_pairs(Rl, flow_b, cfg.winsize, cfg.fast_warp,

@@ -1,7 +1,10 @@
 """Bilinear sampling and warping (port of kalman_hydra_tpu/ops/warp.py,
-and of the fast warp's contract, ops/farneback.py::_warp_poly_selectsum):
-sample_flow (and with its Jacobian, for the implicit-flow EKF), the
-row-stacked plane sampler of the photometric channel, dense warps.
+and of the fast warp's contract, ops/farneback.py::_warp_poly_selectsum,
+and the exact warp, ::_warp_poly_planar): sample_flow (and with its
+Jacobian, for the implicit-flow EKF), the row-stacked plane sampler of
+the photometric channel, dense warps, and the plain versions of the
+select-sum warp (K2's) and the exact gather of the polyexp planes
+(K8's).
 
 Coordinate convention: (x, y) with x = column, matching OpenCV. Samples
 outside the image clamp to the border pixel.
@@ -117,3 +120,30 @@ def bilinear_sample_rows(planes: torch.Tensor, h: int, w: int,
 
     return (g(base) * (1 - fx) * (1 - fy) + g(base + 1) * fx * (1 - fy)
             + g(base + w) * (1 - fx) * fy + g(base + w + 1) * fx * fy)
+
+
+def warp_poly_planar(R1: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Exact bilinear warp of (..., 5, h, w) planes by a (..., 2, h, w)
+    flow (one leading pair dimension or none): the sample point is
+    clamped to the image, its top-left corner to [0, w - 2] x [0, h - 2]
+    (so the last column lerps with ax = 1). bf16 planes are promoted to
+    f32 by the f32 weights."""
+    h, w = R1.shape[-2], R1.shape[-1]
+    dev = R1.device
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    fx = torch.clamp(xs + flow[..., 0, :, :], 0.0, w - 1.0)
+    fy = torch.clamp(ys + flow[..., 1, :, :], 0.0, h - 1.0)
+    x0 = torch.clamp(torch.floor(fx), 0, w - 2).to(torch.int64)
+    y0 = torch.clamp(torch.floor(fy), 0, h - 2).to(torch.int64)
+    ax = (fx - x0.to(torch.float32)).unsqueeze(-3)
+    ay = (fy - y0.to(torch.float32)).unsqueeze(-3)
+    flat = R1.flatten(-2)
+    base = (y0 * w + x0).flatten(-2).unsqueeze(-2).expand(flat.shape)
+
+    def corner(offset):
+        i = base if offset == 0 else base + offset
+        return flat.gather(-1, i).unflatten(-1, (h, w))
+
+    return (corner(0) * (1 - ax) * (1 - ay) + corner(1) * ax * (1 - ay)
+            + corner(w) * (1 - ax) * ay + corner(w + 1) * ax * ay)

@@ -1,6 +1,6 @@
 """The exact-warp Farneback of the reference's default configuration
 against the JAX reference (Pallas in interpret mode on the CPU): K8
-(flow_update) and the exact gather, K11 (the level images alone), the
+(flow_update, the exact gather included) and the gather alone, K11 (the level images alone), the
 Farneback levels at fast_warp=0 with and without a warm start, and the
 public `api.flow` (Farneback, and dense LK).
 
@@ -28,6 +28,7 @@ from kalman_hydra_tpu_torch.kernels.level_image import \
     coarse_level_images_plain
 from kalman_hydra_tpu_torch.ops import farneback as TFB
 from kalman_hydra_tpu_torch.ops.pyramid import gaussian_blur_level
+from kalman_hydra_tpu_torch.ops.warp import warp_poly_planar
 
 
 def _np(a):
@@ -44,33 +45,49 @@ def _planes(rng, h, w):
     return FB.poly_expansion_p(jnp.asarray(a), 5, 1.1)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("gaussian", [False, True])
-def test_flow_update_matches_pallas(gaussian, rng):
-    """K8's plain version vs the Pallas kernel at 96x128, on the exact
-    gather of random planes by a random +-2 px flow: < 1e-4."""
+def test_flow_update_matches_pallas(gaussian, dtype, rng):
+    """K8's plain version vs the Pallas kernel at 96x128, f32 and bf16
+    planes, a random +-2 px flow: the port gets the unwarped R1 (the
+    gather is in K8), the Pallas kernel gets _warp_poly_planar(R1, flow)
+    in f32, as the reference's Farneback calls it
+    (ops/farneback.py:521-528): < 1e-4."""
     h, w = 96, 128
-    R0, R1 = _planes(rng, h, w), _planes(rng, h, w)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    R0, R1 = _planes(rng, h, w).astype(jdt), _planes(rng, h, w).astype(jdt)
     flow = jnp.asarray(rng.uniform(-2, 2, (2, h, w)).astype(np.float32))
-    R1w = FB._warp_poly_planar(R1, flow)
-    ref = np.asarray(flow_update_pl(R0, R1w, flow, 15, gaussian,
-                                    interpret=True))
-    got = flow_update(_t(R0), _t(R1w), _t(flow), 15, gaussian)
+    R1w = FB._warp_poly_planar(R1, flow).astype(jnp.float32)
+    ref = np.asarray(flow_update_pl(R0.astype(jnp.float32), R1w, flow, 15,
+                                    gaussian, interpret=True))
+    tdt = getattr(torch, dtype)
+    args = (_t(R0, tdt), _t(R1, tdt), _t(flow))
+    got = flow_update(*args, 15, gaussian)
     assert got.shape == (2, h, w) and got.dtype == torch.float32
     assert np.abs(got.numpy() - ref).max() < 1e-4
     # the wrapper on a CPU tensor is exactly its plain version
-    assert torch.equal(got, flow_update_plain(_t(R0), _t(R1w), _t(flow),
-                                              15, gaussian))
+    assert torch.equal(got, flow_update_plain(*args, 15, gaussian))
 
 
 def test_flow_update_refuses_bf16():
-    """The TPU kernel is f32 only, and so is K8: bf16 planes raise (the
-    caller upcasts)."""
+    """K8 takes bf16 or f32 planes, both of one dtype, and an f32 flow:
+    bf16 against f32 planes, a bf16 flow, and planes or a flow of the
+    wrong shape (or a level under 2x2, which the gather cannot take) are
+    refused on the CPU as on the card."""
     R = torch.zeros(5, 16, 16)
     fl = torch.zeros(2, 16, 16)
-    with pytest.raises(TypeError, match="f32"):
+    with pytest.raises(TypeError, match="all bf16 or all f32"):
         flow_update(R.to(torch.bfloat16), R, fl, 15)
-    with pytest.raises(TypeError, match="f32"):
+    with pytest.raises(TypeError, match="all bf16 or all f32"):
         flow_update(R, R.to(torch.bfloat16), fl, 15)
+    with pytest.raises(TypeError, match="flow f32"):
+        flow_update(R, R, fl.to(torch.bfloat16), 15)
+    for a, b, f in ((R[:4], R[:4], fl), (R, R[:, :15], fl),
+                    (R, R, fl[:, :15]), (R, R, fl[:1])):
+        with pytest.raises(ValueError, match="planes"):
+            flow_update(a, b, f, 15)
+    with pytest.raises(ValueError, match="2x2"):
+        flow_update(R[:, :1], R[:, :1], fl[:, :1], 15)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -84,8 +101,8 @@ def test_exact_warp_matches_reference(dtype, rng):
     flow = rng.uniform(-40, 40, (2, h, w)).astype(np.float32)
     flow[:, :4] = np.array([0.0, h - 1.0])[:, None, None]      # onto the edge
     ref = np.asarray(FB._warp_poly_planar(R1, jnp.asarray(flow)))
-    got = TFB.warp_poly_planar(_t(R1, getattr(torch, dtype)),
-                               torch.from_numpy(flow))
+    got = warp_poly_planar(_t(R1, getattr(torch, dtype)),
+                           torch.from_numpy(flow))
     assert got.dtype == torch.float32
     assert np.abs(got.numpy() - ref).max() < 1e-5
 

@@ -1,9 +1,10 @@
-"""The fused Farneback iteration of K2, K6 and K13 (csrc/flow_tile.cuh):
-the wrappers' tile and shared-memory plan, their C calls, and K13's work
-order and wait set.
+"""The fused Farneback iteration of K2, K6, K8, K8-pairs and K13
+(csrc/flow_tile.cuh): the wrappers' tile and shared-memory plan, their C
+calls, K13's work order and wait set, and a NumPy model of K8's exact
+gather (csrc/flow_iter.cuh::exact_warp) against its plain version.
 
 The CUDA kernels run only on the card, where chip_smoke.py holds them to
-their plain versions and to the old three-launch K2 bit for bit; these
+their plain versions and to the routes they replaced bit for bit; these
 tests pin, on the CPU, the Python side the wrappers pass to the kernels."""
 
 import ctypes
@@ -11,6 +12,7 @@ import importlib
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,8 +21,10 @@ from kalman_hydra_tpu_torch.kernels.flow_iter import (
     MAX_TAPS, SMEM_LIMIT, STATIC_SMEM, TILE, pipe_dt, pipe_items, pipe_skew,
     pipe_waits, tile_plan)
 
-# the module (the package's `flow_iter` is the wrapper function)
+# the modules (the package's `flow_iter` and `flow_update` are the
+# wrapper functions)
 fi = importlib.import_module("kalman_hydra_tpu_torch.kernels.flow_iter")
+fu = importlib.import_module("kalman_hydra_tpu_torch.kernels.flow_update")
 CSRC = Path(fi.__file__).resolve().parent.parent / "csrc"
 
 SHAPES = ((1, 5), (20, 30), (37, 53), (1079, 1919))
@@ -132,6 +136,157 @@ def test_the_wrappers_call_the_c_interface_as_declared(monkeypatch, name,
     assert list(argtypes) == _c_signature(source, name)
     assert len(args) == len(argtypes)
     assert tile_plan(h, w, 15).smem in args
+
+
+def _record_calls(monkeypatch):
+    """Replace the library with a recorder: each C call returns 0 and
+    lands in the returned list as (name, argtypes, args)."""
+    calls = []
+
+    def function(fname, *argtypes):
+        def fn(*args):
+            calls.append((fname, argtypes, args))
+            return 0
+        return fn
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(_build, "stream", lambda t: 0)
+    return calls
+
+
+@pytest.mark.parametrize("gaussian", (False, True))
+@pytest.mark.parametrize("winsize", (5, 15, 31))
+@pytest.mark.parametrize("name", ("kh_flow_update", "kh_flow_update_pairs"))
+def test_k8_wrappers_call_the_c_interface_as_declared(monkeypatch, name,
+                                                      winsize, gaussian):
+    """K8's and K8-pairs' launchers, run on CPU tensors with the library
+    call recorded, declare the argument types of csrc/flow_update.cu's
+    signature, pass the planes unwarped with no M, Mv or R1w scratch,
+    their plan's shared memory at K8's windows, and K8's own taps
+    (update_weights) in host memory."""
+    calls = _record_calls(monkeypatch)
+    h, w = 37, 53
+    if name == "kh_flow_update":
+        R0 = torch.zeros(5, h, w, dtype=torch.bfloat16)
+        fu._launch(R0, R0.clone(), torch.zeros(2, h, w), winsize, gaussian)
+    else:
+        Rall = torch.zeros(6, 5, h, w)
+        fu._launch_pairs(Rall, torch.zeros(4, 2, h, w), winsize, gaussian,
+                         3, True)
+    (fname, argtypes, args), = calls
+    assert fname == name
+    assert list(argtypes) == _c_signature("flow_update.cu", name)
+    assert len(args) == len(argtypes)
+    plan = tile_plan(h, w, winsize)
+    wts = fu.update_weights(winsize, gaussian)
+    if name == "kh_flow_update":
+        _, _, bf16, _, hh, ww, ptr, taps, smem, _, _ = args
+        assert bf16 == 1
+    else:
+        _, bf16, pairs, ppc, _, hh, ww, ptr, taps, round_m, smem, _, _ = args
+        assert (bf16, pairs, ppc, round_m) == (0, 4, 2, 1)
+    assert (hh, ww, smem) == (h, w, plan.smem)
+    assert taps == plan.taps == len(wts) == 2 * (winsize // 2) + 1
+    got = np.ctypeslib.as_array((ctypes.c_float * taps).from_address(ptr))
+    assert np.array_equal(got, wts)
+
+
+def _exact_warp_np(R1, dx, dy):
+    """csrc/flow_iter.cuh::exact_warp statement for statement, in NumPy
+    float32 over every pixel at once: each op rounds on its own, as the
+    kernel's __f*_rn intrinsics do, and the sum runs left to right."""
+    f32 = np.float32
+    _, h, w = R1.shape
+    r = np.arange(h, dtype=np.int32)[:, None]
+    c = np.arange(w, dtype=np.int32)[None, :]
+    fx = np.minimum(np.maximum(c.astype(f32) + dx, f32(0)), f32(w - 1))
+    fy = np.minimum(np.maximum(r.astype(f32) + dy, f32(0)), f32(h - 1))
+    x0 = np.clip(np.floor(fx).astype(np.int32), 0, w - 2)
+    y0 = np.clip(np.floor(fy).astype(np.int32), 0, h - 2)
+    ax = fx - x0.astype(f32)
+    ay = fy - y0.astype(f32)
+    bx = f32(1) - ax
+    by = f32(1) - ay
+    c00, c01 = R1[:, y0, x0], R1[:, y0, x0 + 1]
+    c10, c11 = R1[:, y0 + 1, x0], R1[:, y0 + 1, x0 + 1]
+    acc = (c00 * bx) * by
+    acc = acc + (c01 * ax) * by
+    acc = acc + (c10 * bx) * ay
+    return acc + (c11 * ax) * ay
+
+
+def _edge_flow(rng, h, w):
+    """A random flow of up to twice the level's size, with pixels sent
+    exactly onto the last row and column, just short of them, off every
+    edge by a fraction, and onto the first row and column."""
+    f32 = np.float32
+    fl = rng.uniform(-2 * max(h, w), 2 * max(h, w), (2, h, w)).astype(f32)
+    r = np.arange(h, dtype=f32)[:, None] + np.zeros((1, w), f32)
+    c = np.arange(w, dtype=f32)[None, :] + np.zeros((h, 1), f32)
+    kind = (np.arange(h * w) % 7).reshape(h, w)
+    to = {1: ((w - 1) - c, (h - 1) - r),                 # the last pixel
+          2: ((w - 1) - c - f32(0.25), (h - 1) - r - f32(1e-3)),
+          3: (-c - f32(0.75), -r - f32(2.5)),             # off the top left
+          4: ((w - 1) - c + f32(0.5), (h - 1) - r + f32(3.25)),
+          5: (-c, -r)}                                    # the first pixel
+    for k, (dx, dy) in to.items():
+        fl[0][kind == k] = dx[kind == k]
+        fl[1][kind == k] = dy[kind == k]
+    return fl
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("h,w", ((2, 2), (37, 53), (70, 90)))
+def test_exact_warp_model_is_the_plain_gather_bit_for_bit(h, w, dtype):
+    """A NumPy float32 model of K8's in-kernel gather, each op rounded
+    on its own, equals the plain gather (ops.warp.warp_poly_planar, the
+    parent route's gather) bit for bit, f32 and bf16 planes, with
+    samples off every edge and onto the last row and column."""
+    from kalman_hydra_tpu_torch.ops.warp import warp_poly_planar
+    rng = np.random.default_rng(h * 1000 + w)
+    R1 = torch.from_numpy(rng.normal(size=(5, h, w)).astype(np.float32)
+                          * 50).to(getattr(torch, dtype))
+    fl = _edge_flow(rng, h, w)
+    want = warp_poly_planar(R1, torch.from_numpy(fl)).numpy()
+    got = _exact_warp_np(R1.float().numpy(), fl[0], fl[1])
+    assert got.dtype == want.dtype == np.float32
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("pairs", (False, True))
+def test_the_exact_path_calls_only_the_kernel_wrappers(monkeypatch, pairs):
+    """At fast_warp=0 ops.farneback hands K8 (K8-pairs) the unwarped
+    planes and calls no gather of its own: every iteration is one wrapper
+    call on the level's planes (the stack, for pairs)."""
+    from kalman_hydra_tpu_torch.config import FlowConfig
+    from kalman_hydra_tpu_torch.ops import farneback as fb
+    from kalman_hydra_tpu_torch.ops import warp
+
+    def no_gather(*a, **k):
+        raise AssertionError("the ops layer gathered")
+    monkeypatch.setattr(warp, "warp_poly_planar", no_gather)
+    seen = []
+
+    def k8(R0, R1, flow, *a):
+        seen.append((R0.data_ptr(), R1.data_ptr(), R0.shape))
+        return flow
+
+    def k8_pairs(Rl, flow_b, *a, **k):
+        seen.append((Rl.data_ptr(), Rl.shape))
+        return flow_b
+    monkeypatch.setattr(fb, "flow_update", k8)
+    monkeypatch.setattr(fb, "flow_update_pairs", k8_pairs)
+    cfg = FlowConfig(levels=2, iterations=3)
+    assert cfg.fast_warp == 0
+    levels = [torch.randn(3, 5, 12, 16), torch.randn(3, 5, 24, 32)]
+    if pairs:
+        fb.farneback_pairs_from_pyramids(levels, cfg)
+        want = [(lv.data_ptr(), lv.shape) for lv in levels]
+    else:
+        fb.farneback_from_pyramids([lv[0] for lv in levels],
+                                   [lv[1] for lv in levels], cfg)
+        want = [(lv[0].data_ptr(), lv[1].data_ptr(), lv[0].shape)
+                for lv in levels]
+    assert seen == [x for x in want for _ in range(3)]
 
 
 PIPE_SHAPES = [(n, nb, nt, dt, skew) for n in (2, 3, 5)

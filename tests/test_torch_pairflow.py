@@ -37,7 +37,8 @@ from kalman_hydra_tpu_torch.kernels import (coarse_polyexp_fused_batch,
                                             poly_expansion_planar_batch)
 from kalman_hydra_tpu_torch.kernels.flow_update import flow_update_plain
 from kalman_hydra_tpu_torch.ops.farneback import (
-    farneback_pairs_from_pyramids, warp_poly_planar)
+    farneback_pairs_from_pyramids)
+from kalman_hydra_tpu_torch.ops.warp import warp_poly_planar
 
 
 def _np(a):
@@ -201,27 +202,26 @@ def test_pair_path_equals_per_frame_path_on_long_clips(T, reinit_every):
 @pytest.mark.parametrize("clip_len", [0, 3])
 def test_flow_update_pairs_is_per_pair_flow_update(clip_len, rng):
     """K8-pairs' plain version equals per-pair K8 bit for bit (f32, no
-    rounding), pair b reading frame p of the stack; with round_m it
-    rounds M to bf16 (a different, close result); a wrong pair count is
-    refused."""
+    rounding), pair b reading frames p and p + 1 of the stack, the gather
+    in K8; with round_m it rounds M to bf16 (a different, close result);
+    a wrong pair count is refused."""
     N, h, w = 6, 20, 28
     Rall = torch.from_numpy(rng.normal(size=(N, 5, h, w)).astype(
         np.float32))
     B = N - 1 if not clip_len else (N // clip_len) * (clip_len - 1)
-    R1w = torch.from_numpy(rng.normal(size=(B, 5, h, w)).astype(np.float32))
     fl = torch.from_numpy(rng.uniform(-3, 3, (B, 2, h, w)).astype(
         np.float32))
-    got = flow_update_pairs(Rall, R1w, fl, 15, False, clip_len)
+    got = flow_update_pairs(Rall, fl, 15, False, clip_len)
     frames = [b + b // (clip_len - 1) if clip_len else b for b in range(B)]
-    want = torch.stack([flow_update_plain(Rall[p], R1w[b], fl[b], 15)
+    want = torch.stack([flow_update_plain(Rall[p], Rall[p + 1], fl[b], 15)
                         for b, p in enumerate(frames)])
     assert torch.equal(got, want)
-    rounded = flow_update_pairs(Rall, R1w, fl, 15, False, clip_len,
+    rounded = flow_update_pairs(Rall, fl, 15, False, clip_len,
                                 round_m=True)
     assert not torch.equal(rounded, got)
     assert (rounded - got).abs().max().item() < 0.1
     with pytest.raises(ValueError, match="pairs"):
-        flow_update_pairs(Rall, R1w[:-1], fl[:-1], 15, False, clip_len)
+        flow_update_pairs(Rall, fl[:-1], 15, False, clip_len)
 
 
 def test_warp_poly_planar_batched_is_per_pair(rng):

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Frames/s of the port's paths A, B and AP for two checkouts, in turns.
+"""Frames/s of the port's paths A, B, AP, D and BX for two checkouts, in
+turns.
 
     python3 tools/torch_ab_turns.py OLD_ROOT NEW_ROOT [--turns 4]
 
@@ -22,7 +23,7 @@ import sys
 import time
 from pathlib import Path
 
-PATHS = ("A", "B", "AP")
+PATHS = ("A", "B", "AP", "D", "BX")
 
 
 def child(root: str) -> None:
@@ -39,7 +40,8 @@ def child(root: str) -> None:
     clip = smoke.blob_clip(smoke.T, smoke.H, smoke.W)
     clip_b = smoke.blob_clip(smoke.T_B, smoke.H_B, smoke.W_B)
     runs = {"A": (clip, cfgs["A"]), "B": (clip_b, cfgs["B"]),
-            "AP": (clip, cfgs["AP"])}
+            "AP": (clip, cfgs["AP"]), "D": (clip, cfgs["D"]),
+            "BX": (clip_b, cfgs["BX"])}
     out = {}
     for name, (c, cfg) in runs.items():
         api.track_video(c, cfg, device=dev)          # build and warm up
