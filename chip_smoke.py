@@ -8,7 +8,8 @@ prints no result line):
   1. require CUDA and the port of this checkout; print the card's name
      and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc, one process per source
-     (build time printed);
+     (build time printed); count the device kernels of one call of K4,
+     K7b and K12's walk under torch.profiler (one each);
   3. hold each kernel against its plain PyTorch version on the card at
      the shapes its path gives it, with the stated bars, and each batched
      kernel against its per-item kernel (bit for bit; K5 and K13 against
@@ -18,7 +19,12 @@ prints no result line):
      (K2_WITNESS) and against K5 at one iteration, and K8 and K8-pairs,
      the exact gather in the kernel, against the output bytes of the
      parent route they replaced, the plain gather then the three-launch
-     kernel (K8_WITNESS); hold
+     kernel (K8_WITNESS), K7b and K4 in one launch against the bytes of
+     the 15-launch route they replaced and K3 against its own
+     (K7B_WITNESS), and K12's walk (one launch a frame step) and its
+     one-level launch against the points and status of the per-level
+     route they replaced (K12_WITNESS) and the walk against that route on
+     the card (bit for bit) and its plain version; hold
      api.flow and pipeline.track_clip against the OpenCV oracle's
      tests/golden/oracle_v1.npz;
   4. time each kernel, its plain version and, where one PyTorch call
@@ -46,7 +52,8 @@ prints no result line):
        G. bench cfg2's pixel-KF stage through api.flow_sequence(smooth=
           True), 480x854 T=33;
        H. bench --sparse through api.track_video: sparse LK at 1080x1920
-          T=9, K=1024, lk_block_halo 8 (K12's block window), 6-state;
+          T=9, K=1024, lk_block_halo 8 (K12's block window), 6-state, one
+          K12 launch a frame step;
        H0. api.track_video with RunConfig(flow=FlowConfig(method=
           "lk_sparse")): the reference's LK defaults (halo 0, K12's exact
           window, 4-state, K=256), 1080x1920 T=9;
@@ -177,6 +184,26 @@ def device_ms(fn, reps: int = 20):
              if e.device_type == DeviceType.CUDA
              and e.name != "Activity Buffer Request")
     return us / 1e3 / reps, "profiler"
+
+
+def device_launches(fn) -> list:
+    """The device kernels one warm call of fn launches, as torch.profiler
+    records them: [(name, microseconds)] in order (copies and memsets
+    left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.name != "Activity Buffer Request"
+                  and not e.name.startswith("Mem")),
+                 key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in evs]
 
 
 def time_turns(fns: dict, reps: int = 20) -> dict:
@@ -394,6 +421,190 @@ def check_k4(dev, gray, cfg, results):
         reps=10)
     record(results, "coarse_polyexp_fused", max(errs), ms["kernel"],
            ms["plain"], k4_bytes(H, W, f, 2), k4_flops(H, W, f), dev=ms)
+
+
+# sha256 of the output bytes of the route that K7b and K4 replaced (commit
+# 1d94c6b: per coarse level a vertical, a horizontal and a K3 launch,
+# with the tmp and lvl scratch in device memory), over each level's
+# output in plan order, on k7b_witness_case's inputs; "K3" keys hold K3's
+# own bytes, which the shared polyexp tile body must not move. Computed
+# by tools/torch_level_lk_ab.py on that commit, on an NVIDIA H100 80GB
+# HBM3. 37x53 has no coarse level at any level count (OpenCV's 32-pixel
+# floor), so 148x212 at 3 levels stands for it: coarse levels 37x53 and
+# 74x106.
+K7B_WITNESS = {
+    "K7b 1080x1920 N=2 float32 n5":
+        "e4902c6dae10942dc92c324240874a054605d2b9f726d398e78b65cf01eb2f14",
+    "K4 1080x1920 N=1 float32 n5":
+        "b21a59dd01fdaa4b686855bd37d076cade562cd416df8e6aa93c2e2cdf4dbc88",
+    "K7b 1080x1920 N=2 float32 n7":
+        "5a317db662a80f18080281f8077b1c719ace1bcead20eb80f07adc2da963c0b2",
+    "K4 1080x1920 N=1 float32 n7":
+        "6db4f3e6ebadf0898395f2a1b56c409063a2ac17e78f3f119e3ebe4c355becd0",
+    "K7b 1080x1920 N=2 bfloat16 n5":
+        "9d0b01e205d02c833f346a18184986e81bf63e92cd289752a4d2a13280643f8f",
+    "K4 1080x1920 N=1 bfloat16 n5":
+        "4028a7d00b4c77f6b477c7f31e5b6eb228412491f1a3a9e7686042e64cf0aa53",
+    "K7b 1080x1920 N=2 bfloat16 n7":
+        "b79463fd79657e2b5edb4e8fae91881d1e70095cc894f02bae8815a6195d8939",
+    "K4 1080x1920 N=1 bfloat16 n7":
+        "1930c3742b57004d6ea6a4683c356d78bb9e60657e946b8ca0295af2552d5be4",
+    "K7b 720x1280 N=2 float32 n5":
+        "7c1b59bf9e68eb98cc91dc7a49ba408f1c9bfad931b0f5c0af696145d4d50570",
+    "K4 720x1280 N=1 float32 n5":
+        "18d6fedb22203271933d9801bcb1bf38992b9932bacf796110363467cdda17d8",
+    "K7b 720x1280 N=2 float32 n7":
+        "b5658d614d4eb147b7785e086b60b37eeab9b3f35d3415e9aba1cc0143cea755",
+    "K4 720x1280 N=1 float32 n7":
+        "1fa04bd61ac6333ebdf733ec67a423ac4824fb66add4737eb8fd1da9ad20d390",
+    "K7b 720x1280 N=2 bfloat16 n5":
+        "47bcd4ccc989b3af7223f0d9ae1b4a55d5c2a860a7bd5b7f20e8d41a77839145",
+    "K4 720x1280 N=1 bfloat16 n5":
+        "8ce947fefdc28d36578e878a9b962bf80a3e321e82d54422cba6f74572ce7df1",
+    "K7b 720x1280 N=2 bfloat16 n7":
+        "b69b3c91e82eb41179ff339959d7d6e969d27adb02587255c6ccbdc2250c01ea",
+    "K4 720x1280 N=1 bfloat16 n7":
+        "d734b5e375dcfb2ef902dbc3d0012aa6ed2078805e163043cbbcad1264706f52",
+    "K7b 148x212 N=3 float32 n5":
+        "342eca6c79fff810cf7b31ac19bb6c03f8183890f44b36d6d2a7e5dc8878c6d4",
+    "K4 148x212 N=1 float32 n5":
+        "8e8710171c1c4ea4b2379bfa52f79287b7276bed840045cbbde6fd5e65237efd",
+    "K7b 148x212 N=3 float32 n7":
+        "046360cf5d0e13f926e87bd5226ffe31ac6e05af80c2d293402deb7ccb27975c",
+    "K4 148x212 N=1 float32 n7":
+        "e1dea1ae439987b2405a81919de96f43b94539decf0131b266d3cbdc245cbf81",
+    "K7b 148x212 N=3 bfloat16 n5":
+        "d0a9add86811f49fca9f557394cd756ae5b5c6c55142539a5d5ab124cdc612a5",
+    "K4 148x212 N=1 bfloat16 n5":
+        "b9a1bb20f89c8b25199d779529df11a58eb4aaaa809b0c75870d0970679ad2e6",
+    "K7b 148x212 N=3 bfloat16 n7":
+        "4c4080b4282d7200cdf8d9a6a6a45d613249e5b83594ad4cc4e368602a15b048",
+    "K4 148x212 N=1 bfloat16 n7":
+        "c0c921f24befa180322b8536e9a18cf4466b7434dcab3fab6a0c0723b5a97818",
+    "K3 1080x1920 N=1 float32 n5":
+        "83023a48b9e9be3e8157f35d50017ffd6957c322d20981472537ec922677cbab",
+    "K3 1080x1920 N=1 float32 n7":
+        "7771ed2d007f33c48a75f7622dfa1c43fd6024cec6717c261ace21f52cd80ff1",
+    "K3 1080x1920 N=1 bfloat16 n5":
+        "1c46208a5e73f590f23c4a6caa5fa3d378ab2f19994223af858e9591af1f36bd",
+    "K3 1080x1920 N=1 bfloat16 n7":
+        "8f6750aebd8756764209c65465df168a406037d033e2ac0f5da4784185f948a1",
+}
+K7B_SHAPES = {(1080, 1920): (2, 5), (720, 1280): (2, 5), (148, 212): (3, 3)}
+POLY_SIGMA = {5: 1.1, 7: 1.5}
+
+
+def k7b_witness_keys() -> list:
+    keys = []
+    for (h, w), (nf, _lv) in K7B_SHAPES.items():
+        for dt in ("float32", "bfloat16"):
+            for n in (5, 7):
+                keys += [f"K7b {h}x{w} N={nf} {dt} n{n}",
+                         f"K4 {h}x{w} N=1 {dt} n{n}"]
+    return keys + [f"K3 1080x1920 N=1 {dt} n{n}"
+                   for dt in ("float32", "bfloat16") for n in (5, 7)]
+
+
+def k7b_witness_case(key, dev):
+    """The inputs of a K7B_WITNESS key, "<K7b|K4|K3> <h>x<w> N=<frames>
+    <dtype> n<poly_n>": (kind, (N, h, w) f32 frames on dev (K4 and K3
+    take frame 0 of the shape's K7b stack), (levels, pyr_scale, poly_n,
+    poly_sigma), out dtype). The frames are u8-scale uniform noise from
+    numpy's legacy generator (the same numbers on every machine)."""
+    kind, shape, frames, dt, pn = key.split()
+    h, w = map(int, shape.split("x"))
+    nf, levels = K7B_SHAPES[(h, w)]
+    n = int(pn[1:])
+    rs = np.random.RandomState(9)
+    imgs = (rs.random_sample((nf, h, w)) * 255).astype(np.float32)
+    imgs = torch.from_numpy(imgs[:int(frames[2:])]).to(dev)
+    return kind, imgs, (levels, 0.5, n, POLY_SIGMA[n]), getattr(torch, dt)
+
+
+def tensors_hash(ts) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def k7b_witness_hash(key, dev) -> str:
+    from kalman_hydra_tpu_torch.kernels.level_image import (
+        coarse_polyexp_fused, coarse_polyexp_fused_batch)
+    from kalman_hydra_tpu_torch.kernels.polyexp import poly_expansion_planar
+    kind, imgs, args, dt = k7b_witness_case(key, dev)
+    if kind == "K7b":
+        outs = coarse_polyexp_fused_batch(imgs, *args, out_dtype=dt)
+    elif kind == "K4":
+        outs = coarse_polyexp_fused(imgs[0], *args, out_dtype=dt)
+    else:
+        outs = [poly_expansion_planar(imgs[0], args[2], args[3], dt)]
+    return tensors_hash(outs)
+
+
+@phase("device launches a call of K4, K7b and K12's walk (profiler)")
+def check_launches(dev, clip, clip_b, cfg, cfg_h):
+    """torch.profiler's device kernels of one call of K4 (a 1080p frame),
+    K7b (B's 17 720p frames, and 4 x 9 1080p frames as path C) and K12's
+    walk (a 1080p frame pair of path H): one each, where the routes they
+    replaced made 15 (five coarse levels x vertical, horizontal, K3) and
+    5 (a level each, and the glue between)."""
+    from kalman_hydra_tpu_torch.kernels.level_image import (
+        coarse_polyexp_fused, coarse_polyexp_fused_batch)
+    from kalman_hydra_tpu_torch.kernels.lk import lk_sparse_levels
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    from kalman_hydra_tpu_torch.ops.lk import lk_pyramid
+    f = cfg.flow
+    args = (f.levels, f.pyr_scale, f.poly_n, f.poly_sigma)
+    bf = torch.bfloat16
+    g0, g1, pts = k12_witness_inputs(dev, clip)
+    grays_b = grayscale_u8(torch.from_numpy(clip_b).to(dev))
+    grays_c = g0.expand(N_CLIPS * T, H, W).contiguous()
+    fl = cfg_h.flow
+    pa, pb = lk_pyramid(g0, fl), lk_pyramid(g1, fl)
+    calls = {
+        "K4 1080x1920": lambda: coarse_polyexp_fused(g0, *args,
+                                                     out_dtype=bf),
+        f"K7b {H_B}x{W_B} N={T_B}": lambda: coarse_polyexp_fused_batch(
+            grays_b, *args, out_dtype=bf),
+        f"K7b {H}x{W} N={N_CLIPS * T}": lambda: coarse_polyexp_fused_batch(
+            grays_c, *args, out_dtype=bf),
+        "K12 walk, 5 levels, K=1024": lambda: lk_sparse_levels(
+            pa[0], pb[0], pa[1], pts, fl.lk_winsize, fl.lk_max_iter,
+            fl.lk_eps, fl.lk_min_eig, fl.lk_block_halo)}
+    bad = []
+    for name, fn in calls.items():
+        # warmed and timed first, as tools/torch_level_lk_ab.py does: a
+        # cold K7b call profiled at once has been seen to record no
+        # device event
+        cuda_ms(fn, 3)
+        device_ms(fn, 3)
+        ev = device_launches(fn)
+        log(f"  {name}: {len(ev)} device launch(es) a call: "
+            + "; ".join(f"{nm[:48]} {us:.1f} us" for nm, us in ev))
+        if len(ev) != 1:
+            bad.append(name)
+    assert not bad, f"not one device launch a call: {bad}"
+
+
+@phase("K7b and K4 against the 15-launch route's outputs (bit for bit)")
+def check_k7b_witness(dev):
+    """K7b and K4 in one launch against the route they replaced (per
+    coarse level a vertical, a horizontal and a K3 launch): their output
+    bytes on every K7B_WITNESS case (1080x1920 and 720x1280 N=2, 148x212
+    N=3; f32 and bf16; poly_n 5 and 7) hash to the old route's, and K3's
+    own bytes (the shared tile body) to K3's before it."""
+    bad = []
+    for key, want in K7B_WITNESS.items():
+        same = k7b_witness_hash(key, dev) == want
+        log(f"  {key}: {'same bytes' if same else 'DIFFERENT bytes'} as "
+            f"the old route")
+        if not same:
+            bad.append(key)
+    assert not bad, f"K7b/K4/K3 differ from the old route on {bad}"
 
 
 # Odd shapes: one short band (1x5), levels smaller than one tile (20x30,
@@ -974,30 +1185,139 @@ def lk_border_points(h, w):
                          [w / 2, h / 2]])
 
 
-@phase("K12 lk_level")
+# sha256 of the new points and status of the route that K12's walk
+# replaced (commit 1d94c6b: one K12 launch a level, the torch glue of
+# ops/lk.py between them) on k12_witness_inputs, 5 levels, K = 1024:
+# "walk" keys the whole frame step (lk_sparse's loop; "far" starts the
+# coarsest level 12 x -9 px off), "levels" keys each level's own K12 call
+# on k12_level_args, coarsest first, with the guesses handed down or 12 x
+# -9 px off at every level (check_k12's cases). Computed by
+# tools/torch_level_lk_ab.py on that commit, on an NVIDIA H100 80GB HBM3.
+K12_WITNESS = {
+    "K12 walk halo0 handed":
+        "d585a9a0ea69998f7be69a606ab55115693d746711354a9372400c135c4c9b0b",
+    "K12 walk halo0 far":
+        "d2822779c16a80b1560d58d9c16e6ec8d82bd1e10f4280907a002ac71e739bb9",
+    "K12 walk halo8 handed":
+        "6bc3b780c0f8fccd5adf06317d9e4353cf714b614a57a9829054cc8430b53e2f",
+    "K12 walk halo8 far":
+        "d82607809ff62eae7ef584b17f5b4a949beb3d3ec2c1a34b2bac1fee24abf27b",
+    "K12 levels halo0 handed":
+        "db07d3aad03bd9d85e470a57c1cc0c087f86b0ce26417bf254193e08ca64e0c3",
+    "K12 levels halo0 far":
+        "e55d07ca79cee1b9843f9bd44ca1dcc46e8666765bcdffecbb631947d9e7387e",
+    "K12 levels halo8 handed":
+        "698ed2464bd93a8384105b694f8421097fadf2705d68de510624c300fc0f8dd2",
+    "K12 levels halo8 far":
+        "e8481c2ed754037cc98ccb835a53f86f3a1c9a3ae80a32ccc5bd1ed4261d23fc",
+}
+K12_KEYS = [f"K12 {r} halo{h} {g}" for r in ("walk", "levels")
+            for h in (0, 8) for g in ("handed", "far")]
+K12_OFF = (12.0, -9.0)
+
+
+def k12_witness_inputs(dev, clip):
+    """(the lk_pyramid inputs: grays of frames 0 and 1 of `clip`, and the
+    K points: 1015 uniform ones from numpy's legacy generator and the nine
+    border points), f32 on dev."""
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    g0, g1 = (grayscale_u8(torch.from_numpy(clip[i]).to(dev))
+              for i in (0, 1))
+    rs = np.random.RandomState(12)
+    pts = (rs.random_sample((K - 9, 2)) * [W - 1.0, H - 1.0]).astype(
+        np.float32)
+    pts = torch.cat([torch.from_numpy(pts), lk_border_points(H, W)])
+    return g0, g1, pts.to(dev)
+
+
+def k12_level_args(img_a, img_b, gx, gy, pts, guess, c):
+    """One level's K12 arguments at FlowConfig c's LK settings
+    (kernels.lk.level_args; on a checkout from before the walk, which
+    tools/torch_level_lk_ab.py runs as the old side, ops.lk.lk_level_args
+    built the same tuple)."""
+    try:
+        from kalman_hydra_tpu_torch.kernels.lk import level_args
+    except ImportError:
+        from kalman_hydra_tpu_torch.ops.lk import lk_level_args
+        return lk_level_args(img_a, img_b, gx, gy, pts, guess, c)
+    return level_args(img_a, img_b, gx, gy, pts, guess, c.lk_winsize,
+                      c.lk_max_iter, c.lk_eps, c.lk_min_eig, c.lk_block_halo)
+
+
+def k12_witness_hash(key, dev, inputs, cfg_h, walk) -> str:
+    """The hash of one K12_KEYS case. `walk(pyr_a, grads, pyr_b, pts, c,
+    guess)` runs a frame step (the checkout's walk, or the per-level
+    route); "levels" cases call lk_level once a level."""
+    from kalman_hydra_tpu_torch.kernels.lk import lk_level
+    from kalman_hydra_tpu_torch.ops.lk import lk_pyramid
+    _, route, halo, guesses = key.split()
+    c = dataclasses.replace(cfg_h.flow, levels=5,
+                            lk_block_halo=int(halo[4:]))
+    g0, g1, pts = inputs
+    pa, pb = lk_pyramid(g0, c), lk_pyramid(g1, c)
+    off = torch.tensor(K12_OFF, device=dev)
+    guess = pts * (1.0 / 2 ** (c.levels - 1))
+    if route == "walk":
+        return tensors_hash(walk(pa[0], pa[1], pb[0], pts, c,
+                                 guess + off if guesses == "far" else guess))
+    outs = []
+    for lvl in range(c.levels - 1, -1, -1):
+        args = k12_level_args(pa[0][lvl], pb[0][lvl], *pa[1][lvl],
+                              pts * (1.0 / 2 ** lvl),
+                              guess + off if guesses == "far" else guess, c)
+        got, ok = lk_level(*args)
+        outs += [got, ok]
+        guess = (got - args[8]) * (2.0 if lvl else 1.0)
+    return tensors_hash(outs)
+
+
+def lk_route(pyr_a, grads, pyr_b, pts, c, guess):
+    """A frame step of sparse LK as ops.lk.lk_sparse ran it before one
+    launch walked the levels: per level one one-level K12 launch
+    (lk_level) and the torch glue around it."""
+    from kalman_hydra_tpu_torch.kernels.lk import lk_level
+    status = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    for lvl in range(c.levels - 1, -1, -1):
+        gx, gy = grads[lvl]
+        args = k12_level_args(pyr_a[lvl], pyr_b[lvl], gx, gy,
+                              pts * (1.0 / (2 ** lvl)), guess, c)
+        new, ok = lk_level(*args)
+        guess = new - args[8]
+        if lvl == 0:
+            h, w = pyr_a[0].shape
+            inb = ((guess[:, 0] >= 0) & (guess[:, 0] <= w - 1)
+                   & (guess[:, 1] >= 0) & (guess[:, 1] <= h - 1))
+            status = status & ok & inb
+        else:
+            guess = guess * 2.0
+    return guess, status
+
+
+@phase("K12 lk_sparse_levels (the walk) and lk_level (one level)")
 def check_k12(dev, clip, cfg_h, results):
     """K12 at K = 1024 (1015 random points and the nine border points)
     over the five levels of a 1080p frame pair, at lk_block_halo 0 (the
     exact window) and 8 (the block window), with the guesses the level
     loop hands down, and again with guesses 12 x -9 px off, past the
-    halo: against the plain version (bar 1e-3 px, status identical);
-    the window's effect is shown as the points whose answer moves by
-    > 0.5 px between the two windows. The kernels line keeps one frame
-    pair's five calls at halo 8 (path H); its bound counts, per level,
-    the patches each point read at the iterations it took or the level's
-    four planes, whichever is fewer bytes."""
-    from kalman_hydra_tpu_torch.kernels.lk import lk_level, lk_level_plain
-    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
-    from kalman_hydra_tpu_torch.ops.lk import lk_level_args, lk_pyramid
+    halo: the one-level launch against the plain version (bar 1e-3 px,
+    status identical), the window's effect shown as the points whose
+    answer moves by > 0.5 px between the two windows; then the walk (one
+    launch a frame step, as lk_sparse runs it) at both halos from the
+    handed-down guess and from one 12 x -9 px off at the coarsest level:
+    against the per-level route on the card (one-level launches and the
+    torch glue: bit for bit) and against the plain walk (bar 1e-3 px,
+    status identical). The kernels line keeps the walk at halo 8 (path
+    H); its bound counts, per
+    level, the patches each point read at the iterations it took or the
+    level's four planes, whichever is fewer bytes."""
+    from kalman_hydra_tpu_torch.kernels.lk import (lk_level, lk_level_plain,
+                                                   lk_sparse_levels,
+                                                   lk_sparse_levels_plain)
+    from kalman_hydra_tpu_torch.ops.lk import lk_pyramid
     f = cfg_h.flow
     win = f.lk_winsize
-    g0, g1 = (grayscale_u8(torch.from_numpy(clip[i]).to(dev))
-              for i in (0, 1))
-    g = torch.Generator().manual_seed(12)
-    pts = torch.cat([torch.rand(K - 9, 2, generator=g)
-                     * torch.tensor([W - 1.0, H - 1.0]),
-                     lk_border_points(H, W)]).to(dev)
-    off = torch.tensor([12.0, -9.0], device=dev)
+    g0, g1, pts = k12_witness_inputs(dev, clip)
+    off = torch.tensor(K12_OFF, device=dev)
     worst, same, moved = 0.0, True, 0
     calls = {}
     for far in (False, True):
@@ -1008,10 +1328,10 @@ def check_k12(dev, clip, cfg_h, results):
             guess = pts * (1.0 / 2 ** (f.levels - 1))
             outs = []
             for lvl in range(f.levels - 1, -1, -1):
-                # the path's own K12 arguments, as lk_sparse_level builds them
-                args = lk_level_args(pa[0][lvl], pb[0][lvl], *pa[1][lvl],
-                                     pts * (1.0 / 2 ** lvl),
-                                     guess + off if far else guess, c)
+                # the path's own K12 arguments, as the walk builds them
+                args = k12_level_args(pa[0][lvl], pb[0][lvl], *pa[1][lvl],
+                                      pts * (1.0 / 2 ** lvl),
+                                      guess + off if far else guess, c)
                 got, ok = lk_level(*args)
                 ref, rok, iters = lk_level_plain(*args, with_iters=True)
                 worst = max(worst, max_err(got, ref))
@@ -1024,29 +1344,126 @@ def check_k12(dev, clip, cfg_h, results):
         diff = (answers[0] - answers[f.lk_block_halo]).abs().amax(-1)
         moved_here = int((diff > 0.5).any(0).sum())
         moved = max(moved, moved_here)
-        log(f"  K12 K={K} guesses {'12 x -9 px off' if far else 'handed down'}"
-            f": max_abs_err so far {worst:.3e} px (bar 1e-3), status "
-            f"identical {same}; points the halo-{f.lk_block_halo} window "
-            f"moved by > 0.5 px: {moved_here}")
+        log(f"  K12 one-level K={K} guesses "
+            f"{'12 x -9 px off' if far else 'handed down'}: max_abs_err so "
+            f"far {worst:.3e} px (bar 1e-3), status identical {same}; "
+            f"points the halo-{f.lk_block_halo} window moved by > 0.5 px: "
+            f"{moved_here}")
     assert worst < 1e-3 and same and moved > 0
+
+    def walk_args(c, p):
+        pa, pb = lk_pyramid(g0, c), lk_pyramid(g1, c)
+        return (pa[0][:c.levels], pb[0][:c.levels], pa[1][:c.levels], p,
+                c.lk_winsize, c.lk_max_iter, c.lk_eps, c.lk_min_eig,
+                c.lk_block_halo)
+    bad = []
+    for halo in (0, f.lk_block_halo):
+        c = dataclasses.replace(f, lk_block_halo=halo)
+        wa = walk_args(c, pts)
+        for far in (False, True):
+            guess = pts * (1.0 / 2 ** (c.levels - 1)) + (off if far else 0)
+            got, st = lk_sparse_levels(*wa, guess=guess)
+            route, rst = lk_route(wa[0], wa[2], wa[1], pts, c, guess)
+            plain, pst = lk_sparse_levels_plain(*wa, guess=guess)
+            nd = int((got != route).any(-1).sum())
+            e_route, e_plain = max_err(got, route), max_err(got, plain)
+            log(f"  K12 walk halo {halo} guesses "
+                f"{'12 x -9 px off' if far else 'handed down'}: points "
+                f"differing from the per-level route {nd} (max "
+                f"{e_route:.1e} px), status identical "
+                f"{bool(torch.equal(st, rst))}; vs plain {e_plain:.3e} px "
+                f"(bar 1e-3), status identical {bool(torch.equal(st, pst))}")
+            if not (e_route < 1e-3 and torch.equal(st, rst)
+                    and e_plain < 1e-3 and torch.equal(st, pst)):
+                bad.append((halo, far))
+            worst = max(worst, e_plain)
+    assert not bad, f"the walk disagrees on {bad}"
+    wa = walk_args(f, pts)
+    level_calls = [a for a, _ in calls.values()]
+    route = lambda: lk_route(wa[0], wa[2], wa[1], pts, f,  # noqa: E731
+                             pts * (1.0 / 2 ** (f.levels - 1)))
     ms = time_turns({
-        "plain": lambda: [lk_level_plain(*a) for a, _ in calls.values()],
-        "kernel": lambda: [lk_level(*a) for a, _ in calls.values()]})
+        "plain": lambda: lk_sparse_levels_plain(*wa),
+        "kernel": lambda: lk_sparse_levels(*wa),
+        "route": route,
+        "levels": lambda: [lk_level(*a) for a in level_calls]})
+    log(f"  K12 one frame pair, halo {f.lk_block_halo}, K={K}: walk "
+        f"{ms['kernel']:.4f} ms a call, {ms['kernel dev']:.4f} on the "
+        f"device; per-level route {ms['route']:.4f} ({ms['route dev']:.4f});"
+        f" its five one-level launches alone {ms['levels']:.4f} "
+        f"({ms['levels dev']:.4f})")
+    for label, halo, k in (("W", f.lk_block_halo, 256), ("H0", 0, 256)):
+        c = dataclasses.replace(f, lk_block_halo=halo)
+        wk = walk_args(c, pts[:k].contiguous())
+        t = time_turns({"kernel": lambda: lk_sparse_levels(*wk)})
+        log(f"  K12 walk {label} (halo {halo}, K={k}): {t['kernel']:.4f} ms "
+            f"a call, {t['kernel dev']:.4f} on the device")
     # bytes: per level the smaller of the patches its points read (the
     # template's three (win + 1)^2 blocks a point, one block of the next
     # image a Gauss-Newton step) and the level's four planes, each read
-    # once; plus pt, guess, base in and the guess and ok out
+    # once; plus the points in and out and the status
     blk = 4 * (win + 1) ** 2
     nbytes = steps = 0
     for a, n in calls.values():
         plane = 4 * a[0].numel() * 4
-        nbytes += min(K * 3 * blk + n * blk, plane) + K * (3 * 8 + 9)
+        nbytes += min(K * 3 * blk + n * blk, plane)
         steps += n
+    nbytes += K * (8 + 8 + 1)
     flops = len(calls) * K * 39 * win * win + steps * 16 * win * win
     log(f"  K12 one frame pair, halo {f.lk_block_halo}: {steps} Gauss-Newton "
         f"steps over {len(calls)} levels x {K} points")
-    record(results, "lk_level", worst, ms["kernel"], ms["plain"], nbytes,
-           flops, dev=ms)
+    record(results, "lk_sparse_levels", worst, ms["kernel"], ms["plain"],
+           nbytes, flops, dev=ms)
+    results["lk_sparse_levels"].update(
+        route_ms=ms["route"], route_device_ms=ms["route dev"],
+        levels_ms=ms["levels"], levels_device_ms=ms["levels dev"])
+
+
+@phase("K12 against the per-level route's outputs (bit for bit)")
+def check_k12_witness(dev, clip, cfg_h):
+    """The walk (and the one-level launch) against the route it replaced,
+    one K12 launch a level and the torch glue: the points and status on
+    every K12_WITNESS case hash to the old route's. A case whose bytes
+    differ is reported point by point against the per-level route on the
+    card and passes only if no point moved by 1e-3 px and no status
+    changed (a float64 sum of another order could round one f32 sum the
+    other way)."""
+    from kalman_hydra_tpu_torch.kernels.lk import lk_sparse_levels
+    inputs = k12_witness_inputs(dev, clip)
+
+    def walk(pa, grads, pb, pts, c, guess):
+        return lk_sparse_levels(pa[:c.levels], pb[:c.levels],
+                                grads[:c.levels], pts, c.lk_winsize,
+                                c.lk_max_iter, c.lk_eps, c.lk_min_eig,
+                                c.lk_block_halo, guess=guess)
+    bad = []
+    for key, want in K12_WITNESS.items():
+        same = k12_witness_hash(key, dev, inputs, cfg_h, walk) == want
+        log(f"  {key}: {'same bytes' if same else 'DIFFERENT bytes'} as "
+            f"the per-level route")
+        if same:
+            continue
+        if key.split()[1] != "walk":
+            bad.append(key)
+            continue
+        from kalman_hydra_tpu_torch.ops.lk import lk_pyramid
+        _, _, halo, guesses = key.split()
+        c = dataclasses.replace(cfg_h.flow, levels=5,
+                                lk_block_halo=int(halo[4:]))
+        g0, g1, pts = inputs
+        pa, pb = lk_pyramid(g0, c), lk_pyramid(g1, c)
+        guess = pts * (1.0 / 2 ** (c.levels - 1))
+        if guesses == "far":
+            guess = guess + torch.tensor(K12_OFF, device=dev)
+        got, st = walk(pa[0], pa[1], pb[0], pts, c, guess)
+        ref, rst = lk_route(pa[0], pa[1], pb[0], pts, c, guess)
+        moved = (got - ref).abs().amax(-1)
+        log(f"    {int((moved > 0).sum())} points differ, by up to "
+            f"{moved.max().item():.2e} px; status identical "
+            f"{bool(torch.equal(st, rst))}")
+        if moved.max().item() >= 1e-3 or not torch.equal(st, rst):
+            bad.append(key)
+    assert not bad, f"K12 differs from the per-level route on {bad}"
 
 
 @phase("K13 flow_iters_pipelined")
@@ -1364,10 +1781,10 @@ def per_frame_expected(cfg, h, w, t) -> dict:
         k9 = -(-(f.levels - 1) // LAUNCH_LEVELS)    # K9 launches a pyramid
     if f.method == "lk_sparse":
         # one lk_pyramid per frame (frame 0's is cached): one K9 and one
-        # K10 launch; one K12 per level per step; the position update is
-        # plain torch, not K1
+        # K10 launch; one K12 launch a step walks every level; the
+        # position update is plain torch, not K1
         e.update(pyr_down_levels=k9 * t, scharr_gradients_levels=t,
-                 lk_level=f.levels * (t - 1))
+                 lk_sparse_levels=t - 1)
         return e
     if f.method == "lk_dense":
         # per step both frames' pyramids and the previous frame's Scharr
@@ -2083,7 +2500,7 @@ _KERNELS = {   # wrapper: (CUDA source, TPU entry point it replaces, in
     "coarse_level_images": ("level_image.cu", "level_image_pallas.py:306"),
     "pyr_down_levels": ("pyramid.cu", "pyramid_pallas.py:76"),
     "scharr_gradients_levels": ("scharr.cu", "scharr_pallas.py:71"),
-    "lk_level": ("lk.cu", "lk_pallas.py:256"),
+    "lk_sparse_levels": ("lk.cu", "lk_pallas.py:256"),
     "flow_iters_pipelined": ("flow_iters_pipe.cu",
                              "flow_iter_pallas.py:717"),
     # the port's own pair variant of K8: no Pallas kernel, it replaces the
@@ -2210,9 +2627,11 @@ def main() -> int:
 
     results: dict = {}
     counts_by_path: dict = {}
+    check_launches(dev, clip, clip_b, cfg, cfgs["H"])
     check_k1(dev, results)
     check_k3(dev, gray, cfg, results)
     check_k4(dev, gray, cfg, results)
+    check_k7b_witness(dev)
     check_k2(dev, cfg, results)
     check_k2_witness(dev)
     check_k5(dev, clip, cfg, results)
@@ -2224,6 +2643,7 @@ def main() -> int:
     check_k9(dev, gray, results)
     check_k10(dev, gray, results)
     check_k12(dev, clip, cfgs["H"], results)
+    check_k12_witness(dev, clip, cfgs["H"])
     check_k13(dev, clip, cfgs["AP"], results)
     check_k8_pairs(dev, clip_b, cfgs["BX"], results)
     check_golden(dev)

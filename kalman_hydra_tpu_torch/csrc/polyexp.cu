@@ -17,7 +17,10 @@
 // runs the vertical taps into three shared planes, then the horizontal
 // taps, so each input pixel is read from device memory ~1.4 times and
 // the intermediates never leave the SM. Coefficients round to bf16 once,
-// at the store (round to nearest even). The frame index is blockIdx.z:
+// at the store (round to nearest even). The tile body (vertical and
+// horizontal taps, the combination, the store) is polyexp.cuh's
+// polyexp_tile, which K4/K7b run on level tiles they build in shared
+// memory. The frame index is blockIdx.z:
 // K3 is K7a with one frame, the same kernel, so a batched launch equals
 // its per-frame launches bit for bit.
 #include "polyexp.cuh"
@@ -25,34 +28,30 @@
 namespace {
 
 using kh::clampi;
-using kh::store;
+using kh::kPeInH;
+using kh::kPeInW;
+using kh::kPeNMax;
+using kh::kPeTaps;
+using kh::kPeTH;
+using kh::kPeTW;
+using kh::PolyTaps;
 
-constexpr int kNMax = 8;              // poly_n <= 8 (cv2 uses 5 or 7)
-constexpr int kTaps = 2 * kNMax + 1;
-constexpr int kTH = 16;
-constexpr int kTW = 64;
 constexpr int kThreads = 256;
-constexpr int kInH = kTH + 2 * kNMax;
-constexpr int kInW = kTW + 2 * kNMax;
 
-struct PolyTaps {
-  float g[kTaps], xg[kTaps], xxg[kTaps];
-  float ig11, ig03, ig33, ig55;
-  int n;
-};
-
+// Output pixel (r, c) correlates src rows/cols clamp(r + k - n), k in
+// [0, 2n]: the replicate border of the unpadded (h, w) image.
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
-polyexp_kernel(const float* __restrict__ src, int src_h, int src_w, int off,
-               int h, int w, PolyTaps t, OutT* __restrict__ out) {
-  src += blockIdx.z * (long)src_h * src_w;
+polyexp_kernel(const float* __restrict__ src, int h, int w, PolyTaps t,
+               OutT* __restrict__ out) {
+  src += blockIdx.z * (long)h * w;
   out += blockIdx.z * 5 * (long)h * w;
-  __shared__ float tile[kInH][kInW];
-  __shared__ float vs[3][kTH][kInW];
-  __shared__ float tg[3][kTaps];
+  __shared__ float tile[kPeInH][kPeInW];
+  __shared__ float vs[3][kPeTH][kPeInW];
+  __shared__ float tg[3][kPeTaps];
   const int n = t.n, taps = 2 * n + 1;
-  const int tin_h = kTH + 2 * n, tin_w = kTW + 2 * n;
-  const int r0 = blockIdx.y * kTH, c0 = blockIdx.x * kTW;
+  const int tin_h = kPeTH + 2 * n, tin_w = kPeTW + 2 * n;
+  const int r0 = blockIdx.y * kPeTH, c0 = blockIdx.x * kPeTW;
   const int tid = threadIdx.x;
 
   if (tid < taps) {
@@ -62,94 +61,34 @@ polyexp_kernel(const float* __restrict__ src, int src_h, int src_w, int off,
   }
   for (int i = tid; i < tin_h * tin_w; i += kThreads) {
     const int rr = i / tin_w, cc = i - rr * tin_w;
-    const int sr = clampi(r0 + rr + off, 0, src_h - 1);
-    const int sc = clampi(c0 + cc + off, 0, src_w - 1);
-    tile[rr][cc] = src[(long)sr * src_w + sc];
+    const int sr = clampi(r0 + rr - n, 0, h - 1);
+    const int sc = clampi(c0 + cc - n, 0, w - 1);
+    tile[rr][cc] = src[(long)sr * w + sc];
   }
   __syncthreads();
-
-  for (int i = tid; i < kTH * tin_w; i += kThreads) {
-    const int rr = i / tin_w, cc = i - rr * tin_w;
-    float v0 = 0.f, v1 = 0.f, v2 = 0.f;
-    for (int k = 0; k < taps; ++k) {
-      const float s = tile[rr + k][cc];
-      v0 += tg[0][k] * s;
-      v1 += tg[1][k] * s;
-      v2 += tg[2][k] * s;
-    }
-    vs[0][rr][cc] = v0;
-    vs[1][rr][cc] = v1;
-    vs[2][rr][cc] = v2;
-  }
-  __syncthreads();
-
-  const long plane = (long)h * w;
-  for (int i = tid; i < kTH * kTW; i += kThreads) {
-    const int rr = i / kTW, cc = i - rr * kTW;
-    const int r = r0 + rr, c = c0 + cc;
-    if (r >= h || c >= w) continue;
-    float m00 = 0.f, m10 = 0.f, m20 = 0.f, m01 = 0.f, m11 = 0.f, m02 = 0.f;
-    for (int k = 0; k < taps; ++k) {
-      const float a = vs[0][rr][cc + k];
-      const float b = vs[1][rr][cc + k];
-      const float d = vs[2][rr][cc + k];
-      m00 += tg[0][k] * a;
-      m10 += tg[1][k] * a;
-      m20 += tg[2][k] * a;
-      m01 += tg[0][k] * b;
-      m11 += tg[1][k] * b;
-      m02 += tg[0][k] * d;
-    }
-    const long o = (long)r * w + c;
-    store(out + o, m10 * t.ig11);
-    store(out + plane + o, m01 * t.ig11);
-    store(out + 2 * plane + o, m00 * t.ig03 + m20 * t.ig33);
-    store(out + 3 * plane + o, m00 * t.ig03 + m02 * t.ig33);
-    store(out + 4 * plane + o, m11 * t.ig55);
-  }
+  kh::polyexp_tile<OutT, kThreads>(&tile[0][0], &vs[0][0][0], &tg[0][0], t,
+                                   r0, c0, h, w, h, w, out);
 }
 
 }  // namespace
-
-namespace kh {
-
-int launch_polyexp(const float* src, int src_h, int src_w, int off, int h,
-                   int w, const float* taps_host, int n, int out_bf16,
-                   int frames, void* out, cudaStream_t stream) {
-  if (n < 1 || n > kNMax || h <= 0 || w <= 0 || frames <= 0 ||
-      frames > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  PolyTaps t = {};
-  const int taps = 2 * n + 1;
-  for (int k = 0; k < taps; ++k) {
-    t.g[k] = taps_host[k];
-    t.xg[k] = taps_host[taps + k];
-    t.xxg[k] = taps_host[2 * taps + k];
-  }
-  t.ig11 = taps_host[3 * taps];
-  t.ig03 = taps_host[3 * taps + 1];
-  t.ig33 = taps_host[3 * taps + 2];
-  t.ig55 = taps_host[3 * taps + 3];
-  t.n = n;
-  const dim3 grid(cdiv(w, kTW), cdiv(h, kTH), frames);
-  if (out_bf16) {
-    polyexp_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        src, src_h, src_w, off, h, w, t, static_cast<__nv_bfloat16*>(out));
-  } else {
-    polyexp_kernel<float><<<grid, kThreads, 0, stream>>>(
-        src, src_h, src_w, off, h, w, t, static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace kh
 
 // img (frames, h, w) f32 -> out (frames, 5, h, w), replicate border.
 KH_API int kh_polyexp(const void* img, int frames, int h, int w,
                       const void* taps_host, int n, int out_bf16, void* out,
                       void* stream) {
-  return kh::launch_polyexp(static_cast<const float*>(img), h, w, -n, h, w,
-                            static_cast<const float*>(taps_host), n,
-                            out_bf16, frames, out,
-                            static_cast<cudaStream_t>(stream));
+  if (n < 1 || n > kPeNMax || h <= 0 || w <= 0 || frames <= 0 ||
+      frames > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PolyTaps t = kh::poly_taps(static_cast<const float*>(taps_host), n);
+  const float* src = static_cast<const float*>(img);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(kh::cdiv(w, kPeTW), kh::cdiv(h, kPeTH), frames);
+  if (out_bf16) {
+    polyexp_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        src, h, w, t, static_cast<__nv_bfloat16*>(out));
+  } else {
+    polyexp_kernel<float><<<grid, kThreads, 0, s>>>(
+        src, h, w, t, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -14,15 +14,16 @@
 | pyramid.pyr_down_levels (K9) | csrc/pyramid.cu | pyramid_pallas.py::pyr_down (once per level) |
 | scharr.scharr_gradients_levels (K10) | csrc/scharr.cu | scharr_pallas.py::scharr_gradients (once per level) |
 | level_image.coarse_level_images (K11) | csrc/level_image.cu | level_image_pallas.py::farneback_images_pallas |
-| lk.lk_level (K12) | csrc/lk.cu | lk_pallas.py::lk_sparse (_lk_level) |
+| lk.lk_sparse_levels (K12) | csrc/lk.cu | lk_pallas.py::lk_sparse (_lk_level and its level loop, one launch a frame step) |
 | flow_iter.flow_iters_pipelined (K13) | csrc/flow_iters_pipe.cu | flow_iter_pallas.py::flow_iters_pipelined |
 | flow_update.flow_update_pairs (K8-pairs) | csrc/flow_update.cu | no Pallas kernel: the pair-batched exact warp's plain XLA, gather included (ops/farneback.py:633-640) |
 
 Each wrapper dispatches by device: a CPU tensor takes the plain PyTorch
 version beside it, a CUDA tensor launches the kernel or raises. Each
 carries a plain-int `launches` counter, bumped once per call that launched
-its kernel. `pyramid.pyr_down` and `scharr.scharr_gradients` are the
-one-level calls of K9's and K10's wrappers and count there.
+its kernel. `pyramid.pyr_down`, `scharr.scharr_gradients` and
+`lk.lk_level` are the one-level calls of K9's, K10's and K12's wrappers
+and count there.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from .flow_level import flow_level
 from .flow_update import flow_update, flow_update_pairs
 from .level_image import (coarse_level_images, coarse_polyexp_fused,
                           coarse_polyexp_fused_batch)
-from .lk import lk_level
+from .lk import lk_level, lk_sparse_levels
 from .polyexp import poly_expansion_planar, poly_expansion_planar_batch
 from .pyramid import pyr_down, pyr_down_levels
 from .scharr import scharr_gradients, scharr_gradients_levels
@@ -51,7 +52,7 @@ WRAPPERS = {
     "coarse_level_images": coarse_level_images,
     "pyr_down_levels": pyr_down_levels,
     "scharr_gradients_levels": scharr_gradients_levels,
-    "lk_level": lk_level,
+    "lk_sparse_levels": lk_sparse_levels,
     "flow_iters_pipelined": flow_iters_pipelined,
     "flow_update_pairs": flow_update_pairs,
 }

@@ -1,6 +1,6 @@
 """K4 and K7b wrappers: coarse Farneback level images + polyexp of one
-frame or of a frame stack; K11: the level images alone
-(csrc/level_image.cu).
+frame or of a frame stack, one launch for every coarse level; K11: the
+level images alone (csrc/level_image.cu).
 
 K4 replaces kalman_hydra_tpu/kernels/level_image_pallas.py::
 coarse_polyexp_fused. For every coarse plan entry (k >= 1, coarsest
@@ -8,17 +8,20 @@ first) the level image is GaussianBlur(original, reflect101) composed
 with the INTER_LINEAR resize, replicate-padded by n, and expanded into 5
 polyexp planes. Returns a list of (5, lh, lw) arrays; level 0 is the
 caller's business. K7b replaces ::coarse_polyexp_fused_batch: (N, H, W)
--> list of (N, 5, lh, lw), the same kernels with a frame index and one
+-> list of (N, 5, lh, lw), the same kernel with a frame index and one
 set of tap tables for all frames, so it equals per-frame K4 bit for bit.
 
 The composed weights are the reference's band matrices (_band_mats,
 _band_mats_padded) stored sparsely: per output row (or column) the source
-indices and float32 weights of its non-zeros. CPU tensors take
+indices and float32 weights of its non-zeros, which the kernel reads as
+(first index, count) runs (`first_count`). `fused_plan` chooses the
+launch's tiles level by level, and for one frame splits the deepest
+levels' tiles across the blocks of a cluster. CPU tensors take
 `coarse_polyexp_fused_plain` (any leading dims, so it is K7b's plain
 version too), which builds the level images stage by stage
 (ops.pyramid.farneback_images: full-res blur, then resize) — an
-independent route to the same values. CUDA tensors launch the kernel per
-level, or raise.
+independent route to the same values. CUDA tensors launch the kernel
+once a call, or raise.
 
 K11 (`coarse_level_images`) replaces ::farneback_images_pallas: the same
 level images at padding 0 (the reference's unpadded _band_mats), with no
@@ -31,6 +34,7 @@ ops.pyramid.farneback_images.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -121,32 +125,230 @@ def coarse_polyexp_fused_plain(img: torch.Tensor, levels: int,
     return outs
 
 
+# The fused launch's geometry (csrc/level_image.cu::level_polyexp_kernel)
+THREADS = 512          # threads a block
+PE_TH, PE_IN_W = 16, 80  # K3's tile body: output rows a band, row stride
+PE_TAPS = 17             # 2 * kNMax + 1
+TILE_H_MAX = 64          # output rows a tile, a multiple of PE_TH
+TILE_W_MAX = 64          # output columns a tile (K3's body's width)
+ROW_FLOATS = 4096        # the row buffers' budget
+SLOTS = 132 * 2          # blocks running at once in the plan's model (the
+#                          card holds three an SM; two plans one 1080p
+#                          frame faster)
+SMEM_MAX = 232448        # bytes of shared memory a block may take
+SMEM_BUDGET = 72 * 1024  # a block's share when three fill an SM
+GROUP_MIN = 2            # level rows a row-buffer pass takes at least
+SPLIT_MAX = 8            # blocks that build one tile's rows (a cluster)
+
+
+class FusedLevel(NamedTuple):
+    """One coarse level of the fused launch: its sizes and table widths
+    (tv, th taps), its tiles, the row-buffer group (level rows a pass),
+    its shared memory in bytes, xs (each tile column's first source
+    column and column span), split (the blocks that build one tile's
+    level rows, each a share) and blocks (tiles x split, padded to whole
+    clusters)."""
+    lh: int
+    lw: int
+    ho: int
+    wo: int
+    tv: int
+    th: int
+    tile_h: int
+    tile_w: int
+    tiles_x: int
+    tiles: int
+    group: int
+    smem: int
+    xs: np.ndarray
+    split: int
+    blocks: int
+
+
+class FusedPlan(NamedTuple):
+    levels: Tuple[FusedLevel, ...]
+    blocks: int       # blocks a frame, all levels
+    smem: int         # bytes of dynamic shared memory a block
+    cluster: int      # blocks a cluster: the largest split
+
+
+def first_count(idx: np.ndarray, wt: np.ndarray):
+    """A tap table's rows as (first index, count) of their non-zero taps,
+    which must be contiguous (they are for every blur + resize band:
+    the blur's reflected support and the resize's two neighbours join)."""
+    cnt = (wt != 0).sum(1).astype(np.int32)
+    first = idx[:, 0].astype(np.int32)
+    for o, c in enumerate(cnt):
+        if not np.array_equal(idx[o, :c], first[o] + np.arange(c)):
+            raise ValueError(f"tap row {o} is not contiguous: {idx[o, :c]}")
+    return np.stack([first, cnt], 1)
+
+
+def _skew(x: int) -> int:
+    return x + (x >> 5)
+
+
+def _level_shape(lv, tile_h, tile_w, n):
+    """(tiles_x, tiles, xs, group, smem bytes, the level rows' and the
+    polyexp's multiply-adds a thread of one tile) of one level at one
+    tile size."""
+    lh, lw, fv, fh = lv["lh"], lv["lw"], lv["fv"], lv["fh"]
+    ho, wo, tv, th = lh + 2 * n, lw + 2 * n, lv["tv"], lv["th"]
+    tiles_x, tiles_y = -(-lw // tile_w), -(-lh // tile_h)
+    xs = np.zeros((tiles_x, 2), np.int32)
+    for tx in range(tiles_x):
+        c0 = tx * tile_w
+        f = fh[c0:min(c0 + tile_w + 2 * n, wo)]
+        xs[tx] = (f[:, 0].min(), (f[:, 0] + f[:, 1]).max() - f[:, 0].min())
+    span = int(xs[:, 1].max())
+    stride = _skew(span - 1) + 1
+    rows, cols = min(tile_h + 2 * n, ho), min(tile_w + 2 * n, wo)
+    group = min(rows, max(GROUP_MIN, ROW_FLOATS // stride))
+    a = 2 * rows + 2 * cols + rows * tv + th * cols + group * stride
+    b = 3 * PE_TH * PE_IN_W + 3 * PE_TAPS
+    smem = 4 * ((tile_h + 2 * n) * PE_IN_W + max(a, b))
+    rows_work = (rows * span * tv * 2 + rows * cols * th) / THREADS
+    pe_work = (tile_h // PE_TH * (PE_TH * PE_IN_W * 3 + PE_TH * TILE_W_MAX
+                                  * 6) * (2 * n + 1)) / THREADS
+    return tiles_x, tiles_x * tiles_y, xs, group, smem, (rows_work, pe_work)
+
+
+@lru_cache(maxsize=32)
+def fused_plan(h: int, w: int, levels: int, pyr_scale: float, n: int,
+               frames: int) -> FusedPlan:
+    """Tile sizes and splits of the fused launch, per coarse level (plan
+    order, coarsest first). Each level starts at the largest tile
+    (TILE_H_MAX rows, TILE_W_MAX columns, no more than the level needs)
+    built by one block: the least work, since a tile recomputes its
+    2n-row and 2n-column halo and its source columns' reach. While the
+    longest block (the deepest levels' tiles read ~2.5 x 2^k source rows
+    per level row) outlasts the call's whole work spread over SLOTS
+    blocks, that level takes whichever shortens the estimate more: twice
+    the blocks building each tile's rows (up to SPLIT_MAX, a cluster),
+    or tiles halved, rows first. At one 1080p frame (K4) the deep levels
+    split for latency; at 36 frames (K7b) they stay whole, one block a
+    tile, for throughput."""
+    tabs = []
+    for (lh, lw, iv, wv, ih, wh) in level_tables(h, w, levels,
+                                                float(pyr_scale), n):
+        tabs.append(dict(lh=lh, lw=lw, fv=first_count(iv, wv),
+                         fh=first_count(ih, wh), tv=iv.shape[1],
+                         th=ih.shape[1]))
+    if not tabs:
+        return FusedPlan((), 0, 0, 1)
+    sizes = [[min(TILE_H_MAX, -(-t["lh"] // PE_TH) * PE_TH), TILE_W_MAX, 1]
+             for t in tabs]
+
+    def shape(i):
+        return _level_shape(tabs[i], sizes[i][0], sizes[i][1], n)
+
+    def longest(s, split):          # part 0: its rows' share, the polyexp
+        rows_work, pe_work = s[5]
+        return rows_work / split + pe_work
+
+    def estimate(shapes):
+        total = sum(frames * s[1] * sum(s[5]) for s in shapes)
+        return max(total / SLOTS, max(longest(s, z[2])
+                                      for s, z in zip(shapes, sizes)))
+
+    for i in range(len(tabs)):     # every level within the smem budget
+        while shape(i)[4] > SMEM_BUDGET and (sizes[i][0] > PE_TH
+                                             or sizes[i][1] > 16):
+            if sizes[i][0] > PE_TH:
+                sizes[i][0] = max(PE_TH, sizes[i][0] // 2 // PE_TH * PE_TH)
+            else:
+                sizes[i][1] //= 2
+    shapes = [shape(i) for i in range(len(tabs))]
+    while True:
+        est = estimate(shapes)
+        i = max(range(len(shapes)),
+                key=lambda j: longest(shapes[j], sizes[j][2]))
+        th_, tw_, split = sizes[i]
+        trials = []
+        if split < SPLIT_MAX:
+            trials.append([th_, tw_, split * 2])
+        if th_ > PE_TH:
+            trials.append([max(PE_TH, th_ // 2 // PE_TH * PE_TH), tw_, split])
+        elif tw_ > 16:
+            trials.append([th_, tw_ // 2, split])
+        best = None
+        for trial in trials:
+            old = sizes[i]
+            sizes[i] = trial
+            new = shapes[:i] + [shape(i)] + shapes[i + 1:]
+            e = estimate(new)
+            sizes[i] = old
+            if e < est and (best is None or e < best[0]):
+                best = (e, trial, new)
+        if best is None:
+            break
+        _, sizes[i], shapes = best
+    cluster = max(z[2] for z in sizes)
+    out, block0 = [], 0
+    for t, (th_, tw_, split), s in zip(tabs, sizes, shapes):
+        blocks = -(-s[1] * split // cluster) * cluster
+        out.append(FusedLevel(t["lh"], t["lw"], t["lh"] + 2 * n,
+                              t["lw"] + 2 * n, t["tv"], t["th"], th_, tw_,
+                              s[0], s[1], s[3], s[4], s[2], split, blocks))
+        block0 += blocks
+    return FusedPlan(tuple(out), block0, max(lv.smem for lv in out),
+                     cluster)
+
+
+_fused_tables: dict = {}
+
+
+def _fused_tables_on(device, h, w, levels, pyr_scale, n, plan):
+    """Per plan level, on `device`: wv (ho, tv) f32, fv (ho, 2) int32,
+    wht (th, wo) f32 (transposed), fh (wo, 2) int32, xs (tiles_x, 2)
+    int32."""
+    key = (str(device), h, w, levels, float(pyr_scale), n,
+           tuple((lv.tile_h, lv.tile_w) for lv in plan.levels))
+    tabs = _fused_tables.get(key)
+    if tabs is None:
+        tabs = []
+        for lv, (lh, lw, iv, wv, ih, wh) in zip(
+                plan.levels, level_tables(h, w, levels, float(pyr_scale),
+                                          n)):
+            arrs = (wv, first_count(iv, wv), np.ascontiguousarray(wh.T),
+                    first_count(ih, wh), lv.xs)
+            tabs.append(tuple(torch.as_tensor(np.ascontiguousarray(a),
+                                              device=device) for a in arrs))
+        _fused_tables[key] = tabs
+    return tabs
+
+
 def _launch(imgs: torch.Tensor, levels: int, pyr_scale: float, n: int,
             poly_sigma: float, out_dtype):
-    """kh_level_polyexp per coarse level over a (N, H, W) f32 stack ->
-    list of (N, 5, lh, lw)."""
+    """One kh_level_polyexp launch over a (N, H, W) f32 stack -> list of
+    (N, 5, lh, lw), coarsest first."""
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"coarse_polyexp_fused: out_dtype {out_dtype}")
     N, h, w = imgs.shape
     dev = imgs.device
+    plan = fused_plan(h, w, levels, float(pyr_scale), n, N)
+    outs = [torch.empty((N, 5, lv.lh, lv.lw), dtype=out_dtype, device=dev)
+            for lv in plan.levels]
+    if not outs:
+        return outs
+    ptrs, dims, block0 = [], [], 0
+    for lv, tabs, out in zip(plan.levels, _fused_tables_on(
+            dev, h, w, levels, pyr_scale, n, plan), outs):
+        ptrs.append([t.data_ptr() for t in tabs] + [out.data_ptr()])
+        dims.append([lv.lh, lv.lw, lv.ho, lv.wo, lv.tv, lv.th, lv.tile_h,
+                     lv.tile_w, lv.tiles_x, block0, lv.group, lv.split])
+        block0 += lv.blocks
+    ptrs = np.ascontiguousarray(ptrs, dtype=np.uint64)
+    dims = np.ascontiguousarray(dims, dtype=np.int32)
     taps = poly_taps(n, float(poly_sigma))
     P, I = _build.P, _build.I
-    fn = _build.function("kh_level_polyexp", P, I, I, I, P, P, I, I, P, P,
-                         I, I, P, I, I, P, P, P, P)
-    outs = []
-    for (lh, lw, iv, wv, ih, wh) in _tables_on(dev, h, w, levels,
-                                                pyr_scale, n):
-        ho, wo = lh + 2 * n, lw + 2 * n
-        tmp = torch.empty((N, ho, w), dtype=torch.float32, device=dev)
-        lvl = torch.empty((N, ho, wo), dtype=torch.float32, device=dev)
-        out = torch.empty((N, 5, lh, lw), dtype=out_dtype, device=dev)
-        rc = fn(imgs.data_ptr(), N, h, w, iv.data_ptr(), wv.data_ptr(),
-                iv.shape[1], ho, ih.data_ptr(), wh.data_ptr(), ih.shape[1],
-                wo, taps.ctypes.data, n, int(out_dtype == torch.bfloat16),
-                tmp.data_ptr(), lvl.data_ptr(), out.data_ptr(),
-                _build.stream(imgs))
-        _build.check(rc, "kh_level_polyexp")
-        outs.append(out)
+    fn = _build.function("kh_level_polyexp", P, I, I, I, I, P, P, P, I, I,
+                         I, I, I, P)
+    rc = fn(imgs.data_ptr(), N, h, w, len(outs), ptrs.ctypes.data,
+            dims.ctypes.data, taps.ctypes.data, n,
+            int(out_dtype == torch.bfloat16), plan.blocks, plan.cluster,
+            plan.smem, _build.stream(imgs))
+    _build.check(rc, "kh_level_polyexp")
     return outs
 
 
@@ -171,7 +373,7 @@ def coarse_polyexp_fused_batch(imgs: torch.Tensor, levels: int,
                                pyr_scale: float, poly_n: int,
                                poly_sigma: float, out_dtype=torch.float32):
     """(N, H, W) frames -> list of (N, 5, lh, lw) planes, coarse levels
-    only, one launch group for all frames."""
+    only, one launch for all frames and levels."""
     if imgs.device.type == "cpu":
         return coarse_polyexp_fused_plain(imgs, levels, pyr_scale, poly_n,
                                           poly_sigma, out_dtype)

@@ -1,5 +1,7 @@
-"""K12 wrapper: one pyramid level of sparse pyramidal Lucas-Kanade for K
-points (csrc/lk.cu).
+"""K12 wrappers: sparse pyramidal Lucas-Kanade for K points, every level
+of a frame step in one launch (`lk_sparse_levels`, the walk) or one level
+(`lk_level`, the one-level launch of the same kernel; it counts in
+lk_sparse_levels.launches) (csrc/lk.cu).
 
 Replaces kalman_hydra_tpu/kernels/lk_pallas.py::lk_sparse (`_lk_level`),
 the per-point kernel of ops/lk.py::_track_point_level in the reference,
@@ -17,6 +19,14 @@ CPU tensors take `lk_level_plain` (_track_point_level line by line,
 batched over K); CUDA tensors launch the kernel, or raise. Both sum the
 windows in float64 (see csrc/lk.cu): summation-order noise in f32 sums
 would otherwise decide the eps early exit of a point now and then.
+
+The walk takes each level's images and Scharr planes (finest first) and
+the level-0 points, and does in the kernel what ops/lk.py did between
+one-level launches (`level_args`: the point and guess clipped to the
+level and moved into its padded frame, the clamp `window`; the answer
+moved back out, x2 between levels, level 0's status). Its plain version,
+`lk_sparse_levels_plain`, is that per-level loop over `lk_level_plain`
+with the torch glue, which `lk_sparse` runs on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ import numpy as np
 import torch
 
 from . import _build
+
+MAX_LEVELS = 8            # levels of one walk (csrc/lk.cu kMaxLevels)
 
 
 def _patches(img, by, bx, fx, fy, win: int, pad: int) -> torch.Tensor:
@@ -104,6 +116,16 @@ def lk_level(img_a, img_b, gx, gy, pt, guess, base, span, pad: int,
         if t.shape != (K, 2):
             raise ValueError(f"lk_level: {name} {tuple(t.shape)} is not "
                              f"({K}, 2)")
+    out, ok = _launch_level(img_a, img_b, gx, gy, pt, guess, base, span,
+                            pad, win, max_iter, eps, min_eig)
+    lk_sparse_levels.launches += K > 0
+    return out, ok
+
+
+def _launch_level(img_a, img_b, gx, gy, pt, guess, base, span, pad, win,
+                  max_iter, eps, min_eig):
+    """kh_lk_level on checked tensors -> (out (K, 2), ok (K,))."""
+    K = pt.shape[0]
     out = torch.empty((K, 2), dtype=torch.float32, device=pt.device)
     ok = torch.empty(K, dtype=torch.bool, device=pt.device)
     if K == 0:
@@ -118,8 +140,143 @@ def lk_level(img_a, img_b, gx, gy, pt, guess, base, span, pad: int,
             max_iter, float(np.float32(eps * eps)), float(min_eig),
             out.data_ptr(), ok.data_ptr(), _build.stream(pt))
     _build.check(rc, "kh_lk_level")
-    lk_level.launches += 1
     return out, ok
 
 
-lk_level.launches = 0
+def _clamp_xy(p: torch.Tensor, lo, hi_x, hi_y) -> torch.Tensor:
+    """(K, 2) (x, y) clamped to [lo, hi_x] x [lo, hi_y] with scalar
+    bounds (no bound tensor to upload)."""
+    return torch.stack([p[:, 0].clamp(lo, hi_x), p[:, 1].clamp(lo, hi_y)],
+                       -1)
+
+
+def window(h: int, w: int, guess: torch.Tensor, win: int, halo: int):
+    """The clamp window of a level's Gauss-Newton steps, (base (K, 2) f32,
+    span (sx, sy)), for an (h, w) level padded by half + 2 and the
+    level's initial guess in padded coordinates: the whole padded level
+    (base 0) at halo 0 or when the level is smaller than the halo'd
+    block; otherwise the block around the initial guess, whose top left
+    is clip(floor(guess - half) - halo, 0, padded extent - block)."""
+    half = (win - 1) * 0.5
+    pad = (win - 1) // 2 + 2
+    hp, wp = h + 2 * pad, w + 2 * pad
+    bb = win + 1 + 2 * halo
+    if halo > 0 and min(hp, wp) >= bb:
+        base = _clamp_xy(torch.floor(guess - half).to(torch.int64) - halo,
+                         0, wp - bb, hp - bb)
+        return base.to(torch.float32), (float(2 * halo), float(2 * halo))
+    return (torch.zeros_like(guess),
+            (wp - 1 - half - 2 - half, hp - 1 - half - 2 - half))
+
+
+def level_args(img_a, img_b, gx, gy, pts, guess, win: int, max_iter: int,
+               eps: float, min_eig: float, halo: int):
+    """The arguments of one level's K12 launch (`lk_level`) from the
+    level's own coordinates: the points clipped to the level, the guess
+    clipped to pad // 2 beyond it, both moved into the padded frame, and
+    the clamp `window`."""
+    h, w = img_a.shape
+    pad = (win - 1) // 2 + 2
+    pt_p = _clamp_xy(pts, 0.0, w - 1.0, h - 1.0) + pad
+    guess_p = _clamp_xy(guess, -float(pad // 2), w - 1.0 + pad // 2,
+                        h - 1.0 + pad // 2) + pad
+    base, span = window(h, w, guess_p, win, halo)
+    return (img_a, img_b, gx, gy, pt_p, guess_p, base, span, pad, win,
+            max_iter, eps, min_eig)
+
+
+def lk_sparse_levels_plain(pyr_a, pyr_b, grads, pts, win: int,
+                           max_iter: int, eps: float, min_eig: float,
+                           halo: int, guess=None):
+    """The walk's plain version: coarsest level first, one
+    `lk_level_plain` call on `level_args`, its answer moved back out of
+    the padded frame, x2 between levels; only level 0's gate and an
+    in-bounds test there enter the status. Returns (points (K, 2), status (K,) bool)."""
+    L = len(pyr_a)
+    guess = pts * (1.0 / (2 ** (L - 1))) if guess is None else guess
+    status = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    for lvl in range(L - 1, -1, -1):
+        gx, gy = grads[lvl]
+        args = level_args(pyr_a[lvl], pyr_b[lvl], gx, gy,
+                          pts * (1.0 / (2 ** lvl)), guess, win, max_iter,
+                          eps, min_eig, halo)
+        new, ok = lk_level_plain(*args)
+        guess = new - args[8]
+        if lvl == 0:
+            h, w = pyr_a[0].shape
+            inb = ((guess[:, 0] >= 0) & (guess[:, 0] <= w - 1)
+                   & (guess[:, 1] >= 0) & (guess[:, 1] <= h - 1))
+            status = status & ok & inb
+        else:
+            guess = guess * 2.0
+    return guess, status
+
+
+def lk_sparse_levels(pyr_a, pyr_b, grads, pts, win: int, max_iter: int,
+                     eps: float, min_eig: float, halo: int, guess=None):
+    """A frame step of sparse LK over the levels of `pyr_a` (each (h, w)
+    f32, finest first), `pyr_b` and the Scharr planes `grads` ((gx, gy)
+    per level of pyr_a): (K, 2) level-0 points -> (new points (K, 2),
+    status (K,) bool). `guess` is the coarsest level's initial guess
+    (default pts / 2^(levels - 1)). `pts` may be a column slice (rows
+    any stride apart, columns adjacent), as the filter state's is."""
+    if pts.device.type == "cpu":
+        return lk_sparse_levels_plain(pyr_a, pyr_b, grads, pts, win,
+                                      max_iter, eps, min_eig, halo, guess)
+    L = len(pyr_a)
+    if not 1 <= L <= MAX_LEVELS or len(pyr_b) != L or len(grads) != L:
+        raise ValueError(f"lk_sparse_levels: {L} levels of images, "
+                         f"{len(pyr_b)} and {len(grads)} of the others "
+                         f"(1 to {MAX_LEVELS}, equal)")
+    f32 = (torch.float32,)
+    K = pts.shape[0]
+    if (pts.device.type != "cuda" or pts.dtype != torch.float32
+            or pts.shape != (K, 2) or pts.stride(1) != 1):
+        raise ValueError(f"lk_sparse_levels: pts must be (K, 2) f32 on the "
+                         f"card with unit column stride, got "
+                         f"{tuple(pts.shape)} {pts.dtype} {pts.device} "
+                         f"strides {pts.stride()}")
+    if guess is not None:
+        _build.require(guess, "guess", f32, 2)
+        if guess.shape != (K, 2):
+            raise ValueError(f"lk_sparse_levels: guess "
+                             f"{tuple(guess.shape)} is not ({K}, 2)")
+    for lvl in range(L):
+        for name, t in zip(("pyr_a", "pyr_b", "gx", "gy"),
+                           (pyr_a[lvl], pyr_b[lvl], *grads[lvl])):
+            _build.require(t, f"{name}[{lvl}]", f32, 2)
+            if t.shape != pyr_a[lvl].shape:
+                raise ValueError(f"lk_sparse_levels: {name}[{lvl}] "
+                                 f"{tuple(t.shape)} is not "
+                                 f"{tuple(pyr_a[lvl].shape)}")
+    out, status = _launch_walk(pyr_a, pyr_b, grads, pts, win, max_iter, eps,
+                               min_eig, halo, guess)
+    lk_sparse_levels.launches += K > 0
+    return out, status
+
+
+def _launch_walk(pyr_a, pyr_b, grads, pts, win, max_iter, eps, min_eig,
+                 halo, guess):
+    """kh_lk_levels on checked tensors -> (out (K, 2), status (K,))."""
+    K = pts.shape[0]
+    out = torch.empty((K, 2), dtype=torch.float32, device=pts.device)
+    status = torch.empty(K, dtype=torch.bool, device=pts.device)
+    if K == 0:
+        return out, status
+    ptrs = np.ascontiguousarray(
+        [[t.data_ptr() for t in (a, b, *g)]
+         for a, b, g in zip(pyr_a, pyr_b, grads)], dtype=np.uint64)
+    dims = np.ascontiguousarray([a.shape for a in pyr_a], dtype=np.int32)
+    P, I, F = _build.P, _build.I, _build.F
+    fn = _build.function("kh_lk_levels", P, P, I, P, I, P, I, I, I, F, F,
+                         I, P, P, P)
+    rc = fn(ptrs.ctypes.data, dims.ctypes.data, len(pyr_a), pts.data_ptr(),
+            pts.stride(0), None if guess is None else guess.data_ptr(), K,
+            win, max_iter,
+            float(np.float32(eps * eps)), float(min_eig), halo,
+            out.data_ptr(), status.data_ptr(), _build.stream(pts))
+    _build.check(rc, "kh_lk_levels")
+    return out, status
+
+
+lk_sparse_levels.launches = 0

@@ -4,9 +4,10 @@ kalman_hydra_tpu/ops/lk.py).
 Sparse (cv2.calcOpticalFlowPyrLK): Scharr/32 derivatives of each level of
 the previous frame's pyramid (one K9 and one K10 launch on the card,
 `lk_pyramid`, cached per frame by the pipeline), then coarsest level
-first one K12 launch per level for all points: bilinear patches, the
+first, one K12 launch for all levels and points: bilinear patches, the
 structure tensor and its min-eigenvalue gate, Gauss-Newton steps with
-the eps early exit, x2 between levels. `FlowConfig.lk_block_halo` > 0
+the eps early exit, x2 between levels, the glue between levels in the
+kernel. `FlowConfig.lk_block_halo` > 0
 clamps each level's moving guess to a halo'd block around its initial
 guess (the reference's batched solvers); `lk_solver` and
 `lk_blocked_gather` choose TPU layouts of that same computation and are
@@ -27,7 +28,7 @@ from typing import Tuple
 import torch
 
 from ..config import FlowConfig
-from ..kernels.lk import lk_level
+from ..kernels.lk import lk_sparse_levels
 from ..kernels.scharr import scharr_gradients_levels
 from ..kernels.scharr import scharr_gradients  # noqa: F401  (ops.lk's API,
 #                                                 as in the reference)
@@ -45,83 +46,23 @@ def lk_pyramid(img: torch.Tensor, cfg: FlowConfig) -> Tuple[tuple, tuple]:
     return tuple(pyr), scharr_gradients_levels(pyr)
 
 
-def _clamp_xy(p: torch.Tensor, lo, hi_x, hi_y) -> torch.Tensor:
-    """(K, 2) (x, y) clamped to [lo, hi_x] x [lo, hi_y] with scalar
-    bounds (no bound tensor to upload)."""
-    return torch.stack([p[:, 0].clamp(lo, hi_x), p[:, 1].clamp(lo, hi_y)],
-                       -1)
-
-
-def lk_window(h: int, w: int, guess: torch.Tensor, cfg: FlowConfig):
-    """The clamp window of a level's Gauss-Newton steps, (base (K, 2) f32,
-    span (sx, sy)), for an (h, w) level padded by half + 2 and the
-    level's initial guess in padded coordinates: the whole padded level
-    (base 0) at lk_block_halo = 0 or when the level is smaller than the
-    halo'd block; otherwise the block around the initial guess, whose top
-    left is clip(floor(guess - half) - halo, 0, padded extent - block)."""
-    win = cfg.lk_winsize
-    half = (win - 1) * 0.5
-    pad = (win - 1) // 2 + 2
-    hp, wp = h + 2 * pad, w + 2 * pad
-    D = cfg.lk_block_halo
-    bb = win + 1 + 2 * D
-    if D > 0 and min(hp, wp) >= bb:
-        base = _clamp_xy(torch.floor(guess - half).to(torch.int64) - D, 0,
-                         wp - bb, hp - bb)
-        return base.to(torch.float32), (float(2 * D), float(2 * D))
-    return (torch.zeros_like(guess),
-            (wp - 1 - half - 2 - half, hp - 1 - half - 2 - half))
-
-
-def lk_level_args(img_a, img_b, gx, gy, pts, guess, cfg: FlowConfig):
-    """The arguments of one level's K12 launch (kernels/lk.py::lk_level)
-    from the level's own coordinates: the points clipped to the level,
-    the guess clipped to pad // 2 beyond it, both moved into the padded
-    frame, and the clamp window of `lk_window`."""
-    h, w = img_a.shape
-    pad = (cfg.lk_winsize - 1) // 2 + 2
-    pt_p = _clamp_xy(pts, 0.0, w - 1.0, h - 1.0) + pad
-    guess_p = _clamp_xy(guess, -float(pad // 2), w - 1.0 + pad // 2,
-                        h - 1.0 + pad // 2) + pad
-    base, span = lk_window(h, w, guess_p, cfg)
-    return (img_a, img_b, gx, gy, pt_p, guess_p, base, span, pad,
-            cfg.lk_winsize, cfg.lk_max_iter, cfg.lk_eps, cfg.lk_min_eig)
-
-
-def lk_sparse_level(img_a, img_b, gx, gy, pts, guess, cfg: FlowConfig):
-    """One level of lk_sparse in the level's own coordinates: one K12
-    launch on `lk_level_args`, its answer moved back out of the padded
-    frame. Returns (guess, ok)."""
-    args = lk_level_args(img_a, img_b, gx, gy, pts, guess, cfg)
-    new, ok = lk_level(*args)
-    return new - args[8], ok
-
-
 def lk_sparse(prev: torch.Tensor, nxt: torch.Tensor, pts: torch.Tensor,
               cfg: FlowConfig, prev_pyr=None, next_pyr=None):
     """Track (K, 2) f32 points from prev to nxt -> (new points (K, 2),
-    status (K,) bool). Only level 0's gate and an in-bounds test at level
-    0 enter the status. `lk_pyramid` pairs of either frame may be passed
-    to skip building them."""
+    status (K,) bool): one K12 launch walks every level (kernels/lk.py::
+    lk_sparse_levels). Only level 0's gate and an in-bounds test at
+    level 0 enter the status. `lk_pyramid` pairs of either frame may be
+    passed to skip building them."""
     pyr_a, grads = prev_pyr if prev_pyr is not None else lk_pyramid(prev,
                                                                     cfg)
     pyr_b = (next_pyr[0] if next_pyr is not None
              else build_pyramid(nxt.to(torch.float32).contiguous(),
                                 cfg.levels))
-    guess = pts * (1.0 / (2 ** (cfg.levels - 1)))
-    status = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
-    for lvl in range(cfg.levels - 1, -1, -1):
-        gx, gy = grads[lvl]
-        guess, ok = lk_sparse_level(pyr_a[lvl], pyr_b[lvl], gx, gy,
-                                    pts * (1.0 / (2 ** lvl)), guess, cfg)
-        if lvl == 0:
-            h, w = pyr_a[0].shape
-            inb = ((guess[:, 0] >= 0) & (guess[:, 0] <= w - 1)
-                   & (guess[:, 1] >= 0) & (guess[:, 1] <= h - 1))
-            status = status & ok & inb
-        else:
-            guess = guess * 2.0
-    return guess, status
+    L = cfg.levels
+    return lk_sparse_levels(tuple(pyr_a[:L]), tuple(pyr_b[:L]),
+                            tuple(grads[:L]), pts, cfg.lk_winsize,
+                            cfg.lk_max_iter, cfg.lk_eps, cfg.lk_min_eig,
+                            cfg.lk_block_halo)
 
 
 def lk_dense(prev: torch.Tensor, nxt: torch.Tensor,

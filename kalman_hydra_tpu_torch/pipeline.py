@@ -28,8 +28,8 @@ filter alone over a supplied flow sequence.
 
 Lucas-Kanade (`FlowConfig.method`): with "lk_sparse" each step tracks
 the filter's positions from the cached `lk_pyramid` of the previous
-frame (K9, K10) with one K12 launch per level and feeds them to a plain
-position Kalman update, a lost point counting as a miss; "lk_dense" is a
+frame (K9, K10) with one K12 launch for all levels and feeds them to a
+plain position Kalman update, a lost point counting as a miss; "lk_dense" is a
 dense flow (K9, K10 and plain torch) that feeds K1 like Farneback's, per
 frame or pair-batched (a loop over the pairs where the reference vmaps).
 

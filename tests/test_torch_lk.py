@@ -23,6 +23,7 @@ from kalman_hydra_tpu.ops import lk as jlk
 from kalman_hydra_tpu.ops import pyramid as jpyr
 from kalman_hydra_tpu.ops import warp as jwarp
 from kalman_hydra_tpu_torch.config import FlowConfig as TFlowConfig
+from kalman_hydra_tpu_torch.kernels import lk as klk
 from kalman_hydra_tpu_torch.kernels.lk import lk_level_plain
 from kalman_hydra_tpu_torch.ops import lk as tlk
 from kalman_hydra_tpu_torch.ops import pyramid as tpyr
@@ -117,9 +118,14 @@ def test_lk_level_plain_matches_pallas_kernel(pair):
     ref, ref_ok = lk_pallas._lk_level(
         jnp.asarray(a), jnp.asarray(b), gx, gy, jnp.asarray(pts),
         jnp.asarray(guess), cfg, interpret=True)
-    got, ok = tlk.lk_sparse_level(
+    tc = _t(cfg)
+    args = klk.level_args(
         *(torch.from_numpy(np.array(x)) for x in (a, b, gx, gy, pts,
-                                                  guess)), _t(cfg))
+                                                  guess)),
+        tc.lk_winsize, tc.lk_max_iter, tc.lk_eps, tc.lk_min_eig,
+        tc.lk_block_halo)
+    got, ok = klk.lk_level(*args)
+    got = got - args[8]
     ref_ok = np.asarray(ref_ok)
     np.testing.assert_array_equal(ok.numpy(), ref_ok)
     assert ref_ok.sum() >= 8
@@ -204,8 +210,9 @@ def test_lk_sparse_tiny_level_fallback():
                                seed=5)
     cfg = FlowConfig(levels=2, lk_block_halo=8, lk_solver="corr_conv")
     g = torch.zeros(1, 2)
-    assert tlk.lk_window(13, 27, g, _t(cfg))[1] != (16.0, 16.0)
-    assert tlk.lk_window(25, 53, g, _t(cfg))[1] == (16.0, 16.0)
+    win, halo = cfg.lk_winsize, cfg.lk_block_halo
+    assert klk.window(13, 27, g, win, halo)[1] != (16.0, 16.0)
+    assert klk.window(25, 53, g, win, halo)[1] == (16.0, 16.0)
     pts = np.array([[20.0, 12.0], [30.0, 14.0], [12.0, 10.0], [40.0, 8.0],
                     [26.0, 16.0]], np.float32)
     ref, ref_st = _ref_sparse(a, b, pts, cfg, jit=True)
@@ -224,7 +231,8 @@ def test_lk_level_plain_counts_its_steps(pair):
     a, b = (torch.from_numpy(p.astype(np.float32)) for p in pair)
     gx, gy = tlk.scharr_gradients(a)
     pts = torch.from_numpy(_PTS) + 12.0
-    base, span = tlk.lk_window(96, 128, pts, cfg)
+    base, span = klk.window(96, 128, pts, cfg.lk_winsize,
+                            cfg.lk_block_halo)
     args = (a, b, gx, gy, pts, pts, base, span, 12, 21, 10, 0.01, 1e-4)
     g, ok, iters = lk_level_plain(*args, with_iters=True)
     g2, ok2 = lk_level_plain(*args)

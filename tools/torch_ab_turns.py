@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Frames/s of the port's paths A, B, AP, D and BX for two checkouts, in
-turns.
+"""Frames/s of the port's paths A, B, AP, D, BX and H for two checkouts,
+in turns.
 
     python3 tools/torch_ab_turns.py OLD_ROOT NEW_ROOT [--turns 4]
 
@@ -23,7 +23,7 @@ import sys
 import time
 from pathlib import Path
 
-PATHS = ("A", "B", "AP", "D", "BX")
+PATHS = ("A", "B", "AP", "D", "BX", "H")
 
 
 def child(root: str) -> None:
@@ -41,7 +41,7 @@ def child(root: str) -> None:
     clip_b = smoke.blob_clip(smoke.T_B, smoke.H_B, smoke.W_B)
     runs = {"A": (clip, cfgs["A"]), "B": (clip_b, cfgs["B"]),
             "AP": (clip, cfgs["AP"]), "D": (clip, cfgs["D"]),
-            "BX": (clip_b, cfgs["BX"])}
+            "BX": (clip_b, cfgs["BX"]), "H": (clip, cfgs["H"])}
     out = {}
     for name, (c, cfg) in runs.items():
         api.track_video(c, cfg, device=dev)          # build and warm up
