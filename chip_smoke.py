@@ -9,14 +9,19 @@ prints no result line):
      and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc, one process per source
      (build time printed); count the device kernels of one call of K4,
-     K7b and K12's walk under torch.profiler (one each);
+     K7b, K12's walk, K5's walk, K3 and K7a under torch.profiler (one
+     each);
   3. hold each kernel against its plain PyTorch version on the card at
      the shapes its path gives it, with the stated bars, and each batched
-     kernel against its per-item kernel (bit for bit; K5 and K13 against
-     n_iters K2 launches, K8-pairs against per-pair K8, K9's and K10's
+     kernel against its per-item kernel (bit for bit; K5's one-level
+     launch and K13 against n_iters K2 launches, K5's walk against its
+     per-level route, K8-pairs against per-pair K8, K9's and K10's
      one launch a pyramid against their one-level launches), the fused
      K2 against the output bytes of the three-launch K2 it replaced
-     (K2_WITNESS) and against K5 at one iteration, and K8 and K8-pairs,
+     (K2_WITNESS) and against K5 at one iteration, K5's walk (every gated
+     level of a frame pair in one launch, the resizes inside) against
+     the bytes of the per-level route it replaced (K5_WITNESS), K7a
+     against the first design's bytes (K7A_WITNESS), and K8 and K8-pairs,
      the exact gather in the kernel, against the output bytes of the
      parent route they replaced, the plain gather then the three-launch
      kernel (K8_WITNESS), K7b and K4 in one launch against the bytes of
@@ -37,7 +42,8 @@ prints no result line):
   5. drive the paths through the public API, with every launch counter
      reset just before each and read just after:
        A. api.track_video, 1080x1920 T=9, K=1024, the headline graph
-          (fi_level_fused=True): K5 on the levels under its gate;
+          (fi_level_fused=True): one K5 walk a step over the levels
+          under its gate;
        B. api.track_video, 720x1280 T=17, K=1024, pair_path_config()
           (bench cfg3's pair-batched graph);
        C. api.track_videos, 4 clips of 1080x1920 T=9, K=1024, the main
@@ -545,18 +551,26 @@ def k7b_witness_hash(key, dev) -> str:
     return tensors_hash(outs)
 
 
-@phase("device launches a call of K4, K7b and K12's walk (profiler)")
+@phase("device launches a call of K4, K7b, K12's and K5's walks, K3 and "
+       "K7a (profiler)")
 def check_launches(dev, clip, clip_b, cfg, cfg_h):
     """torch.profiler's device kernels of one call of K4 (a 1080p frame),
-    K7b (B's 17 720p frames, and 4 x 9 1080p frames as path C) and K12's
-    walk (a 1080p frame pair of path H): one each, where the routes they
-    replaced made 15 (five coarse levels x vertical, horizontal, K3) and
-    5 (a level each, and the glue between)."""
+    K7b (B's 17 720p frames, and 4 x 9 1080p frames as path C), K12's
+    walk (a 1080p frame pair of path H), K5's walk (the gated levels of a
+    1080p frame pair of path A), K3 (a 1080p frame) and K7a (C's 36
+    frames): one each, where the routes they replaced made 15 (five
+    coarse levels x vertical, horizontal, K3), 5 (a level each, and the
+    glue between) and 4 (a level each, and the resizes between)."""
     from kalman_hydra_tpu_torch.kernels.level_image import (
         coarse_polyexp_fused, coarse_polyexp_fused_batch)
+    from kalman_hydra_tpu_torch.kernels.flow_level import fits, flow_levels
     from kalman_hydra_tpu_torch.kernels.lk import lk_sparse_levels
+    from kalman_hydra_tpu_torch.kernels.polyexp import (
+        poly_expansion_planar, poly_expansion_planar_batch)
     from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    from kalman_hydra_tpu_torch.ops.farneback import polyexp_pyramid
     from kalman_hydra_tpu_torch.ops.lk import lk_pyramid
+    from kalman_hydra_tpu_torch.ops.pyramid import gaussian_blur_level
     f = cfg.flow
     args = (f.levels, f.pyr_scale, f.poly_n, f.poly_sigma)
     bf = torch.bfloat16
@@ -565,6 +579,12 @@ def check_launches(dev, clip, clip_b, cfg, cfg_h):
     grays_c = g0.expand(N_CLIPS * T, H, W).contiguous()
     fl = cfg_h.flow
     pa, pb = lk_pyramid(g0, fl), lk_pyramid(g1, fl)
+    ra, rb = polyexp_pyramid(g0, f), polyexp_pyramid(g1, f)
+    R0s = [R for R in ra if fits(R.shape[1], R.shape[2], 2)]
+    R1s = rb[:len(R0s)]
+    fl0 = torch.zeros((2,) + tuple(R0s[0].shape[1:]), device=dev)
+    img0 = gaussian_blur_level(g0, f, k=0)
+    imgs0 = img0.expand(N_CLIPS * T, H, W).contiguous()
     calls = {
         "K4 1080x1920": lambda: coarse_polyexp_fused(g0, *args,
                                                      out_dtype=bf),
@@ -574,7 +594,14 @@ def check_launches(dev, clip, clip_b, cfg, cfg_h):
             grays_c, *args, out_dtype=bf),
         "K12 walk, 5 levels, K=1024": lambda: lk_sparse_levels(
             pa[0], pb[0], pa[1], pts, fl.lk_winsize, fl.lk_max_iter,
-            fl.lk_eps, fl.lk_min_eig, fl.lk_block_halo)}
+            fl.lk_eps, fl.lk_min_eig, fl.lk_block_halo),
+        f"K5 walk, {len(R0s)} levels": lambda: flow_levels(
+            R0s, R1s, fl0, f.winsize, f.fast_warp, f.iterations, False,
+            f.pyr_scale),
+        "K3 1080x1920": lambda: poly_expansion_planar(
+            img0, f.poly_n, f.poly_sigma, bf),
+        f"K7a {H}x{W} N={N_CLIPS * T}": lambda: poly_expansion_planar_batch(
+            imgs0, f.poly_n, f.poly_sigma, bf)}
     bad = []
     for name, fn in calls.items():
         # warmed and timed first, as tools/torch_level_lk_ab.py does: a
@@ -729,8 +756,8 @@ def check_k2_witness(dev):
     """The fused K2 against the old K2 it replaced: its output bytes on
     witness_inputs at 1080x1920, 540x960 and 37x53 (f32 and bf16 planes,
     box and Gaussian windows) hash to K2_WITNESS; and K5 at one iteration
-    (csrc/flow_level.cu, the per-pixel code on (5, h, w) planes in device
-    memory) gives the same output bit for bit."""
+    (flow_level, the walk's one-level launch) gives the same output bit
+    for bit."""
     import hashlib
     from kalman_hydra_tpu_torch.kernels.flow_iter import flow_iter
     from kalman_hydra_tpu_torch.kernels.flow_level import flow_level
@@ -753,81 +780,268 @@ def check_k2_witness(dev):
     assert not bad, f"the fused K2 differs from the old one on {bad}"
 
 
-@phase("K5 flow_level")
+@phase("K5 flow_levels (the walk) and flow_level (its one-level launch)")
 def check_k5(dev, clip, cfg, results):
-    """K5 at every 1080p level under its gate, on the polyexp planes of
-    frames 0 and 1 and a random prior flow of +-3 px: against the plain
-    version (f32 and bf16 planes, box and Gaussian windows) and against
-    three K2 launches; times of K5, plain and the 3 x K2 route."""
+    """K5's walk over the 1080p levels under its gate, on the polyexp
+    planes of frames 0 and 1 and a random prior flow of +-3 px at the
+    coarsest: against the plain version (< 1e-4; f32 and bf16 planes, box
+    and Gaussian windows) and against the per-level route of one-level
+    launches with resize_linear between them (bit for bit); the one-level
+    launch on every gated level against 3 K2 launches (bit for bit).
+    Timed at bf16 against the per-level route and the plain version."""
     from kalman_hydra_tpu_torch.kernels.flow_iter import flow_iter
     from kalman_hydra_tpu_torch.kernels.flow_level import (
-        fits, flow_level, flow_level_plain)
+        fits, flow_level, flow_levels, flow_levels_plain)
     from kalman_hydra_tpu_torch.ops.color import grayscale_u8
     from kalman_hydra_tpu_torch.ops.farneback import polyexp_pyramid
     f = cfg.flow
     f32 = dataclasses.replace(f, bf16_poly=False)
     grays = [grayscale_u8(torch.from_numpy(clip[i]).to(dev)) for i in (0, 1)]
     pyrs = [polyexp_pyramid(gr, f32) for gr in grays]
+    gated = [i for i, R in enumerate(pyrs[0])
+             if fits(R.shape[1], R.shape[2], 2)]
     g = torch.Generator().manual_seed(5)
-    D, it, wins = f.fast_warp, f.iterations, f.winsize
-    worst = worst_k2 = 0.0
-    tot = {"kernel": 0.0, "plain": 0.0, "k2": 0.0, "kernel dev": 0.0,
-           "k2 dev": 0.0}
-    nbytes = flops = 0
-    taps = 2 * (wins // 2) + 1
-    gated = 0
-    for R0f, R1f in zip(*pyrs):
-        lh, lw = R0f.shape[1:]
-        if not fits(lh, lw, 2):
-            continue
-        gated += 1
-        fl = (torch.rand(2, lh, lw, generator=g) * 6 - 3).to(dev)
-        line = []
-        for dt in (torch.float32, torch.bfloat16):
-            a, b = R0f.to(dt), R1f.to(dt)
-            for gw in (False, True):
-                got = flow_level(a, b, fl, wins, D, it, gw)
-                e = max_err(got, flow_level_plain(a, b, fl, wins, D, it, gw))
-                via = fl
+    D, it, wins, ps = f.fast_warp, f.iterations, f.winsize, f.pyr_scale
+    lh, lw = pyrs[0][gated[0]].shape[1:]
+    fl = (torch.rand(2, lh, lw, generator=g) * 6 - 3).to(dev)
+    worst = worst_route = worst_k2 = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        R0s = [pyrs[0][i].to(dt) for i in gated]
+        R1s = [pyrs[1][i].to(dt) for i in gated]
+        for gw in (False, True):
+            got = flow_levels(R0s, R1s, fl, wins, D, it, gw, ps)
+            e = max_err(got, flow_levels_plain(R0s, R1s, fl, wins, D, it,
+                                               gw, ps))
+            e1 = max_err(got, k5_route(R0s, R1s, fl, wins, D, it, gw, ps))
+            worst, worst_route = max(worst, e), max(worst_route, e1)
+            log(f"  K5 walk {[tuple(R.shape[1:]) for R in R0s]} "
+                f"{str(dt)[6:]}{'/gauss' if gw else ''}: vs plain {e:.2e}, "
+                f"vs the per-level route {e1:.1e}")
+            for a, b in zip(R0s, R1s):
+                pr = (torch.rand(2, *a.shape[1:], generator=g) * 6
+                      - 3).to(dev)
+                via = pr
                 for _ in range(it):
                     via = flow_iter(a, b, via, wins, D, gw)
-                e2 = max_err(got, via)
-                worst, worst_k2 = max(worst, e), max(worst_k2, e2)
-                line.append(f"{str(dt)[6:]}{'/gauss' if gw else ''} "
-                            f"{e:.2e} (vs 3xK2 {e2:.1e})")
-        log(f"  K5 {lh}x{lw}: " + ", ".join(line))
-        a, b = R0f.to(torch.bfloat16), R1f.to(torch.bfloat16)
+                worst_k2 = max(worst_k2, max_err(
+                    flow_level(a, b, pr, wins, D, it, gw), via))
+    log(f"  K5 over the {len(gated)} gated levels: max_abs_err vs plain "
+        f"{worst:.3e} (bar 1e-4); vs the per-level route {worst_route:.1e}"
+        f" and one level vs {it} x K2 {worst_k2:.1e} (bar 0)")
+    assert gated and worst < 1e-4 and worst_route == 0.0 and worst_k2 == 0.0
+    R0s = [pyrs[0][i].to(torch.bfloat16) for i in gated]
+    R1s = [pyrs[1][i].to(torch.bfloat16) for i in gated]
+    ms = time_turns({
+        "plain": lambda: flow_levels_plain(R0s, R1s, fl, wins, D, it, False,
+                                           ps),
+        "kernel": lambda: flow_levels(R0s, R1s, fl, wins, D, it, False, ps),
+        "route": lambda: k5_route(R0s, R1s, fl, wins, D, it, False, ps)})
+    log(f"  K5 walk bf16: {ms['kernel']:.4f} ms per call "
+        f"({ms['kernel dev']:.4f} on the device); the per-level route "
+        f"{ms['route']:.4f} ms ({ms['route dev']:.4f}); plain "
+        f"{ms['plain']:.4f} ms")
+    px = sum(R.shape[1] * R.shape[2] for R in R0s)
+    taps = 2 * (wins // 2) + 1
+    # the planes of every level and the prior in, the last flow out
+    record(results, "flow_levels", worst, ms["kernel"], ms["plain"],
+           px * 10 * 2 + fl.numel() * 4 + 8 * R0s[-1].shape[1]
+           * R0s[-1].shape[2], it * px * fi_flops(taps), dev=ms)
+    results["flow_levels"].update(route_ms=ms["route"],
+                                  route_device_ms=ms["route dev"])
 
-        def k2_route(a=a, b=b, fl=fl):
-            out = fl
-            for _ in range(it):
-                out = flow_iter(a, b, out, wins, D)
-            return out
-        ms = time_turns({
-            "plain": lambda a=a, b=b, fl=fl: flow_level_plain(a, b, fl, wins,
-                                                              D, it),
-            "kernel": lambda a=a, b=b, fl=fl: flow_level(a, b, fl, wins, D,
-                                                         it),
-            "k2": k2_route})
-        log(f"  K5 {lh}x{lw} bf16 time: kernel {ms['kernel']:.4f} ms "
-            f"({ms['kernel dev']:.4f} on the device), {it} x K2 "
-            f"{ms['k2']:.4f} ms ({ms['k2 dev']:.4f}), plain "
-            f"{ms['plain']:.4f} ms")
-        for k in tot:
-            tot[k] += ms[k]
-        how = ms["kernel how"]
-        nbytes += lh * lw * (10 * 2 + 8 + 8)
-        flops += it * lh * lw * fi_flops(taps)
-    log(f"  K5 over the {gated} gated levels: max_abs_err vs plain "
-        f"{worst:.3e} (bar 1e-4); vs {it} x K2 {worst_k2:.3e} (bar 0, "
-        f"shared device code: {'bit-identical' if worst_k2 == 0 else 'NOT'})"
-        f"; one frame pair's K5 calls {tot['kernel']:.4f} ms against "
-        f"{tot['k2']:.4f} ms for the K2 route")
-    assert gated > 0 and worst < 1e-4 and worst_k2 == 0.0
-    record(results, "flow_level", worst, tot["kernel"], tot["plain"],
-           nbytes, flops, dev=dict(tot, **{"kernel how": how}))
-    results["flow_level"].update(k2_route_ms=tot["k2"],
-                                 k2_route_device_ms=tot["k2 dev"])
+
+@phase("K5's walk against the per-level route's outputs (bit for bit)")
+def check_k5_witness(dev):
+    """The walk (one launch for every gated level, the resizes inside)
+    against the route it replaced: its output bytes on every K5_WITNESS
+    case (1080x1920, 720x1280 and 150x203; f32 and bf16; box and
+    Gaussian; zero and random prior) hash to the old route's."""
+    from kalman_hydra_tpu_torch.kernels.flow_level import flow_levels
+    bad = []
+    for key, want in K5_WITNESS.items():
+        same = k5_witness_hash(key, dev, flow_levels) == want
+        log(f"  {key}: {'same bytes' if same else 'DIFFERENT bytes'} as "
+            f"the old route")
+        if not same:
+            bad.append(key)
+    assert not bad, f"K5's walk differs from the old route on {bad}"
+
+
+@phase("K7a against the first design's outputs (bit for bit)")
+def check_k7a_witness(dev):
+    """K7a (the redesigned polyexp, K3's kernel) on every K7A_WITNESS case
+    (720x1280 N=17 and 1080x1920 N=36; f32 and bf16; poly_n 5 and 7)
+    hashes to the first design's bytes."""
+    bad = []
+    for key, want in K7A_WITNESS.items():
+        same = k7a_witness_hash(key, dev) == want
+        log(f"  {key}: {'same bytes' if same else 'DIFFERENT bytes'} as "
+            f"the first design")
+        if not same:
+            bad.append(key)
+    assert not bad, f"K7a differs from the first design on {bad}"
+
+
+# sha256 of the output bytes of the route that K5's walk replaced (commit
+# fad7b1c: one K5 launch a gated level, with resize_linear(...) * (1 /
+# pyr_scale) between them, as farneback_from_pyramids ran it), the finest
+# gated level's flow, on k5_witness_case's inputs at winsize 15, max_disp
+# 8, 3 iterations, pyr_scale 0.5. Computed by tools/torch_walk_ab.py on
+# that commit, on an NVIDIA H100 80GB HBM3.
+K5_WITNESS = {
+    "K5 1080x1920 float32 box zero":
+        "6a5c3561c8374ab851982d368b7560213532af36ea44f3ca3b6ef17524202f7a",
+    "K5 1080x1920 float32 box prior":
+        "d32098bdfde1947a003fea7c8f0733307df4534184502ada7da86f532527920d",
+    "K5 1080x1920 float32 gauss zero":
+        "c08a02ee41d343c6c0f9aa39a9f5a0ae52cf4c543757a8e0b498fe2843c6cfbc",
+    "K5 1080x1920 float32 gauss prior":
+        "e2df9be5e32b64b53274169ee21fd74baa512f6dc2a42a99386f7a4311097ebc",
+    "K5 1080x1920 bfloat16 box zero":
+        "81708e3e7d19d328b00a49474022727684063cf09a5771a81a21c7cb3d35a656",
+    "K5 1080x1920 bfloat16 box prior":
+        "50f47f810b19d3636b2c43cbd70d825e89bed973e88cc52b5e94a10221ab6899",
+    "K5 1080x1920 bfloat16 gauss zero":
+        "844a45fb891b989c2f2b4e4d85d0e2b8d43d6df85db9a16ff13c47831ed3dc78",
+    "K5 1080x1920 bfloat16 gauss prior":
+        "5d8a16aa5ffdb7be33353c1e5206d89c931be4e34b8f6f1fd4692dcdf859ea8f",
+    "K5 720x1280 float32 box zero":
+        "814f48f4d66af8de0a53e47875bfff728beeb0b1e78dedcf2bb0a243602873c7",
+    "K5 720x1280 float32 box prior":
+        "ffe99e3de68e19ab1ce3991a1de7520cb183a152e91ad9a81918cd128528ad4d",
+    "K5 720x1280 float32 gauss zero":
+        "95bc96328c9c197d59ab8073e9688c54a1c318e330821e127031d399e2ea5f26",
+    "K5 720x1280 float32 gauss prior":
+        "d886d7e5ccb14e9946c3b8834744562b87e0a90ff17e4365849f09d5fdc52dce",
+    "K5 720x1280 bfloat16 box zero":
+        "76cdb6a5a34ee04d0b45b515eb88703540b110030d731aa36fa7d790455cf0d0",
+    "K5 720x1280 bfloat16 box prior":
+        "eed9a4be15e1c787aea78aef8b3a955a77c825c1681c67dfc8bde19cff542575",
+    "K5 720x1280 bfloat16 gauss zero":
+        "4b67aa6a5c780f799ff4fe03422acaab8733ef501992083adfcfa5c10eee570f",
+    "K5 720x1280 bfloat16 gauss prior":
+        "6a53c4c5826f9f1f020d0f4fac9900f52d98d924fb02c1e5d3efdcda558b3cdf",
+    "K5 150x203 float32 box zero":
+        "1d5aa934b20a81f2319b95594f12fa0ba160b8d3d986520eb812641c2dd054c4",
+    "K5 150x203 float32 box prior":
+        "58f7250b0e1050a6a94c5d52871b006ad03372464a6084147d224794c0460886",
+    "K5 150x203 float32 gauss zero":
+        "77883d8e34aa777b64c618a23292858adfdce02d587cae533da58970411b4239",
+    "K5 150x203 float32 gauss prior":
+        "33efaaec867b1a53db85e8476d2058d19103f4f1b7206516214871c36d83c2cf",
+    "K5 150x203 bfloat16 box zero":
+        "387d27d2198d8a4b6c16ff144551b3a5a0d912e9e93e4c38b88d371058242dc7",
+    "K5 150x203 bfloat16 box prior":
+        "05832a8fd5aa372d9245c8ca7ced29d2fbbaa544b5c7badd1e4100117a613ac2",
+    "K5 150x203 bfloat16 gauss zero":
+        "33ab8db9e910a1bb57dbd1e11aee96f8ced6daed972e2ae890f15f8a9ca744a0",
+    "K5 150x203 bfloat16 gauss prior":
+        "8323f389c75029c2b25b19acc2cb18f7dbf1de9fb1f7e35badbdce926ae7ac4f",
+}
+K5_SHAPES = ((1080, 1920), (720, 1280), (150, 203))
+K5_ARGS = (15, 8, 3)               # winsize, max_disp, iterations
+
+
+def k5_witness_keys() -> list:
+    return [f"K5 {h}x{w} {dt} {win} {prior}" for h, w in K5_SHAPES
+            for dt in ("float32", "bfloat16") for win in ("box", "gauss")
+            for prior in ("zero", "prior")]
+
+
+def k5_witness_case(key, dev):
+    """The inputs of a K5_WITNESS key, "K5 <h>x<w> <dtype> <box|gauss>
+    <zero|prior>": (R0s, R1s, flow, gaussian). R0s and R1s are (5, lh,
+    lw) planes of every level of the shape's Farneback plan (5 levels,
+    pyr_scale 0.5) that passes K5's gate, coarsest first: standard normal
+    from numpy's legacy generator (the same numbers on every machine),
+    cast to the dtype; flow is the coarsest level's prior, zero or
+    uniform in +-3 px."""
+    from kalman_hydra_tpu_torch.kernels.flow_level import fits
+    from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
+    _, shape, dt, win, prior = key.split()
+    h, w = map(int, shape.split("x"))
+    dt = getattr(torch, dt)
+    isz = torch.empty((), dtype=dt).element_size()
+    rs = np.random.RandomState(13)
+    R0s, R1s = [], []
+    for (_k, lh, lw, _s, _ks) in farneback_levels(h, w, 5, 0.5):
+        if not fits(lh, lw, isz):
+            break
+        for out in (R0s, R1s):
+            out.append(torch.from_numpy(rs.standard_normal(
+                (5, lh, lw)).astype(np.float32)).to(dev).to(dt))
+    lh, lw = R0s[0].shape[1:]
+    fl = np.zeros((2, lh, lw), np.float32)
+    if prior == "prior":
+        fl = (rs.random_sample((2, lh, lw)) * 6 - 3).astype(np.float32)
+    return R0s, R1s, torch.from_numpy(fl).to(dev), win == "gauss"
+
+
+def k5_route(R0s, R1s, flow, winsize, max_disp, iters, gaussian,
+             pyr_scale):
+    """The gated levels as farneback_from_pyramids ran them before the
+    walk: one K5 launch a level, the flow resized and scaled between."""
+    from kalman_hydra_tpu_torch.kernels.flow_level import flow_level
+    from kalman_hydra_tpu_torch.ops.pyramid import resize_linear
+    for i, (a, b) in enumerate(zip(R0s, R1s)):
+        if i:
+            flow = resize_linear(flow, a.shape[1], a.shape[2]) * (
+                1.0 / pyr_scale)
+        flow = flow_level(a, b, flow, winsize, max_disp, iters, gaussian)
+    return flow
+
+
+def k5_witness_hash(key, dev, walk) -> str:
+    """The hash of `walk(R0s, R1s, flow, winsize, max_disp, iters,
+    gaussian, pyr_scale)` on the key's case (flow_levels or k5_route)."""
+    R0s, R1s, fl, gw = k5_witness_case(key, dev)
+    return tensors_hash([walk(R0s, R1s, fl, *K5_ARGS, gw, 0.5)])
+
+
+# sha256 of K7a's output bytes before its redesign (commit fad7b1c: one
+# 16 x 64 tile a block, taps read from shared memory) on k7a_witness_case's
+# frames; computed by tools/torch_walk_ab.py on that commit, on an NVIDIA
+# H100 80GB HBM3.
+K7A_WITNESS = {
+    "K7a 720x1280 N=17 float32 n5":
+        "dd3e149b7e225507e64ac6f009ab97c5d39f68bab38c61f7655803c468212a04",
+    "K7a 720x1280 N=17 float32 n7":
+        "5a98387d3e5c242576a172faf80a13efe7025a2c24d1bf3d8f0b8a4dff1f3f51",
+    "K7a 720x1280 N=17 bfloat16 n5":
+        "c79628a2c46cb802efe42fdcd1da6fbc00b54418f52dcef9f8388b50366fc742",
+    "K7a 720x1280 N=17 bfloat16 n7":
+        "508474b1ba7d0ad907673fe486dcc58cd93430f967cc371d99937458940a8001",
+    "K7a 1080x1920 N=36 float32 n5":
+        "4a4d7d7b9f25e5f1f8e86ce48b100cf3ca04a9e6b3b79536d0d4305c0500434d",
+    "K7a 1080x1920 N=36 float32 n7":
+        "54337f6d50d47705508fae04613b639ef7dea84a496859be337dba38265bf213",
+    "K7a 1080x1920 N=36 bfloat16 n5":
+        "c4baced56f964608577e338c2449428b642937b98af6622666ec35fe4c8d90c2",
+    "K7a 1080x1920 N=36 bfloat16 n7":
+        "2f724b3141e779923b5c0177e56d75bf4e1f5afe101424f8e4daca8debeaffb8",
+}
+K7A_SHAPES = ((720, 1280, 17), (1080, 1920, 36))
+
+
+def k7a_witness_keys() -> list:
+    return [f"K7a {h}x{w} N={nf} {dt} n{n}" for h, w, nf in K7A_SHAPES
+            for dt in ("float32", "bfloat16") for n in (5, 7)]
+
+
+def k7a_witness_hash(key, dev) -> str:
+    """K7a on "K7a <h>x<w> N=<frames> <dtype> n<poly_n>": u8-scale uniform
+    noise frames from numpy's legacy generator, as k7b_witness_case."""
+    from kalman_hydra_tpu_torch.kernels.polyexp import (
+        poly_expansion_planar_batch)
+    _, shape, frames, dt, pn = key.split()
+    h, w = map(int, shape.split("x"))
+    n = int(pn[1:])
+    rs = np.random.RandomState(9)
+    imgs = torch.from_numpy((rs.random_sample((int(frames[2:]), h, w))
+                             * 255).astype(np.float32)).to(dev)
+    out = poly_expansion_planar_batch(imgs, n, POLY_SIGMA[n],
+                                      getattr(torch, dt))
+    return tensors_hash([out])
 
 
 def update_flops(taps: int, gaussian: bool = False) -> int:
@@ -1798,7 +2012,7 @@ def per_frame_expected(cfg, h, w, t) -> dict:
         if f.fast_warp <= 0:
             e["flow_update"] += f.iterations * (t - 1)
         elif f.fi_level_fused and fits(lh, lw, 2 if f.bf16_poly else 4):
-            e["flow_level"] += t - 1
+            e["flow_levels"] = t - 1        # one walk over them all
         elif f.fi_pipeline and f.iterations >= 2:
             e["flow_iters_pipelined"] += t - 1
         else:
@@ -2491,7 +2705,7 @@ _KERNELS = {   # wrapper: (CUDA source, TPU entry point it replaces, in
     "flow_iter": ("flow_iter.cu", "flow_iter_pallas.py:802"),
     "poly_expansion_planar": ("polyexp.cu", "polyexp_pallas.py:140"),
     "coarse_polyexp_fused": ("level_image.cu", "level_image_pallas.py:195"),
-    "flow_level": ("flow_level.cu", "flow_level_pallas.py:226"),
+    "flow_levels": ("flow_level.cu", "flow_level_pallas.py:226"),
     "flow_iter_pairs": ("flow_iter.cu", "flow_iter_pallas.py:530"),
     "poly_expansion_planar_batch": ("polyexp.cu", "polyexp_pallas.py:218"),
     "coarse_polyexp_fused_batch": ("level_image.cu",
@@ -2635,8 +2849,10 @@ def main() -> int:
     check_k2(dev, cfg, results)
     check_k2_witness(dev)
     check_k5(dev, clip, cfg, results)
+    check_k5_witness(dev)
     check_k6(dev, clip_b, pair_cfg, results)
     check_k7(dev, clip_b, clips_c, cfg, results)
+    check_k7a_witness(dev)
     check_k8(dev, clip, cfgs["D"], results)
     check_k8_witness(dev)
     check_k11(dev, gray, cfgs["D2"], results)

@@ -20,13 +20,13 @@
 //
 // Each step's arithmetic is written once: warp_m / exact_m / normal_eqs
 // return M's five values, tap() is the one window multiply-add, solve()
-// the 2x2 solve. The *_at functions store and load them in (5, h, w)
-// planes (K5); csrc/flow_tile.cuh keeps them in shared memory (K2, K6,
-// K8, K13).
+// the 2x2 solve; csrc/flow_tile.cuh keeps them in shared memory. The
+// select-sum warp reads the prior flow through an accessor: the (2, h, w)
+// planes (PlaneFlow), or K5's prior resized from the coarser level on the
+// fly (csrc/flow_level.cu).
 //
-// M, Mv and the flow carry no __restrict__: K5 writes and reads them in
-// one launch (across grid syncs), and K13 reads flows that other blocks
-// of its launch wrote, where read-only loads would be wrong.
+// The flow carries no __restrict__: K5 and K13 read flows that other
+// blocks of their launch wrote, where read-only loads would be wrong.
 #pragma once
 
 #include "common.cuh"
@@ -41,11 +41,24 @@ __device__ __forceinline__ float damp1(int i, int n) {
   return d < 2 ? 0.14f : 0.4472f;
 }
 
-template <typename PT>
+// The prior flow of the select-sum warp as (2, h, w) planes.
+struct PlaneFlow {
+  const float* f;
+  int w;
+  long plane;
+  __device__ __forceinline__ float dx(int r, int c) const {
+    return f[(long)r * w + c];
+  }
+  __device__ __forceinline__ float dy(int r, int c) const {
+    return f[plane + (long)r * w + c];
+  }
+};
+
+template <typename PT, typename Flow>
 __device__ __forceinline__ void vlerp(const PT* __restrict__ R1,
-                                      const float* fy, int r, int c, int h,
+                                      const Flow& fl, int r, int c, int h,
                                       int w, float D, float v[5]) {
-  const float dy = fminf(fmaxf(fy[(long)r * w + c], -D), D);
+  const float dy = fminf(fmaxf(fl.dy(r, c), -D), D);
   const float yf = floorf(dy);
   const float ay = dy - yf;
   const int yi = static_cast<int>(yf);
@@ -84,15 +97,6 @@ __device__ __forceinline__ void normal_eqs(const PT* __restrict__ R0,
   m[2] = a_yy * a_yy + axy * axy;
   m[3] = a_xx * db_x + axy * db_y;
   m[4] = axy * db_x + a_yy * db_y;
-}
-
-// m[5] into M (5, h, w) at (r, c).
-__device__ __forceinline__ void store_m(const float m[5], int h, int w,
-                                        int r, int c, float* M) {
-  const long plane = (long)h * w;
-  const long o = (long)r * w + c;
-#pragma unroll
-  for (int p = 0; p < 5; ++p) M[p * plane + o] = m[p];
 }
 
 // normal_eqs with every product and sum rounded on its own, in the order
@@ -195,39 +199,26 @@ __device__ __forceinline__ void exact_m(const PT* __restrict__ R0,
     m[p] = __bfloat162float(__float2bfloat16_rn(m[p]));
 }
 
-// Phase 1 at (r, c): warp R1 by `flow` (2, h, w), M's five values into
-// m[5].
-template <typename PT>
+// Phase 1 at (r, c): warp R1 by the prior flow `fl` (PlaneFlow or
+// another accessor with dx(r, c) and dy(r, c)), M's five values into m[5].
+template <typename PT, typename Flow>
 __device__ __forceinline__ void warp_m(const PT* __restrict__ R0,
                                        const PT* __restrict__ R1,
-                                       const float* flow, int h, int w,
+                                       const Flow& fl, int h, int w,
                                        float D, int r, int c, float m[5]) {
-  const long plane = (long)h * w;
-  const long o = (long)r * w + c;
-  const float dx = flow[o], dy = flow[plane + o];
+  const float dx = fl.dx(r, c), dy = fl.dy(r, c);
   const float dxc = fminf(fmaxf(dx, -D), D);
   const float xf = floorf(dxc);
   const float ax = dxc - xf;
   const int xi = static_cast<int>(xf);
   float va[5], vb[5];
-  vlerp(R1, flow + plane, r, clampi(c + xi, 0, w - 1), h, w, D, va);
-  vlerp(R1, flow + plane, r, clampi(c + xi + 1, 0, w - 1), h, w, D, vb);
+  vlerp(R1, fl, r, clampi(c + xi, 0, w - 1), h, w, D, va);
+  vlerp(R1, fl, r, clampi(c + xi + 1, 0, w - 1), h, w, D, vb);
   float q[5];
 #pragma unroll
   for (int p = 0; p < 5; ++p)
     q[p] = (1.f - ax) * va[p] + ax * vb[p];   // warped R1 plane p
   normal_eqs(R0, q, dx, dy, h, w, r, c, m);
-}
-
-// warp_m into M (5, h, w).
-template <typename PT>
-__device__ __forceinline__ void m_at(const PT* __restrict__ R0,
-                                     const PT* __restrict__ R1,
-                                     const float* flow, int h, int w,
-                                     float D, int r, int c, float* M) {
-  float m[5];
-  warp_m(R0, R1, flow, h, w, D, r, c, m);
-  store_m(m, h, w, r, c, M);
 }
 
 // One window tap: acc += wk * x, one fused multiply-add in every kernel.
@@ -245,43 +236,6 @@ __device__ __forceinline__ void solve(float g[5], float post_scale,
   const float idet = 1.f / (g[0] * g[2] - g[1] * g[1] + 1e-3f);
   *u = (g[2] * g[3] - g[1] * g[4]) * idet;
   *v = (g[0] * g[4] - g[1] * g[3]) * idet;
-}
-
-// Phase 2 at (r, c): Mv[p, r, c] = sum_k wts[k] * M[p, clamp(r + k - bw), c]
-__device__ __forceinline__ void window_v_at(const float* M, int h, int w,
-                                            const float* __restrict__ wts,
-                                            int taps, int r, int c,
-                                            float* Mv) {
-  const long plane = (long)h * w;
-  const int bw = taps / 2;
-  float acc[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int k = 0; k < taps; ++k) {
-    const long src = (long)clampi(r + k - bw, 0, h - 1) * w + c;
-    const float wk = wts[k];
-#pragma unroll
-    for (int p = 0; p < 5; ++p) tap(acc[p], wk, M[p * plane + src]);
-  }
-  const long o = (long)r * w + c;
-#pragma unroll
-  for (int p = 0; p < 5; ++p) Mv[p * plane + o] = acc[p];
-}
-
-// Phase 3 at (r, c): horizontal window pass, then the 2x2 solve into
-// out (2, h, w).
-__device__ __forceinline__ void window_h_solve_at(
-    const float* Mv, int h, int w, const float* __restrict__ wts, int taps,
-    float post_scale, int r, int c, float* out) {
-  const long plane = (long)h * w;
-  const long row = (long)r * w;
-  const int bw = taps / 2;
-  float g[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int k = 0; k < taps; ++k) {
-    const long src = row + clampi(c + k - bw, 0, w - 1);
-    const float wk = wts[k];
-#pragma unroll
-    for (int p = 0; p < 5; ++p) tap(g[p], wk, Mv[p * plane + src]);
-  }
-  solve(g, post_scale, out + row + c, out + plane + row + c);
 }
 
 }  // namespace fi

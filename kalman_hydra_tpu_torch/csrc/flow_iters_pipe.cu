@@ -65,26 +65,6 @@ using kh::fi::kTileThreads;
 using kh::fi::kTileW;
 using kh::fi::Window;
 
-// Item q of the skewed order -> (j, b, t): items by s = b + skew * j,
-// then by j, then by t. kernels/flow_iter.py::pipe_items is its Python
-// twin.
-__device__ void item_of(int q, int n_iters, int nb, int nt, int skew,
-                        int* j_out, int* b_out, int* t_out) {
-  for (int s = 0;; ++s) {
-    // the j with 0 <= s - skew * j < nb
-    const int j0 = s < nb ? 0 : (s - nb + skew) / skew;
-    const int j1 = min(n_iters - 1, s / skew);
-    const int n = j1 >= j0 ? (j1 - j0 + 1) * nt : 0;
-    if (q < n) {
-      *j_out = j0 + q / nt;
-      *b_out = s - skew * *j_out;
-      *t_out = q % nt;
-      return;
-    }
-    q -= n;
-  }
-}
-
 template <int TAPS, typename PT>
 __global__ void __launch_bounds__(kTileThreads, 2)
 flow_iters_pipe_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
@@ -98,7 +78,8 @@ flow_iters_pipe_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
   int* progress = counters + 1;           // (nb, nt): iterations done
   if (threadIdx.x == 0) {
     const int q = atomicAdd(ticket, 1);
-    item_of(q, n_iters, nb, nt, skew, &s_item[0], &s_item[1], &s_item[2]);
+    kh::fi::pipe_item(q, n_iters, nb, nt, skew, &s_item[0], &s_item[1],
+                      &s_item[2]);
   }
   __syncthreads();
   const int j = s_item[0], b = s_item[1], t = s_item[2];

@@ -13,8 +13,8 @@
 //      select-sum warp clamped to +-D (SelectSumM: K2, K6, K13) or the
 //      exact bilinear gather, M rounded to bf16 or not (ExactM: K8,
 //      K8-pairs). A halo row or column outside the image holds M of the
-//      clamped row or column (rounded too), which is what the clamped
-//      window of window_v_at / window_h_solve_at reads. Each thread
+//      clamped row or column (rounded too): the window's replicate
+//      border on M. Each thread
 //      computes two pixels at a time, so that their chains of dependent
 //      loads (the flow, then the warp's rows, then R1) overlap. R0, R1
 //      and the flow are read through L1, which the block's 73 KB of
@@ -82,7 +82,7 @@ struct SelectSumM {
                                              const float* flow, int h,
                                              int w, int r, int c,
                                              float m[5]) const {
-    warp_m(R0, R1, flow, h, w, D, r, c, m);
+    warp_m(R0, R1, PlaneFlow{flow, w, (long)h * w}, h, w, D, r, c, m);
   }
 };
 
@@ -282,6 +282,28 @@ inline cudaError_t allow_smem(Kernel kern, int smem,
   }
   if (err == cudaSuccess && dev < kMaxDevices) set[dev] = smem;
   return err;
+}
+
+// Work item q of K13's skewed order over one level -> (j, b, t): items
+// by s = b + skew * j, then by j, then by t, for n_iters iterations of nb
+// bands of nt tiles (K13, and K5 within each level it walks).
+// kernels/flow_iter.py::pipe_items is its Python twin.
+__device__ inline void pipe_item(int q, int n_iters, int nb, int nt,
+                                 int skew, int* j_out, int* b_out,
+                                 int* t_out) {
+  for (int s = 0;; ++s) {
+    // the j with 0 <= s - skew * j < nb
+    const int j0 = s < nb ? 0 : (s - nb + skew) / skew;
+    const int j1 = min(n_iters - 1, s / skew);
+    const int n = j1 >= j0 ? (j1 - j0 + 1) * nt : 0;
+    if (q < n) {
+      *j_out = j0 + q / nt;
+      *b_out = s - skew * *j_out;
+      *t_out = q % nt;
+      return;
+    }
+    q -= n;
+  }
 }
 
 // One iteration for `pairs` frame pairs of a plane stack in ONE launch,

@@ -8,21 +8,52 @@
 // horizontal moments), combined through the inverse-Gram scalars
 // ig11/ig03/ig33/ig55 into [b_x, b_y, a_xx, a_yy, axy].
 //
-// Bound on Hopper: memory. At 1080p the kernel reads 8 MB and writes
-// 20 MB (bf16) or 40 MB (f32) for ~130 FMAs per pixel — ~0.3 GFLOP against
-// 67 TFLOP/s f32, so the bytes set the floor (~10 us at 3.35 TB/s).
-// Design: one 16 x 64 output tile per 256-thread block. The block stages
-// the (16 + 2n) x (64 + 2n) input tile once in shared memory with
-// clamped indices (the border costs no padded copy in device memory),
-// runs the vertical taps into three shared planes, then the horizontal
-// taps, so each input pixel is read from device memory ~1.4 times and
-// the intermediates never leave the SM. Coefficients round to bf16 once,
-// at the store (round to nearest even). The tile body (vertical and
-// horizontal taps, the combination, the store) is polyexp.cuh's
-// polyexp_tile, which K4/K7b run on level tiles they build in shared
-// memory. The frame index is blockIdx.z:
-// K3 is K7a with one frame, the same kernel, so a batched launch equals
-// its per-frame launches bit for bit.
+// Bound on Hopper: memory, by the count; in practice the instructions. At
+// 1080p a frame reads 8 MB and writes 20 MB (bf16): 8.7 us at 3.35 TB/s.
+// The function's ~110 multiply-adds a pixel (3 vertical and 6 horizontal
+// moments of 2n + 1 taps each, at n = 5) take ~0.25 ms for 36 frames at
+// the f32 rate, near the 0.31 ms of their bytes. The first design (one
+// 16 x 64 tile a block, still run for n other than 5 and 7) read each tap
+// from shared memory beside its datum: ~120 shared loads a pixel, which
+// bounded it (1.31 ms for 36 frames; PERF.md).
+//
+// Design (poly_n 5 and 7; kernels/polyexp.py::polyexp_plan): one 32 x 64
+// output tile a block of 256 threads, four blocks an SM (three at f32
+// outputs), the taps compile-time operands (PolyTaps in the launch's
+// parameter space, each an operand of its multiply-add), the frame
+// blockIdx.z.
+//   1. The (32 + 2n) x 80 input tile (columns c0 - 8 ... c0 + 71) into
+//      shared memory as 16-byte loads, rows clamped to the image (the
+//      replicate border); a chunk that crosses the image's left or right
+//      edge, or a width that is not a multiple of 4, loads by clamped
+//      element.
+//   2. Vertical taps: one thread a (column, 8-row segment) walks down
+//      its column with the sums of its 2n + 1 outputs in flight in a
+//      register ring (3 moments each), so each input value is read from
+//      shared memory once and feeds 3 (2n + 1) multiply-adds; the three
+//      moment planes go to shared memory (odd row stride).
+//   3. Horizontal taps: one thread a (row, 8 consecutive columns), lanes
+//      on consecutive rows (conflict-free at the odd stride), the 8
+//      outputs' six moments in registers, each vertical sum read once;
+//      the five planes are formed and rounded to the output type, then
+//      staged in shared memory (over the dead input tile) as 16-byte
+//      vectors.
+//   4. The planes go out as 16-byte vectors, consecutive lanes on
+//      consecutive columns (a 64-column row is one 128-byte line in bf16),
+//      element by element at a ragged edge or an unaligned width.
+// About 20 words of shared memory a pixel move, against ~110
+// multiply-adds; the kernel runs at ~2.5x the multiply-adds' time at the
+// f32 rate (PERF.md). Writing the planes from registers straight to
+// device memory, 16 bytes a lane on 32 rows, measured slower than
+// staging them. Every output sums its vertical taps k = 0 ... 2n and
+// then its horizontal taps k = 0 ... 2n, one multiply-add each, exactly
+// as the first design (and K4/K7b's polyexp.cuh::polyexp_tile) does, and
+// forms the planes with the same expressions, so the bytes are
+// unchanged. Other n run the first design (polyexp_tile with the taps in
+// shared memory). K3 is K7a with one frame, the same kernel, so a
+// batched launch equals its per-frame launches bit for bit.
+#include <mutex>
+
 #include "polyexp.cuh"
 
 namespace {
@@ -38,8 +69,9 @@ using kh::PolyTaps;
 
 constexpr int kThreads = 256;
 
-// Output pixel (r, c) correlates src rows/cols clamp(r + k - n), k in
-// [0, 2n]: the replicate border of the unpadded (h, w) image.
+// The first design, for any n: one 16 x 64 tile a block, taps in shared
+// memory. Output pixel (r, c) correlates src rows/cols clamp(r + k - n),
+// k in [0, 2n]: the replicate border of the unpadded (h, w) image.
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
 polyexp_kernel(const float* __restrict__ src, int h, int w, PolyTaps t,
@@ -70,25 +102,261 @@ polyexp_kernel(const float* __restrict__ src, int h, int w, PolyTaps t,
                                    r0, c0, h, w, h, w, out);
 }
 
+// The tile of the design for n = 5 and 7 (kernels/polyexp.py::
+// polyexp_plan is its Python twin).
+constexpr int kTH = 32;            // output rows of a tile
+constexpr int kTW = 64;            // output columns
+constexpr int kSeg = 8;            // rows of one vertical item
+constexpr int kRH = 8;             // columns of one horizontal item
+constexpr int kPad = 8;            // input columns staged left of c0
+constexpr int kIP = kTW + 2 * kPad;    // input row stride (floats)
+
+__host__ __device__ constexpr int vs_stride(int n) {
+  return (kTW + 2 * n) | 1;
+}
+// Output staging row stride in elements: 16-byte rows that fall on 8
+// different bank groups for 8 consecutive rows.
+__host__ __device__ constexpr int out_stride(int out_bytes) {
+  return out_bytes == 2 ? kTW + 8 : kTW + 4;
+}
+__host__ __device__ constexpr int in_floats(int n) {
+  return (kTH + 2 * n) * kIP;
+}
+__host__ __device__ constexpr int stage_floats(int out_bytes) {
+  return 5 * kTH * out_stride(out_bytes) * out_bytes / 4;
+}
+// Dynamic shared memory of one block: the input tile, later the output
+// staging over it, then the three vertical-moment planes.
+__host__ __device__ constexpr int tile_smem(int n, int out_bytes) {
+  return 4 * ((in_floats(n) > stage_floats(out_bytes)
+                   ? in_floats(n) : stage_floats(out_bytes)) +
+              3 * kTH * vs_stride(n));
+}
+
+// Eight consecutive outputs into 16-byte aligned shared memory, rounded
+// to the output type (bf16 to nearest even, as torch's .to(bfloat16)).
+__device__ __forceinline__ void put8(const float (&v)[kRH], float* p) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ unsigned pack2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);   // a at the low
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+__device__ __forceinline__ void put8(const float (&v)[kRH],
+                                     __nv_bfloat16* p) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(
+      pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+      pack2(v[6], v[7]));
+}
+
+// Four blocks an SM with bf16 outputs (64 registers; n = 7 spills a few
+// bytes; faster than three), three with f32 (whose 72 KB of shared
+// memory allow no more).
+template <typename OutT, int kN>
+__global__ void __launch_bounds__(kThreads, sizeof(OutT) == 2 ? 4 : 3)
+polyexp_tiled_kernel(const float* __restrict__ src, int h, int w,
+                     const PolyTaps t, OutT* __restrict__ out) {
+  constexpr int kTaps = 2 * kN + 1;
+  constexpr int kVW = kTW + 2 * kN;          // vertical-moment columns
+  constexpr int kVS = vs_stride(kN);
+  constexpr int kOS = out_stride(sizeof(OutT));
+  constexpr int kInRows = kTH + 2 * kN;
+  extern __shared__ __align__(16) float sm[];
+  float* tile = sm;                          // kInRows x kIP
+  OutT* stage = reinterpret_cast<OutT*>(sm); // 5 x kTH x kOS, after 2.
+  float* vs = sm + (in_floats(kN) > stage_floats(sizeof(OutT))
+                        ? in_floats(kN) : stage_floats(sizeof(OutT)));
+  const long plane = (long)h * w;
+  src += blockIdx.z * plane;
+  out += blockIdx.z * 5 * plane;
+  const int r0 = blockIdx.y * kTH, c0 = blockIdx.x * kTW;
+  const int tid = threadIdx.x;
+
+  // 1. input rows r0 - n ... r0 + kTH + n - 1, columns c0 - 8 ... c0 + 71
+  const bool vec_in = (w & 3) == 0;
+  for (int i = tid; i < kInRows * (kIP / 4); i += kThreads) {
+    const int rr = i / (kIP / 4), q = i - rr * (kIP / 4);
+    const float* row = src + (long)clampi(r0 + rr - kN, 0, h - 1) * w;
+    const int c = c0 - kPad + 4 * q;
+    float4 v;
+    if (vec_in && c >= 0 && c + 3 < w) {
+      v = __ldg(reinterpret_cast<const float4*>(row + c));
+    } else {
+      v.x = __ldg(row + clampi(c, 0, w - 1));
+      v.y = __ldg(row + clampi(c + 1, 0, w - 1));
+      v.z = __ldg(row + clampi(c + 2, 0, w - 1));
+      v.w = __ldg(row + clampi(c + 3, 0, w - 1));
+    }
+    *reinterpret_cast<float4*>(tile + rr * kIP + 4 * q) = v;
+  }
+  __syncthreads();
+
+  // 2. vertical taps: item (column x, segment) -> output rows
+  // seg * kSeg ... + kSeg - 1 of the three moment planes at column x
+  // (input column c0 - n + x)
+  for (int i = tid; i < kVW * (kTH / kSeg); i += kThreads) {
+    const int sg = i / kVW, x = i - sg * kVW;
+    const float* col = tile + sg * kSeg * kIP + x + (kPad - kN);
+    float* v0 = vs + sg * kSeg * kVS + x;
+    float a0[kTaps], a1[kTaps], a2[kTaps];   // output o at o % kTaps
+#pragma unroll
+    for (int m = 0; m < kSeg + 2 * kN; ++m) {
+      const float s = col[m * kIP];
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) {
+        const int o = m - k;                   // the output tap k feeds
+        if (o < 0 || o >= kSeg) continue;
+        const int slot = o % kTaps;
+        if (k == 0) {
+          a0[slot] = 0.f;
+          a1[slot] = 0.f;
+          a2[slot] = 0.f;
+        }
+        a0[slot] = __fmaf_rn(t.g[k], s, a0[slot]);
+        a1[slot] = __fmaf_rn(t.xg[k], s, a1[slot]);
+        a2[slot] = __fmaf_rn(t.xxg[k], s, a2[slot]);
+      }
+      const int o = m - 2 * kN;                // complete now
+      if (o >= 0) {
+        v0[o * kVS] = a0[o % kTaps];
+        v0[kTH * kVS + o * kVS] = a1[o % kTaps];
+        v0[2 * kTH * kVS + o * kVS] = a2[o % kTaps];
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. horizontal taps: item (row y, columns x0 ... x0 + 7), one round
+  static_assert(kTH * (kTW / kRH) == kThreads, "one horizontal round");
+  {
+    const int y = tid % kTH, x0 = (tid / kTH) * kRH;
+    const float* ra = vs + y * kVS + x0;
+    float m00[kRH], m10[kRH], m20[kRH], m01[kRH], m11[kRH], m02[kRH];
+#pragma unroll
+    for (int m = 0; m < kRH + 2 * kN; ++m) {
+      const float a = ra[m], b = ra[kTH * kVS + m],
+                  d = ra[2 * kTH * kVS + m];
+#pragma unroll
+      for (int o = 0; o < kRH; ++o) {
+        const int k = m - o;
+        if (k < 0 || k >= kTaps) continue;
+        if (k == 0) {
+          m00[o] = m10[o] = m20[o] = m01[o] = m11[o] = m02[o] = 0.f;
+        }
+        m00[o] = __fmaf_rn(t.g[k], a, m00[o]);
+        m10[o] = __fmaf_rn(t.xg[k], a, m10[o]);
+        m20[o] = __fmaf_rn(t.xxg[k], a, m20[o]);
+        m01[o] = __fmaf_rn(t.g[k], b, m01[o]);
+        m11[o] = __fmaf_rn(t.xg[k], b, m11[o]);
+        m02[o] = __fmaf_rn(t.g[k], d, m02[o]);
+      }
+    }
+    // the five planes, formed as polyexp_tile forms them, staged as
+    // 16-byte vectors (the input tile is dead since the barrier)
+    OutT* st = stage + y * kOS + x0;
+    float p[kRH];
+#pragma unroll
+    for (int o = 0; o < kRH; ++o) p[o] = m10[o] * t.ig11;
+    put8(p, st);
+#pragma unroll
+    for (int o = 0; o < kRH; ++o) p[o] = m01[o] * t.ig11;
+    put8(p, st + kTH * kOS);
+#pragma unroll
+    for (int o = 0; o < kRH; ++o) p[o] = m00[o] * t.ig03 + m20[o] * t.ig33;
+    put8(p, st + 2 * kTH * kOS);
+#pragma unroll
+    for (int o = 0; o < kRH; ++o) p[o] = m00[o] * t.ig03 + m02[o] * t.ig33;
+    put8(p, st + 3 * kTH * kOS);
+#pragma unroll
+    for (int o = 0; o < kRH; ++o) p[o] = m11[o] * t.ig55;
+    put8(p, st + 4 * kTH * kOS);
+  }
+  __syncthreads();
+
+  // 4. out: 16-byte chunks, consecutive lanes along a row
+  constexpr int kPer = 16 / sizeof(OutT);      // elements a chunk
+  constexpr int kChunks = kTW / kPer;          // a row
+  const bool vec_out = w % kPer == 0;
+  for (int i = tid; i < 5 * kTH * kChunks; i += kThreads) {
+    const int pr = i / kChunks, q = i - pr * kChunks;
+    const int p = pr / kTH, y = pr - p * kTH;
+    const int r = r0 + y, c = c0 + q * kPer;
+    if (r >= h || c >= w) continue;
+    const OutT* s = stage + pr * kOS + q * kPer;
+    OutT* d = out + p * plane + (long)r * w + c;
+    if (vec_out && c + kPer <= w) {
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+    } else {
+      for (int e = 0; e < kPer && c + e < w; ++e) d[e] = s[e];
+    }
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+// Allows `kern` `smem` bytes of dynamic shared memory on the current
+// device: the grant is kept per kernel and device and only raised, under a
+// lock, so the warm calls a CUDA graph captures make no attribute call.
+template <typename Kernel>
+cudaError_t grant_smem(Kernel kern, int smem, int (&granted)[kMaxDevices],
+                       std::mutex& lock) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || smem <= 48 * 1024) return e;
+  const std::lock_guard<std::mutex> hold(lock);
+  if (dev < kMaxDevices && smem <= granted[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e == cudaSuccess && dev < kMaxDevices) granted[dev] = smem;
+  return e;
+}
+
+template <typename OutT, int kN>
+int launch_tiled(const float* src, int frames, int h, int w,
+                 const PolyTaps& t, int smem, OutT* out, cudaStream_t s) {
+  static std::mutex lock;
+  static int granted[kMaxDevices];
+  auto kern = polyexp_tiled_kernel<OutT, kN>;
+  if (smem != tile_smem(kN, sizeof(OutT)) || kh::cdiv(h, kTH) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = grant_smem(kern, smem, granted, lock);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(kh::cdiv(w, kTW), kh::cdiv(h, kTH), frames);
+  kern<<<grid, kThreads, smem, s>>>(src, h, w, t, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename OutT>
+int run(const float* src, int frames, int h, int w, const PolyTaps& t,
+        int smem, OutT* out, cudaStream_t s) {
+  if (t.n == 5)
+    return launch_tiled<OutT, 5>(src, frames, h, w, t, smem, out, s);
+  if (t.n == 7)
+    return launch_tiled<OutT, 7>(src, frames, h, w, t, smem, out, s);
+  if (smem != 0 || kh::cdiv(h, kPeTH) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(kh::cdiv(w, kPeTW), kh::cdiv(h, kPeTH), frames);
+  polyexp_kernel<OutT><<<grid, kThreads, 0, s>>>(src, h, w, t, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// img (frames, h, w) f32 -> out (frames, 5, h, w), replicate border.
+// img (frames, h, w) f32 -> out (frames, 5, h, w), replicate border; smem
+// the dynamic shared memory of one block, as kernels/polyexp.py::
+// polyexp_plan computes it (0 for the first design's n).
 KH_API int kh_polyexp(const void* img, int frames, int h, int w,
-                      const void* taps_host, int n, int out_bf16, void* out,
-                      void* stream) {
+                      const void* taps_host, int n, int out_bf16, int smem,
+                      void* out, void* stream) {
   if (n < 1 || n > kPeNMax || h <= 0 || w <= 0 || frames <= 0 ||
       frames > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const PolyTaps t = kh::poly_taps(static_cast<const float*>(taps_host), n);
   const float* src = static_cast<const float*>(img);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(kh::cdiv(w, kPeTW), kh::cdiv(h, kPeTH), frames);
-  if (out_bf16) {
-    polyexp_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        src, h, w, t, static_cast<__nv_bfloat16*>(out));
-  } else {
-    polyexp_kernel<float><<<grid, kThreads, 0, s>>>(
-        src, h, w, t, static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (out_bf16)
+    return run(src, frames, h, w, t, smem, static_cast<__nv_bfloat16*>(out),
+               s);
+  return run(src, frames, h, w, t, smem, static_cast<float*>(out), s);
 }

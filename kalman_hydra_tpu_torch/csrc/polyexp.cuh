@@ -1,5 +1,8 @@
-// Polynomial-expansion device code shared by K3/K7a (csrc/polyexp.cu)
-// and K4/K7b (csrc/level_image.cu).
+// Polynomial-expansion device code shared by K4/K7b (csrc/level_image.cu)
+// and K3/K7a (csrc/polyexp.cu): the taps, and the first design's tile
+// body, which K4/K7b run on their level tiles and K3/K7a at poly_n other
+// than 5 and 7 (polyexp.cu's 32 x 64 tiles with a register ring take 5
+// and 7; both sum every tap in the same order, so their bytes agree).
 #pragma once
 
 #include "common.cuh"

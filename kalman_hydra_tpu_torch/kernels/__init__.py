@@ -6,7 +6,7 @@
 | flow_iter.flow_iter (K2) | csrc/flow_iter.cu | flow_iter_pallas.py::flow_iter |
 | polyexp.poly_expansion_planar (K3) | csrc/polyexp.cu | polyexp_pallas.py::poly_expansion_planar |
 | level_image.coarse_polyexp_fused (K4) | csrc/level_image.cu | level_image_pallas.py::coarse_polyexp_fused |
-| flow_level.flow_level (K5) | csrc/flow_level.cu | flow_level_pallas.py::flow_level |
+| flow_level.flow_levels (K5) | csrc/flow_level.cu | flow_level_pallas.py::flow_level (once per gated level) and the resize between the gated levels (ops/farneback.py) |
 | flow_iter.flow_iter_pairs (K6) | csrc/flow_iter.cu | flow_iter_pallas.py::flow_iter_pairs |
 | polyexp.poly_expansion_planar_batch (K7a) | csrc/polyexp.cu | polyexp_pallas.py::poly_expansion_planar_batch |
 | level_image.coarse_polyexp_fused_batch (K7b) | csrc/level_image.cu | level_image_pallas.py::coarse_polyexp_fused_batch |
@@ -21,16 +21,16 @@
 Each wrapper dispatches by device: a CPU tensor takes the plain PyTorch
 version beside it, a CUDA tensor launches the kernel or raises. Each
 carries a plain-int `launches` counter, bumped once per call that launched
-its kernel. `pyramid.pyr_down`, `scharr.scharr_gradients` and
-`lk.lk_level` are the one-level calls of K9's, K10's and K12's wrappers
-and count there.
+its kernel. `pyramid.pyr_down`, `scharr.scharr_gradients`, `lk.lk_level` and
+`flow_level.flow_level` are the one-level calls of K9's, K10's, K12's
+and K5's wrappers and count there.
 """
 
 from __future__ import annotations
 
 from .ekf import ekf_fused_step
 from .flow_iter import flow_iter, flow_iter_pairs, flow_iters_pipelined
-from .flow_level import flow_level
+from .flow_level import flow_level, flow_levels
 from .flow_update import flow_update, flow_update_pairs
 from .level_image import (coarse_level_images, coarse_polyexp_fused,
                           coarse_polyexp_fused_batch)
@@ -44,7 +44,7 @@ WRAPPERS = {
     "flow_iter": flow_iter,
     "poly_expansion_planar": poly_expansion_planar,
     "coarse_polyexp_fused": coarse_polyexp_fused,
-    "flow_level": flow_level,
+    "flow_levels": flow_levels,
     "flow_iter_pairs": flow_iter_pairs,
     "poly_expansion_planar_batch": poly_expansion_planar_batch,
     "coarse_polyexp_fused_batch": coarse_polyexp_fused_batch,

@@ -148,18 +148,6 @@ def flow_iter_pairs_plain(Rall, flow_b, winsize: int, max_disp: int,
         for b, p in enumerate(pair_frames(flow_b.shape[0], clip_len))])
 
 
-_device_weights: dict = {}
-
-
-def device_window(device, winsize: int, gaussian: bool):
-    """(window taps on `device`, post_scale), cached per device (K5)."""
-    key = (str(device), winsize, bool(gaussian))
-    if key not in _device_weights:
-        wts, post = window_weights(winsize, bool(gaussian))
-        _device_weights[key] = (torch.as_tensor(wts, device=device), post)
-    return _device_weights[key]
-
-
 SMEM_LIMIT = 232_448     # bytes of shared memory one H100 block may use
 MAX_TAPS = 61            # csrc/flow_tile.cuh::kMaxTaps
 STATIC_SMEM = 4 * MAX_TAPS + 16   # the kernels' static shared memory
@@ -215,7 +203,7 @@ def pipe_skew(plan: TilePlan, n_iters: int, sms: int) -> int:
 
 def pipe_items(n_iters: int, nb: int, nt: int, skew: int = 1) -> list:
     """K13's work items (j, b, t) in ticket order: by s = b + skew * j,
-    then j, then t (csrc/flow_iters_pipe.cu::item_of)."""
+    then j, then t (csrc/flow_tile.cuh::pipe_item)."""
     out = []
     for s in range(nb + skew * (n_iters - 1)):
         for j in range(n_iters):

@@ -6,7 +6,9 @@ poly_expansion_planar: (H, W) f32 -> (5, H, W) planes [b_x, b_y, a_xx,
 a_yy, axy] in f32 or bf16, replicate border, all arithmetic f32 with one
 rounding at the store. K7a replaces ::poly_expansion_planar_batch:
 (N, H, W) -> (N, 5, H, W), the same kernel with a frame index, so it
-equals per-frame K3 bit for bit.
+equals per-frame K3 bit for bit. `polyexp_plan` is the kernel's tile and
+shared-memory plan: poly_n 5 and 7 run 32 x 64 tiles with their taps
+compiled in, any other n the first design's 16 x 64 tiles.
 
 CPU tensors take the plain version (one function for both: it maps any
 leading dims); CUDA tensors launch the kernel, or raise.
@@ -15,6 +17,7 @@ leading dims); CUDA tensors launch the kernel, or raise.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -109,18 +112,52 @@ def poly_expansion_planar_plain(img: torch.Tensor, poly_n: int,
     return polyexp_valid_plain(src, n, poly_sigma).to(out_dtype)
 
 
+SMEM_LIMIT = 232_448     # bytes of shared memory one H100 block may use
+COMPILED_N = (5, 7)      # poly_n with the taps compiled in (csrc/polyexp.cu)
+N_MAX = 8                # csrc/polyexp.cuh::kPeNMax
+
+
+class PolyexpPlan(NamedTuple):
+    th: int          # output rows of a tile
+    tw: int          # output columns
+    smem: int        # dynamic shared memory of one block, bytes
+
+
+def polyexp_plan(n: int, out_dtype=torch.float32) -> PolyexpPlan:
+    """csrc/polyexp.cu's tiles and shared memory for poly_n = n: at n = 5
+    and 7 a 32 x 64 tile, the input tile ((32 + 2n) rows of 80 floats)
+    or, after the vertical pass, the five output planes staged at a row
+    stride of 72 (bf16) or 68 (f32) elements, whichever is larger, and
+    the three vertical-moment planes (32 rows at the odd stride (64 + 2n)
+    | 1); at any other n the first design's 16 x 64 tile in static shared
+    memory (0 dynamic bytes)."""
+    if not 1 <= n <= N_MAX:
+        raise ValueError(f"poly_n {n} outside 1 ... {N_MAX}")
+    if n not in COMPILED_N:
+        return PolyexpPlan(16, 64, 0)
+    ob = torch.empty((), dtype=out_dtype).element_size()
+    th, tw = 32, 64
+    stage = 5 * th * (tw + (8 if ob == 2 else 4)) * ob // 4
+    smem = 4 * (max((th + 2 * n) * (tw + 16), stage)
+                + 3 * th * ((tw + 2 * n) | 1))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"poly_n {n}: {smem} B of shared memory a block")
+    return PolyexpPlan(th, tw, smem)
+
+
 def _launch(imgs: torch.Tensor, poly_n: int, poly_sigma: float,
             out_dtype) -> torch.Tensor:
     """kh_polyexp over a (N, H, W) f32 stack -> (N, 5, H, W)."""
     if out_dtype not in _DTYPES:
         raise TypeError(f"polyexp: out_dtype {out_dtype}")
     N, h, w = imgs.shape
+    plan = polyexp_plan(poly_n, out_dtype)
     out = torch.empty((N, 5, h, w), dtype=out_dtype, device=imgs.device)
     taps = poly_taps(poly_n, float(poly_sigma))
     P, I = _build.P, _build.I
-    fn = _build.function("kh_polyexp", P, I, I, I, P, I, I, P, P)
+    fn = _build.function("kh_polyexp", P, I, I, I, P, I, I, I, P, P)
     rc = fn(imgs.data_ptr(), N, h, w, taps.ctypes.data, poly_n,
-            int(out_dtype == torch.bfloat16), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), plan.smem, out.data_ptr(),
             _build.stream(imgs))
     _build.check(rc, "kh_polyexp")
     return out

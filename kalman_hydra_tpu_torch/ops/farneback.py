@@ -12,11 +12,13 @@ flow by 1/pyr_scale between levels, from zeros or from a warm start
 bilinear gather of the unwarped planes included (the reference gathers
 in XLA, `_warp_poly_planar`, then runs its Pallas kernel; the plain
 gather is `ops.warp.warp_poly_planar`). At `fast_warp > 0`, with
-`fi_level_fused`, a level that passes K5's gate
-(`kernels.flow_level.fits`) runs all its iterations in one K5 launch;
-every other level runs all its iterations in one K13 launch with
-`fi_pipeline` (and iterations >= 2), else `iterations` K2 launches (the
-reference's order, kalman_hydra_tpu/ops/farneback.py:466-499).
+`fi_level_fused`, the run of levels that pass K5's gate
+(`kernels.flow_level.fits`) runs in one K5 launch, every iteration of
+every one of them and the resizes between them (the reference runs one
+Pallas call a level, the resize in XLA between them); every other level
+runs all its iterations in one K13 launch with `fi_pipeline` (and
+iterations >= 2), else `iterations` K2 launches (the reference's order,
+kalman_hydra_tpu/ops/farneback.py:466-499).
 
 The pair-batched twins serve a whole clip, or several chained clips, at
 once: `polyexp_pyramid_batch` expands every frame in one K7b and one K7a
@@ -39,7 +41,7 @@ import torch
 from ..config import FlowConfig
 from ..kernels.flow_iter import (flow_iter, flow_iter_pairs,
                                  flow_iters_pipelined, pair_count)
-from ..kernels.flow_level import fits, flow_level
+from ..kernels.flow_level import fits, flow_levels
 from ..kernels.flow_update import flow_update, flow_update_pairs
 from ..kernels.level_image import (coarse_level_images, coarse_polyexp_fused,
                                    coarse_polyexp_fused_batch)
@@ -75,23 +77,33 @@ def farneback_from_pyramids(Rs_a, Rs_b, cfg: FlowConfig,
     `flow0` (H, W, 2) seeds the coarsest level, resized and scaled by
     pyr_scale ** (levels in the plan - 1) (cv2 OPTFLOW_USE_INITIAL_FLOW)."""
     flow_p = None
-    for R0, R1 in zip(Rs_a, Rs_b):
+    n, i = len(Rs_a), 0
+    while i < n:
+        R0, R1 = Rs_a[i], Rs_b[i]
         lh, lw = R0.shape[1], R0.shape[2]
         if flow_p is not None:
             flow_p = resize_linear(flow_p, lh, lw) * (1.0 / cfg.pyr_scale)
         elif flow0 is not None:
             flow_p = (resize_linear(flow0.movedim(-1, 0), lh, lw)
-                      * (cfg.pyr_scale ** (len(Rs_a) - 1)))
+                      * (cfg.pyr_scale ** (n - 1)))
         else:
             flow_p = torch.zeros((2, lh, lw), dtype=torch.float32,
                                  device=R0.device)
+        isz = R0.element_size()
+        if cfg.fast_warp > 0 and cfg.fi_level_fused and fits(lh, lw, isz):
+            # this level and every next one under the gate: one walk
+            j = i + 1
+            while j < n and fits(Rs_a[j].shape[1], Rs_a[j].shape[2], isz):
+                j += 1
+            flow_p = flow_levels(Rs_a[i:j], Rs_b[i:j], flow_p, cfg.winsize,
+                                 cfg.fast_warp, cfg.iterations,
+                                 cfg.gaussian_win, cfg.pyr_scale)
+            i = j
+            continue
         if cfg.fast_warp <= 0:
             for _ in range(cfg.iterations):
                 flow_p = flow_update(R0, R1, flow_p, cfg.winsize,
                                      cfg.gaussian_win)
-        elif cfg.fi_level_fused and fits(lh, lw, R0.element_size()):
-            flow_p = flow_level(R0, R1, flow_p, cfg.winsize, cfg.fast_warp,
-                                cfg.iterations, cfg.gaussian_win)
         elif cfg.fi_pipeline and cfg.iterations >= 2:
             flow_p = flow_iters_pipelined(R0, R1, flow_p, cfg.winsize,
                                           cfg.fast_warp, cfg.iterations,
@@ -100,6 +112,7 @@ def farneback_from_pyramids(Rs_a, Rs_b, cfg: FlowConfig,
             for _ in range(cfg.iterations):
                 flow_p = flow_iter(R0, R1, flow_p, cfg.winsize,
                                    cfg.fast_warp, cfg.gaussian_win)
+        i += 1
     return flow_p.movedim(0, -1)
 
 

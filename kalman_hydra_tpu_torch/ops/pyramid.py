@@ -37,16 +37,30 @@ def resize_coeffs(n_out: int, n_in: int):
     return i0, i1, f
 
 
+_device_coeffs: dict = {}
+
+
+def resize_coeffs_device(n_out: int, n_in: int, device):
+    """resize_coeffs as tensors on `device`: (i0, i1) int32 and frac
+    rounded to f32, made once per (n_out, n_in, device) and kept, so that
+    a resize uploads nothing (K5's walk reads the same tensors)."""
+    key = (n_out, n_in, str(device))
+    hit = _device_coeffs.get(key)
+    if hit is None:
+        i0, i1, f = resize_coeffs(n_out, n_in)
+        hit = tuple(torch.as_tensor(a, device=device)
+                    for a in (i0.astype(np.int32), i1.astype(np.int32),
+                              f.astype(np.float32)))
+        _device_coeffs[key] = hit
+    return hit
+
+
 def resize_linear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """cv2.resize(INTER_LINEAR) on the last two dims (..., H, W)."""
     h, w = img.shape[-2], img.shape[-1]
-    dev = img.device
-    y0, y1, fy = (torch.as_tensor(a, device=dev)
-                  for a in resize_coeffs(out_h, h))
-    x0, x1, fx = (torch.as_tensor(a, device=dev)
-                  for a in resize_coeffs(out_w, w))
-    fy = fy.to(torch.float32)[:, None]
-    fx = fx.to(torch.float32)
+    y0, y1, fy = resize_coeffs_device(out_h, h, img.device)
+    x0, x1, fx = resize_coeffs_device(out_w, w, img.device)
+    fy = fy[:, None]
     rows = (img.index_select(-2, y0) * (1 - fy)
             + img.index_select(-2, y1) * fy)
     return (rows.index_select(-1, x0) * (1 - fx)

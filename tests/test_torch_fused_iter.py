@@ -295,7 +295,7 @@ PIPE_SHAPES = [(n, nb, nt, dt, skew) for n in (2, 3, 5)
 
 
 def _item_of(q, n_iters, nb, nt, skew):
-    """csrc/flow_iters_pipe.cu::item_of, statement for statement (C's
+    """csrc/flow_tile.cuh::pipe_item, statement for statement (C's
     integer division, on non-negative operands here)."""
     s = 0
     while True:
