@@ -378,6 +378,28 @@ def check_k3(dev, gray, cfg, results):
         f"diff {ulps:.2f} ulp (bar 1); cuDNN conv yardstick vs kernel "
         f"(f32) {max_err(conv()[0], k32):.3e}")
     assert err < 1e-3 and ulps <= 1.0
+    # a contiguous view 4 bytes past a 16-byte boundary: the kernel loads
+    # it by element, and gives the bytes of its aligned copy
+    flat = torch.empty(1 + H * W, device=dev)
+    view = flat[1:].view(H, W)
+    view.copy_(img0)
+    same = all(torch.equal(poly_expansion_planar(view, n, s, dt),
+                           poly_expansion_planar(img0, n, s, dt))
+               for dt in (torch.float32, torch.bfloat16))
+    log(f"  K3 on a view at {view.data_ptr() % 16} bytes past a 16-byte "
+        f"boundary: {'the same bytes' if same else 'DIFFERENT bytes'} as "
+        f"on an aligned copy")
+    assert view.data_ptr() % 16 and same
+    for n1, s1 in ((1, POLY_SIGMA[1]), (3, POLY_SIGMA[3])):
+        e1 = max_err(poly_expansion_planar(img0, n1, s1),
+                     poly_expansion_planar_plain(img0, n1, s1))
+        kb = poly_expansion_planar(img0, n1, s1, torch.bfloat16).float()
+        pb = poly_expansion_planar_plain(img0, n1, s1,
+                                         torch.bfloat16).float()
+        u1 = ((kb - pb).abs() / bf16_ulp(pb)).max().item()
+        log(f"  K3 {H}x{W} poly_n {n1}: f32 max_abs_err {e1:.3e} (bar "
+            f"1e-3); bf16 max diff {u1:.2f} ulp (bar 1)")
+        assert e1 < 1e-3 and u1 <= 1.0
     ms = time_turns({
         "plain": lambda: poly_expansion_planar_plain(img0, n, s,
                                                      torch.bfloat16),
@@ -497,7 +519,7 @@ K7B_WITNESS = {
         "8f6750aebd8756764209c65465df168a406037d033e2ac0f5da4784185f948a1",
 }
 K7B_SHAPES = {(1080, 1920): (2, 5), (720, 1280): (2, 5), (148, 212): (3, 3)}
-POLY_SIGMA = {5: 1.1, 7: 1.5}
+POLY_SIGMA = {1: 0.6, 3: 0.9, 5: 1.1, 7: 1.5}
 
 
 def k7b_witness_keys() -> list:
@@ -791,9 +813,10 @@ def check_k5(dev, clip, cfg, results):
     Timed at bf16 against the per-level route and the plain version."""
     from kalman_hydra_tpu_torch.kernels.flow_iter import flow_iter
     from kalman_hydra_tpu_torch.kernels.flow_level import (
-        fits, flow_level, flow_levels, flow_levels_plain)
+        MAX_LEVELS, fits, flow_level, flow_levels, flow_levels_plain)
     from kalman_hydra_tpu_torch.ops.color import grayscale_u8
     from kalman_hydra_tpu_torch.ops.farneback import polyexp_pyramid
+    from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
     f32 = dataclasses.replace(f, bf16_poly=False)
     grays = [grayscale_u8(torch.from_numpy(clip[i]).to(dev)) for i in (0, 1)]
@@ -829,6 +852,24 @@ def check_k5(dev, clip, cfg, results):
         f"{worst:.3e} (bar 1e-4); vs the per-level route {worst_route:.1e}"
         f" and one level vs {it} x K2 {worst_k2:.1e} (bar 0)")
     assert gated and worst < 1e-4 and worst_route == 0.0 and worst_k2 == 0.0
+    # pyr_scale 0.8 gates 11 levels of a 1080p frame, more than one walk
+    # takes: a walk for each MAX_LEVELS of them, the resize between
+    rs = np.random.RandomState(17)
+    deep = [(lh, lw) for (_k, lh, lw, _s, _ks)
+            in farneback_levels(H, W, 20, 0.8) if fits(lh, lw, 2)]
+    R0d, R1d = ([torch.from_numpy(rs.standard_normal((5, lh, lw)).astype(
+        np.float32)).to(dev).to(torch.bfloat16) for lh, lw in deep]
+        for _ in (0, 1))
+    fd = torch.zeros((2,) + deep[0], device=dev)
+    before = flow_levels.launches
+    got = flow_levels(R0d, R1d, fd, wins, D, it, False, 0.8)
+    walks = flow_levels.launches - before
+    same = torch.equal(got, k5_route(R0d, R1d, fd, wins, D, it, False, 0.8))
+    log(f"  K5 over 1080p's {len(deep)} gated levels at pyr_scale 0.8: "
+        f"{walks} walks; {'the same bytes' if same else 'DIFFERENT bytes'}"
+        f" as the per-level route")
+    assert len(deep) > MAX_LEVELS and same
+    assert walks == -(-len(deep) // MAX_LEVELS)
     R0s = [pyrs[0][i].to(torch.bfloat16) for i in gated]
     R1s = [pyrs[1][i].to(torch.bfloat16) for i in gated]
     ms = time_turns({
@@ -870,8 +911,8 @@ def check_k5_witness(dev):
 @phase("K7a against the first design's outputs (bit for bit)")
 def check_k7a_witness(dev):
     """K7a (the redesigned polyexp, K3's kernel) on every K7A_WITNESS case
-    (720x1280 N=17 and 1080x1920 N=36; f32 and bf16; poly_n 5 and 7)
-    hashes to the first design's bytes."""
+    (720x1280 N=17 at poly_n 1, 3, 5 and 7, 1080x1920 N=36 at 5 and 7;
+    f32 and bf16) hashes to the first design's bytes."""
     bad = []
     for key, want in K7A_WITNESS.items():
         same = k7a_witness_hash(key, dev) == want
@@ -1000,9 +1041,18 @@ def k5_witness_hash(key, dev, walk) -> str:
 
 # sha256 of K7a's output bytes before its redesign (commit fad7b1c: one
 # 16 x 64 tile a block, taps read from shared memory) on k7a_witness_case's
-# frames; computed by tools/torch_walk_ab.py on that commit, on an NVIDIA
-# H100 80GB HBM3.
+# frames; computed by tools/torch_walk_ab.py on that commit (poly_n 1 and
+# 3 on 9f5b788, which still ran that design for them), on an NVIDIA H100
+# 80GB HBM3.
 K7A_WITNESS = {
+    "K7a 720x1280 N=17 float32 n1":
+        "0daaf9569bbb3acbd6e6c85c0ea66c15ba3235d98c6a0b5d520f6fd918329fbc",
+    "K7a 720x1280 N=17 float32 n3":
+        "37680b0f5dca99ab58be49ed575b6dd69a810552aa751a17f4f2b1d601453c6b",
+    "K7a 720x1280 N=17 bfloat16 n1":
+        "2ce173f288cca21aa5428bf58a2b3c1e3fbc8ae78083ed4ca93a79163975ad9c",
+    "K7a 720x1280 N=17 bfloat16 n3":
+        "1d0fb20a27b17ff65817a0e30f6577ce404cbf7295499db0744f544c998acedf",
     "K7a 720x1280 N=17 float32 n5":
         "dd3e149b7e225507e64ac6f009ab97c5d39f68bab38c61f7655803c468212a04",
     "K7a 720x1280 N=17 float32 n7":
@@ -1024,8 +1074,11 @@ K7A_SHAPES = ((720, 1280, 17), (1080, 1920, 36))
 
 
 def k7a_witness_keys() -> list:
-    return [f"K7a {h}x{w} N={nf} {dt} n{n}" for h, w, nf in K7A_SHAPES
-            for dt in ("float32", "bfloat16") for n in (5, 7)]
+    """poly_n 5 and 7 at both shapes; 1 and 3 (which the first design
+    served alone before the redesign) at the first."""
+    return [f"K7a {h}x{w} N={nf} {dt} n{n}" for i, (h, w, nf)
+            in enumerate(K7A_SHAPES) for dt in ("float32", "bfloat16")
+            for n in ((5, 7) if i else (1, 3, 5, 7))]
 
 
 def k7a_witness_hash(key, dev) -> str:
@@ -1984,7 +2037,7 @@ def per_frame_expected(cfg, h, w, t) -> dict:
     `takes_k1`. measurement="photometric" computes no flow and launches
     nothing. Lucas-Kanade: see the branches below."""
     from kalman_hydra_tpu_torch import kernels
-    from kalman_hydra_tpu_torch.kernels.flow_level import fits
+    from kalman_hydra_tpu_torch.kernels.flow_level import MAX_LEVELS, fits
     from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
     e = dict.fromkeys(kernels.WRAPPERS, 0)
@@ -2008,11 +2061,13 @@ def per_frame_expected(cfg, h, w, t) -> dict:
                  ekf_fused_step=(t - 1) * takes_k1(cfg))
         return e
     plan = farneback_levels(h, w, f.levels, f.pyr_scale)
+    walked = 0
     for (_k, lh, lw, _s, _ks) in plan:
         if f.fast_warp <= 0:
             e["flow_update"] += f.iterations * (t - 1)
         elif f.fi_level_fused and fits(lh, lw, 2 if f.bf16_poly else 4):
-            e["flow_levels"] = t - 1        # one walk over them all
+            walked += 1     # one walk for each MAX_LEVELS of them
+            e["flow_levels"] = -(-walked // MAX_LEVELS) * (t - 1)
         elif f.fi_pipeline and f.iterations >= 2:
             e["flow_iters_pipelined"] += t - 1
         else:

@@ -125,8 +125,8 @@ int launch(const void* R0, const void* R1, const float* flow, int h, int w,
   const int dt = static_cast<int>(kh::cdiv(bw + D + 1, kTileW));
   if ((long)n_iters * nb * nt > 2147483647L)
     return static_cast<int>(cudaErrorInvalidValue);
-  static int smem_set[kh::fi::kMaxDevices] = {};
-  cudaError_t err = kh::fi::allow_smem(kern, smem, smem_set);
+  static kh::SmemGrant grant;
+  cudaError_t err = grant.allow(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaMemsetAsync(counters, 0, sizeof(int) * (1 + (long)nb * nt), s);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -70,7 +70,6 @@
 // once, measured slower). `flow_level` is this walk over one level.
 #include <cuda/atomic>
 
-#include <mutex>
 
 #include "flow_tile.cuh"
 
@@ -80,7 +79,6 @@ using kh::fi::kTileThreads;
 using kh::fi::Window;
 
 constexpr int kMaxLevels = 8;
-constexpr int kMaxDevices = kh::fi::kMaxDevices;
 
 // The tile shapes of the walk: 16 x 32, 8 x 16 and 8 x 8.
 constexpr int kShapes = 3;
@@ -260,14 +258,9 @@ flow_walk_kernel(const __grid_constant__ Walk wk, const Window win,
 template <int TAPS, typename PT>
 int launch(const Walk& wk, const Window& win, int items, int words,
            int smem, int* counters, cudaStream_t s) {
-  static std::mutex lock;
-  static int granted[kMaxDevices] = {};
+  static kh::SmemGrant grant;
   auto kern = flow_walk_kernel<TAPS, PT>;
-  cudaError_t err;
-  {
-    const std::lock_guard<std::mutex> hold(lock);
-    err = kh::fi::allow_smem(kern, smem, granted);
-  }
+  cudaError_t err = grant.allow(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaMemsetAsync(counters, 0, sizeof(int) * (1 + (long)words), s);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -74,7 +74,7 @@ inline Window make_window(const void* wts, int taps, float post) {
 // Phase 1's source of M at one pixel (r, c), into m[5]: the select-sum
 // warp clamped to +-D (K2, K6, K13) ...
 struct SelectSumM {
-  static constexpr bool kPreferL1 = false;    // see allow_smem
+  static constexpr bool kPreferL1 = false;    // see launch_pairs
   float D;
   template <typename PT>
   __device__ __forceinline__ void operator()(const PT* __restrict__ R0,
@@ -250,40 +250,6 @@ __device__ __forceinline__ void tile_body(
   }
 }
 
-// Shared-memory attribute records, one per kernel and device: the
-// attribute is per function and device, and is raised up to the largest
-// size asked for on each card. With prefer_l1 the shared-memory carveout
-// is also set to the least that holds two blocks of `smem` (with their
-// static shared memory and the 1 KB reserved a block), so that the rest
-// of the SM's 256 KB stays L1 for the gathers: left to the driver, K8's
-// kernel (72 registers, so three blocks an SM would fit) ran slower on
-// scattered gathers (PERF.md).
-constexpr int kMaxDevices = 64;
-
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kern, int smem,
-                              int (&set)[kMaxDevices],
-                              bool prefer_l1 = false) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < kMaxDevices && smem <= set[dev]))
-    return err;
-  err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess && prefer_l1) {
-    int cap = 0;     // shared memory an SM can give, bytes
-    err = cudaDeviceGetAttribute(
-        &cap, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-    const long two = 2L * (smem + 1024 + 4 * kMaxTaps);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-          static_cast<int>(two >= cap ? 100 : (100 * two + cap - 1) / cap));
-  }
-  if (err == cudaSuccess && dev < kMaxDevices) set[dev] = smem;
-  return err;
-}
-
 // Work item q of K13's skewed order over one level -> (j, b, t): items
 // by s = b + skew * j, then by j, then by t, for n_iters iterations of nb
 // bands of nt tiles (K13, and K5 within each level it walks).
@@ -337,9 +303,14 @@ int launch_pairs(const void* R0, const void* R1, int pairs, int ppc,
   if (smem != tile_smem_bytes(kTileH, kTileW, win.taps / 2) ||
       cdiv(h, kTileH) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  static int smem_set[kMaxDevices] = {};
-  const cudaError_t err =
-      allow_smem(kern, smem, smem_set, MSrc::kPreferL1);
+  // with kPreferL1 the carveout holds two blocks of `smem` (with their
+  // static shared memory and the 1 KB reserved a block), so that the rest
+  // of the SM's 256 KB stays L1 for the gathers: at the default carveout,
+  // K8's kernel (72 registers, so three blocks an SM would fit) ran slower
+  // on scattered gathers (PERF.md)
+  static SmemGrant grant;
+  const cudaError_t err = grant.allow(
+      kern, smem, MSrc::kPreferL1 ? 2L * (smem + 1024 + 4 * kMaxTaps) : 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(cdiv(w, kTileW), cdiv(h, kTileH), pairs);
   kern<<<grid, kTileThreads, smem, s>>>(

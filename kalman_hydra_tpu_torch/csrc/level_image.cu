@@ -41,7 +41,7 @@
 // mostly from L2), into row buffers (index skewed by x / 32, so the
 // 2^k-strided horizontal reads hit distinct banks), then the horizontal
 // taps into the level tile; replicated border rows are computed once. It
-// then runs K3's tile body (polyexp.cuh::polyexp_tile, its taps unrolled
+// then runs the shared tile body (polyexp.cuh::polyexp_tile, taps unrolled
 // at poly_n 5 and 7) on each 16-row band of the level tile. Neither tmp
 // nor lvl exists in device memory. One frame has too few deep-level
 // tiles to fill the card, and each is ~2,000 dependent tap loads a warp,
@@ -66,7 +66,6 @@
 // costs ~2.5 H W taps, each an L2 load, and tiles recompute their halo.
 #include <cooperative_groups.h>
 
-#include <mutex>
 
 #include "polyexp.cuh"
 
@@ -123,7 +122,6 @@ using kh::PolyTaps;
 constexpr int kFusedThreads = 512;
 constexpr int kCols = 4;         // source columns of a lane's vertical sums
 constexpr int kMaxLevels = 12;
-constexpr int kMaxDevices = 64;
 
 // One coarse level of the fused launch (kernels/level_image.py::
 // fused_plan and _fused_tables_on).
@@ -318,23 +316,11 @@ level_polyexp_kernel(const Plan p) {
   }
 }
 
-// Allows the kernel `smem` bytes of dynamic shared memory on the current
-// device. The grant is kept per device (the attribute is per device) and
-// only raised, under a lock, so a call asks only for more than that: the
-// warm calls a CUDA graph captures make no attribute call.
+// One grant for each of the kernel's instantiations (common.cuh).
 template <typename OutT, int kN, bool kSplit>
 cudaError_t grant_smem(int smem) {
-  static std::mutex lock;
-  static int granted[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || smem <= 48 * 1024) return e;
-  const std::lock_guard<std::mutex> hold(lock);
-  if (dev < kMaxDevices && smem <= granted[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(level_polyexp_kernel<OutT, kN, kSplit>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && dev < kMaxDevices) granted[dev] = smem;
-  return e;
+  static kh::SmemGrant grant;
+  return grant.allow(level_polyexp_kernel<OutT, kN, kSplit>, smem);
 }
 
 template <typename OutT, int kN>

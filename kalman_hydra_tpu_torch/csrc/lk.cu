@@ -337,11 +337,9 @@ int launch(const Walk& wk, cudaStream_t s) {
   if (wk.K <= 0 || wk.levels < 1 || wk.levels > kMaxLevels || wk.win < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(wk.win);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        lk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  static kh::SmemGrant grant;
+  const cudaError_t e = grant.allow(lk_kernel, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
   lk_kernel<<<wk.K, kThreads, smem, s>>>(wk);
   return static_cast<int>(cudaGetLastError());
 }

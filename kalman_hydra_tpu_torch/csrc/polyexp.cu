@@ -13,20 +13,20 @@
 // The function's ~110 multiply-adds a pixel (3 vertical and 6 horizontal
 // moments of 2n + 1 taps each, at n = 5) take ~0.25 ms for 36 frames at
 // the f32 rate, near the 0.31 ms of their bytes. The first design (one
-// 16 x 64 tile a block, still run for n other than 5 and 7) read each tap
-// from shared memory beside its datum: ~120 shared loads a pixel, which
-// bounded it (1.31 ms for 36 frames; PERF.md).
+// 16 x 64 tile a block) read each tap from shared memory beside its
+// datum: ~120 shared loads a pixel, which bounded it (1.31 ms for 36
+// frames; PERF.md).
 //
-// Design (poly_n 5 and 7; kernels/polyexp.py::polyexp_plan): one 32 x 64
-// output tile a block of 256 threads, four blocks an SM (three at f32
-// outputs), the taps compile-time operands (PolyTaps in the launch's
-// parameter space, each an operand of its multiply-add), the frame
-// blockIdx.z.
+// Design (one instantiation for each odd poly_n <= 7;
+// kernels/polyexp.py::polyexp_plan): one 32 x 64 output tile a block of
+// 256 threads, four blocks an SM (three at f32 outputs), the taps
+// compile-time operands (PolyTaps in the launch's parameter space, each
+// an operand of its multiply-add), the frame blockIdx.z.
 //   1. The (32 + 2n) x 80 input tile (columns c0 - 8 ... c0 + 71) into
 //      shared memory as 16-byte loads, rows clamped to the image (the
 //      replicate border); a chunk that crosses the image's left or right
-//      edge, or a width that is not a multiple of 4, loads by clamped
-//      element.
+//      edge, a width that is not a multiple of 4 or a frame that does
+//      not start on a 16-byte boundary loads by clamped element.
 //   2. Vertical taps: one thread a (column, 8-row segment) walks down
 //      its column with the sums of its 2n + 1 outputs in flight in a
 //      register ring (3 moments each), so each input value is read from
@@ -49,66 +49,26 @@
 // then its horizontal taps k = 0 ... 2n, one multiply-add each, exactly
 // as the first design (and K4/K7b's polyexp.cuh::polyexp_tile) does, and
 // forms the planes with the same expressions, so the bytes are
-// unchanged. Other n run the first design (polyexp_tile with the taps in
-// shared memory). K3 is K7a with one frame, the same kernel, so a
-// batched launch equals its per-frame launches bit for bit.
-#include <mutex>
+// unchanged. K3 is K7a with one frame, the same kernel, so a batched
+// launch equals its per-frame launches bit for bit.
+#include <cstdint>
 
 #include "polyexp.cuh"
 
 namespace {
 
 using kh::clampi;
-using kh::kPeInH;
-using kh::kPeInW;
-using kh::kPeNMax;
-using kh::kPeTaps;
-using kh::kPeTH;
-using kh::kPeTW;
 using kh::PolyTaps;
 
 constexpr int kThreads = 256;
 
-// The first design, for any n: one 16 x 64 tile a block, taps in shared
-// memory. Output pixel (r, c) correlates src rows/cols clamp(r + k - n),
-// k in [0, 2n]: the replicate border of the unpadded (h, w) image.
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-polyexp_kernel(const float* __restrict__ src, int h, int w, PolyTaps t,
-               OutT* __restrict__ out) {
-  src += blockIdx.z * (long)h * w;
-  out += blockIdx.z * 5 * (long)h * w;
-  __shared__ float tile[kPeInH][kPeInW];
-  __shared__ float vs[3][kPeTH][kPeInW];
-  __shared__ float tg[3][kPeTaps];
-  const int n = t.n, taps = 2 * n + 1;
-  const int tin_h = kPeTH + 2 * n, tin_w = kPeTW + 2 * n;
-  const int r0 = blockIdx.y * kPeTH, c0 = blockIdx.x * kPeTW;
-  const int tid = threadIdx.x;
-
-  if (tid < taps) {
-    tg[0][tid] = t.g[tid];
-    tg[1][tid] = t.xg[tid];
-    tg[2][tid] = t.xxg[tid];
-  }
-  for (int i = tid; i < tin_h * tin_w; i += kThreads) {
-    const int rr = i / tin_w, cc = i - rr * tin_w;
-    const int sr = clampi(r0 + rr - n, 0, h - 1);
-    const int sc = clampi(c0 + cc - n, 0, w - 1);
-    tile[rr][cc] = src[(long)sr * w + sc];
-  }
-  __syncthreads();
-  kh::polyexp_tile<OutT, kThreads>(&tile[0][0], &vs[0][0][0], &tg[0][0], t,
-                                   r0, c0, h, w, h, w, out);
-}
-
-// The tile of the design for n = 5 and 7 (kernels/polyexp.py::
-// polyexp_plan is its Python twin).
+// The tile (kernels/polyexp.py::polyexp_plan is its Python twin).
 constexpr int kTH = 32;            // output rows of a tile
 constexpr int kTW = 64;            // output columns
 constexpr int kSeg = 8;            // rows of one vertical item
 constexpr int kRH = 8;             // columns of one horizontal item
 constexpr int kPad = 8;            // input columns staged left of c0
+constexpr int kNMax = 7;           // the largest n: kPad >= n
 constexpr int kIP = kTW + 2 * kPad;    // input row stride (floats)
 
 __host__ __device__ constexpr int vs_stride(int n) {
@@ -157,6 +117,7 @@ template <typename OutT, int kN>
 __global__ void __launch_bounds__(kThreads, sizeof(OutT) == 2 ? 4 : 3)
 polyexp_tiled_kernel(const float* __restrict__ src, int h, int w,
                      const PolyTaps t, OutT* __restrict__ out) {
+  static_assert(kN % 2 == 1 && kN <= kNMax, "odd n within the pad");
   constexpr int kTaps = 2 * kN + 1;
   constexpr int kVW = kTW + 2 * kN;          // vertical-moment columns
   constexpr int kVS = vs_stride(kN);
@@ -174,7 +135,10 @@ polyexp_tiled_kernel(const float* __restrict__ src, int h, int w,
   const int tid = threadIdx.x;
 
   // 1. input rows r0 - n ... r0 + kTH + n - 1, columns c0 - 8 ... c0 + 71
-  const bool vec_in = (w & 3) == 0;
+  // (16-byte loads where every row starts on a 16-byte boundary: a
+  // contiguous view may start anywhere)
+  const bool vec_in =
+      (w & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
   for (int i = tid; i < kInRows * (kIP / 4); i += kThreads) {
     const int rr = i / (kIP / 4), q = i - rr * (kIP / 4);
     const float* row = src + (long)clampi(r0 + rr - kN, 0, h - 1) * w;
@@ -277,7 +241,7 @@ polyexp_tiled_kernel(const float* __restrict__ src, int h, int w,
   // 4. out: 16-byte chunks, consecutive lanes along a row
   constexpr int kPer = 16 / sizeof(OutT);      // elements a chunk
   constexpr int kChunks = kTW / kPer;          // a row
-  const bool vec_out = w % kPer == 0;
+  const bool vec_out = w % kPer == 0;   // out is the wrapper's, aligned
   for (int i = tid; i < 5 * kTH * kChunks; i += kThreads) {
     const int pr = i / kChunks, q = i - pr * kChunks;
     const int p = pr / kTH, y = pr - p * kTH;
@@ -293,34 +257,14 @@ polyexp_tiled_kernel(const float* __restrict__ src, int h, int w,
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// Allows `kern` `smem` bytes of dynamic shared memory on the current
-// device: the grant is kept per kernel and device and only raised, under a
-// lock, so the warm calls a CUDA graph captures make no attribute call.
-template <typename Kernel>
-cudaError_t grant_smem(Kernel kern, int smem, int (&granted)[kMaxDevices],
-                       std::mutex& lock) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || smem <= 48 * 1024) return e;
-  const std::lock_guard<std::mutex> hold(lock);
-  if (dev < kMaxDevices && smem <= granted[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-  if (e == cudaSuccess && dev < kMaxDevices) granted[dev] = smem;
-  return e;
-}
-
 template <typename OutT, int kN>
 int launch_tiled(const float* src, int frames, int h, int w,
                  const PolyTaps& t, int smem, OutT* out, cudaStream_t s) {
-  static std::mutex lock;
-  static int granted[kMaxDevices];
+  static kh::SmemGrant grant;
   auto kern = polyexp_tiled_kernel<OutT, kN>;
   if (smem != tile_smem(kN, sizeof(OutT)) || kh::cdiv(h, kTH) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = grant_smem(kern, smem, granted, lock);
+  const cudaError_t e = grant.allow(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(kh::cdiv(w, kTW), kh::cdiv(h, kTH), frames);
   kern<<<grid, kThreads, smem, s>>>(src, h, w, t, out);
@@ -330,27 +274,25 @@ int launch_tiled(const float* src, int frames, int h, int w,
 template <typename OutT>
 int run(const float* src, int frames, int h, int w, const PolyTaps& t,
         int smem, OutT* out, cudaStream_t s) {
-  if (t.n == 5)
-    return launch_tiled<OutT, 5>(src, frames, h, w, t, smem, out, s);
-  if (t.n == 7)
-    return launch_tiled<OutT, 7>(src, frames, h, w, t, smem, out, s);
-  if (smem != 0 || kh::cdiv(h, kPeTH) > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(kh::cdiv(w, kPeTW), kh::cdiv(h, kPeTH), frames);
-  polyexp_kernel<OutT><<<grid, kThreads, 0, s>>>(src, h, w, t, out);
-  return static_cast<int>(cudaGetLastError());
+  switch (t.n) {
+    case 1: return launch_tiled<OutT, 1>(src, frames, h, w, t, smem, out, s);
+    case 3: return launch_tiled<OutT, 3>(src, frames, h, w, t, smem, out, s);
+    case 5: return launch_tiled<OutT, 5>(src, frames, h, w, t, smem, out, s);
+    case 7: return launch_tiled<OutT, 7>(src, frames, h, w, t, smem, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// img (frames, h, w) f32 -> out (frames, 5, h, w), replicate border; smem
-// the dynamic shared memory of one block, as kernels/polyexp.py::
-// polyexp_plan computes it (0 for the first design's n).
+// img (frames, h, w) f32 -> out (frames, 5, h, w), replicate border, at
+// an odd n <= 7; smem the dynamic shared memory of one block, as
+// kernels/polyexp.py::polyexp_plan computes it.
 KH_API int kh_polyexp(const void* img, int frames, int h, int w,
                       const void* taps_host, int n, int out_bf16, int smem,
                       void* out, void* stream) {
-  if (n < 1 || n > kPeNMax || h <= 0 || w <= 0 || frames <= 0 ||
-      frames > 65535)
+  if (n < 1 || n > kNMax || n % 2 == 0 || h <= 0 || w <= 0 ||
+      frames <= 0 || frames > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const PolyTaps t = kh::poly_taps(static_cast<const float*>(taps_host), n);
   const float* src = static_cast<const float*>(img);

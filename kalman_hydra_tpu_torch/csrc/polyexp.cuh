@@ -1,8 +1,7 @@
 // Polynomial-expansion device code shared by K4/K7b (csrc/level_image.cu)
-// and K3/K7a (csrc/polyexp.cu): the taps, and the first design's tile
-// body, which K4/K7b run on their level tiles and K3/K7a at poly_n other
-// than 5 and 7 (polyexp.cu's 32 x 64 tiles with a register ring take 5
-// and 7; both sum every tap in the same order, so their bytes agree).
+// and K3/K7a (csrc/polyexp.cu): the taps, and the tile body that K4/K7b
+// run on their level tiles (K3/K7a's own 32 x 64 tiles with a register
+// ring sum every tap in the same order, so their bytes agree).
 #pragma once
 
 #include "common.cuh"
@@ -13,7 +12,6 @@ constexpr int kPeNMax = 8;                  // poly_n <= 8 (cv2 uses 5 or 7)
 constexpr int kPeTaps = 2 * kPeNMax + 1;
 constexpr int kPeTH = 16;                   // output rows of one tile body
 constexpr int kPeTW = 64;                   // output columns of one
-constexpr int kPeInH = kPeTH + 2 * kPeNMax;
 constexpr int kPeInW = kPeTW + 2 * kPeNMax; // row stride of its source
 
 struct PolyTaps {
@@ -39,7 +37,7 @@ inline PolyTaps poly_taps(const float* taps_host, int n) {
   return t;
 }
 
-// K3's tile body: the 5 planes of the kPeTH x kPeTW output pixels whose
+// The tile body: the 5 planes of the kPeTH x kPeTW output pixels whose
 // top left is (r0, c0), from `tile`, a (kPeTH + 2n) x (kPeTW + 2n) block
 // of the (already bordered) source in shared memory with row stride
 // kPeInW, whose (0, 0) is the source pixel under output (r0, c0)'s

@@ -47,7 +47,6 @@
 // device, above the 0.0188 ms of the four per-level launches of the
 // direct stencil it replaced (PERF.md). Its gain is one launch, and one
 // wrapper call, a pyramid.
-#include <mutex>
 
 #include "common.cuh"
 
@@ -233,30 +232,11 @@ pyr_levels_kernel(const Table T) {
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// The dynamic shared memory attribute is per function and device: the
-// grant is kept per device and only raised, under a lock, so that a
-// process on several cards, or launching from several threads, never
-// skips a card that has not had it (the warm calls a CUDA graph captures
-// make no attribute call).
 template <int kThreads>
 int launch(const Table& t, int tiles, int smem, cudaStream_t s) {
-  static std::mutex lock;
-  static int granted[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static kh::SmemGrant grant;     // per device, under a lock (common.cuh)
+  const cudaError_t e = grant.allow(pyr_levels_kernel<kThreads>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  {
-    const std::lock_guard<std::mutex> hold(lock);
-    if (dev >= kMaxDevices || smem > granted[dev]) {
-      e = cudaFuncSetAttribute(pyr_levels_kernel<kThreads>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      if (dev < kMaxDevices) granted[dev] = smem;
-    }
-  }
   pyr_levels_kernel<kThreads><<<tiles, kThreads, smem, s>>>(t);
   return static_cast<int>(cudaGetLastError());
 }

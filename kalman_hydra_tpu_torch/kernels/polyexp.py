@@ -7,8 +7,8 @@ a_yy, axy] in f32 or bf16, replicate border, all arithmetic f32 with one
 rounding at the store. K7a replaces ::poly_expansion_planar_batch:
 (N, H, W) -> (N, 5, H, W), the same kernel with a frame index, so it
 equals per-frame K3 bit for bit. `polyexp_plan` is the kernel's tile and
-shared-memory plan: poly_n 5 and 7 run 32 x 64 tiles with their taps
-compiled in, any other n the first design's 16 x 64 tiles.
+shared-memory plan: 32 x 64 tiles with the taps compiled in, one build
+for each odd poly_n up to 7.
 
 CPU tensors take the plain version (one function for both: it maps any
 leading dims); CUDA tensors launch the kernel, or raise.
@@ -113,8 +113,7 @@ def poly_expansion_planar_plain(img: torch.Tensor, poly_n: int,
 
 
 SMEM_LIMIT = 232_448     # bytes of shared memory one H100 block may use
-COMPILED_N = (5, 7)      # poly_n with the taps compiled in (csrc/polyexp.cu)
-N_MAX = 8                # csrc/polyexp.cuh::kPeNMax
+COMPILED_N = (1, 3, 5, 7)   # the poly_n csrc/polyexp.cu builds (kNMax 7)
 
 
 class PolyexpPlan(NamedTuple):
@@ -124,17 +123,14 @@ class PolyexpPlan(NamedTuple):
 
 
 def polyexp_plan(n: int, out_dtype=torch.float32) -> PolyexpPlan:
-    """csrc/polyexp.cu's tiles and shared memory for poly_n = n: at n = 5
-    and 7 a 32 x 64 tile, the input tile ((32 + 2n) rows of 80 floats)
+    """csrc/polyexp.cu's tiles and shared memory for poly_n = n (odd, at
+    most 7): a 32 x 64 tile, the input tile ((32 + 2n) rows of 80 floats)
     or, after the vertical pass, the five output planes staged at a row
     stride of 72 (bf16) or 68 (f32) elements, whichever is larger, and
     the three vertical-moment planes (32 rows at the odd stride (64 + 2n)
-    | 1); at any other n the first design's 16 x 64 tile in static shared
-    memory (0 dynamic bytes)."""
-    if not 1 <= n <= N_MAX:
-        raise ValueError(f"poly_n {n} outside 1 ... {N_MAX}")
+    | 1)."""
     if n not in COMPILED_N:
-        return PolyexpPlan(16, 64, 0)
+        raise ValueError(f"poly_n {n}: the kernel takes {COMPILED_N}")
     ob = torch.empty((), dtype=out_dtype).element_size()
     th, tw = 32, 64
     stage = 5 * th * (tw + (8 if ob == 2 else 4)) * ob // 4

@@ -13,12 +13,12 @@ bilinear gather of the unwarped planes included (the reference gathers
 in XLA, `_warp_poly_planar`, then runs its Pallas kernel; the plain
 gather is `ops.warp.warp_poly_planar`). At `fast_warp > 0`, with
 `fi_level_fused`, the run of levels that pass K5's gate
-(`kernels.flow_level.fits`) runs in one K5 launch, every iteration of
-every one of them and the resizes between them (the reference runs one
-Pallas call a level, the resize in XLA between them); every other level
-runs all its iterations in one K13 launch with `fi_pipeline` (and
-iterations >= 2), else `iterations` K2 launches (the reference's order,
-kalman_hydra_tpu/ops/farneback.py:466-499).
+(`kernels.flow_level.fits`) runs in one K5 launch for every MAX_LEVELS of
+them, every iteration of each and the resizes between them (the
+reference runs one Pallas call a level, the resize in XLA between them);
+every other level runs all its iterations in one K13 launch with
+`fi_pipeline` (and iterations >= 2), else `iterations` K2 launches (the
+reference's order, kalman_hydra_tpu/ops/farneback.py:466-499).
 
 The pair-batched twins serve a whole clip, or several chained clips, at
 once: `polyexp_pyramid_batch` expands every frame in one K7b and one K7a
@@ -91,7 +91,8 @@ def farneback_from_pyramids(Rs_a, Rs_b, cfg: FlowConfig,
                                  device=R0.device)
         isz = R0.element_size()
         if cfg.fast_warp > 0 and cfg.fi_level_fused and fits(lh, lw, isz):
-            # this level and every next one under the gate: one walk
+            # this level and every next one under the gate: one walk a
+            # MAX_LEVELS of them
             j = i + 1
             while j < n and fits(Rs_a[j].shape[1], Rs_a[j].shape[2], isz):
                 j += 1

@@ -1,9 +1,9 @@
 """CPU tests of K3/K7a's kernel (csrc/polyexp.cu): its tile and
-shared-memory plan for poly_n 5 and 7 and the first design's for any
-other n, a NumPy float32 model of its tiles (staging with clamped rows
-and columns, the vertical and horizontal taps, the ragged edges) against
-a whole-image model of the same multiply-adds and the plain version, and
-its C interface as the wrapper calls it."""
+shared-memory plan for every odd poly_n it builds, a NumPy float32 model
+of its tiles (staging with clamped rows and columns, the vertical and
+horizontal taps, the ragged edges) against a whole-image model of the
+same multiply-adds and the plain version, and its C interface as the
+wrapper calls it, an unaligned frame included."""
 
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from kalman_hydra_tpu_torch.kernels import _build
 from kalman_hydra_tpu_torch.kernels import polyexp as pe
 
 CSRC = Path(pe.__file__).resolve().parents[1] / "csrc"
-SIGMA = {5: 1.1, 7: 1.5}
+SIGMA = {1: 0.6, 3: 0.9, 5: 1.1, 7: 1.5}
 
 
 def _cu_int(name):
@@ -30,12 +30,13 @@ def _cu_int(name):
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 @pytest.mark.parametrize("n", pe.COMPILED_N)
 def test_polyexp_plan_is_the_kernels(n, dtype):
-    """At poly_n 5 and 7 the plan is polyexp.cu's 32 x 64 tile: one
-    horizontal item (a row, 8 columns) a thread of 256; shared memory the
-    input tile ((32 + 2n) rows of 64 + 16 floats) or the five staged
+    """At every odd poly_n up to 7 the plan is polyexp.cu's 32 x 64 tile:
+    one horizontal item (a row, 8 columns) a thread of 256; shared memory
+    the input tile ((32 + 2n) rows of 64 + 16 floats) or the five staged
     output planes (row stride 72 bf16 or 68 f32), whichever is larger,
-    and three vertical-moment planes at the odd stride (64 + 2n) | 1;
-    three blocks fit an SM's 228 KB."""
+    and three vertical-moment planes at the odd stride (64 + 2n) | 1,
+    above the 48 KB a launch gets without a grant from n = 5; three
+    blocks fit an SM's 228 KB."""
     plan = pe.polyexp_plan(n, dtype)
     assert (plan.th, plan.tw) == (_cu_int("kTH"), _cu_int("kTW"))
     assert plan.th * plan.tw // _cu_int("kRH") == _cu_int("kThreads")
@@ -45,16 +46,28 @@ def test_polyexp_plan_is_the_kernels(n, dtype):
     stage = 5 * plan.th * (plan.tw + (8 if ob == 2 else 4)) * ob
     vs = 3 * plan.th * ((plan.tw + 2 * n) | 1) * 4
     assert plan.smem == max(4 * (plan.th + 2 * n) * ip, stage) + vs
-    assert 48 * 1024 < plan.smem <= pe.SMEM_LIMIT
+    assert plan.smem <= pe.SMEM_LIMIT and (n < 5 or plan.smem > 48 * 1024)
     assert 3 * (plan.smem + 1024) <= 228 * 1024
 
 
 @pytest.mark.parametrize("n", (1, 2, 3, 4, 6, 8))
 def test_polyexp_plan_other_n_take_the_first_design(n):
-    """Any other n runs the first design: 16 x 64 tiles in static shared
-    memory, no dynamic bytes; n outside 1 ... 8 is refused."""
-    assert pe.polyexp_plan(n) == pe.PolyexpPlan(16, 64, 0)
-    assert pe.N_MAX == 8 and n <= pe.N_MAX
+    """The first design (16 x 64 tiles, the taps in shared memory) is
+    gone: the odd n it served (1 and 3) take the 32 x 64 tiles of 5 and
+    7, built for them (the kernel's dispatch has one case for each n of
+    COMPILED_N, all within its pad of 8 columns), and an even n, which
+    FlowConfig refuses, is refused."""
+    src = (CSRC / "polyexp.cu").read_text()
+    built = re.findall(r"case (\d+): return launch_tiled<OutT, (\d+)>", src)
+    assert [int(a) for a, b in built if a == b] == list(pe.COMPILED_N)
+    assert max(pe.COMPILED_N) == _cu_int("kNMax") <= _cu_int("kPad")
+    if n % 2:
+        plan = pe.polyexp_plan(n)
+        assert (plan.th, plan.tw) == (32, 64)
+        assert 0 < plan.smem < pe.polyexp_plan(5).smem
+    else:
+        with pytest.raises(ValueError):
+            pe.polyexp_plan(n)
 
 
 @pytest.mark.parametrize("n", (0, 9))
@@ -180,3 +193,28 @@ def test_polyexp_calls_the_c_interface_as_declared(monkeypatch, frames,
         pe.polyexp_plan(n, dtype).smem, out.data_ptr())
     assert out.shape == (frames, 5, 40, 70) and out.dtype == dtype
     assert np.array_equal(taps, pe.poly_taps(n, 1.3))
+
+
+def test_polyexp_loads_by_element_from_an_unaligned_frame(monkeypatch):
+    """A contiguous view may start anywhere in its storage: _launch hands
+    the kernel the view's own address (here 4 bytes past a 16-byte
+    boundary), and the kernel takes its 16-byte loads only where the
+    frame's address and width keep every row on a 16-byte boundary (its
+    output is a fresh tensor of the wrapper's)."""
+    seen = []
+    monkeypatch.setattr(_build, "function",
+                        lambda fname, *argtypes: lambda *a: seen.append(a)
+                        or 0)
+    monkeypatch.setattr(_build, "stream", lambda t: 0)
+    flat = torch.zeros(1 + 3 * 40 * 64)
+    view = flat[1:].view(3, 40, 64)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    out = pe._launch(view, 5, 1.1, torch.bfloat16)
+    assert seen[0][0] == view.data_ptr() and out.data_ptr() % 16 == 0
+    src = (CSRC / "polyexp.cu").read_text()
+    cond = re.search(r"const bool vec_in =\s*([^;]*);", src).group(1)
+    assert re.sub(r"\s+", " ", cond) == (
+        "(w & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0")
+    # the pointers are tested after the frame's offset is added
+    assert src.index("src += blockIdx.z * plane") < src.index(
+        "const bool vec_in")

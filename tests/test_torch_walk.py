@@ -188,6 +188,58 @@ def test_walk_plan_tiles_and_shared_memory():
         kfl.walk_plan([(34, 60)] * 9, 15, 8, 3)
 
 
+def _gated(h, w, levels, pyr_scale, itemsize=2):
+    return [(lh, lw) for (_k, lh, lw, _s, _ks)
+            in farneback_levels(h, w, levels, pyr_scale)
+            if kfl.fits(lh, lw, itemsize)]
+
+
+@pytest.mark.parametrize("h,w,pyr_scale,runs", (
+    (1080, 1920, 0.8, [8, 3]), (720, 1280, 0.75, [8, 1]),
+    (1080, 1920, 0.5, [4])))
+def test_walks_plan_at_most_max_levels_a_launch(monkeypatch, h, w,
+                                                pyr_scale, runs):
+    """A pyr_scale near 1 gates more levels than one launch takes (11 at
+    1080p and 0.8, 9 at 720p and 0.75): the device route plans one walk
+    for each MAX_LEVELS of them, every plan within walk_plan's limit, and
+    counts one launch a walk."""
+    shapes = _gated(h, w, 20, pyr_scale)
+    assert len(shapes) == sum(runs)
+    walks = []
+
+    def launch(R0s, R1s, flow, winsize, max_disp, iters, gaussian, ps):
+        got = [tuple(R.shape[1:]) for R in R0s]
+        assert flow.shape == (2,) + got[0]
+        walks.append(kfl.walk_plan(got, winsize, max_disp, iters))
+        return torch.zeros((2,) + got[-1])
+    monkeypatch.setattr(kfl, "_launch", launch)
+    R = [torch.empty(5, lh, lw, dtype=torch.bfloat16) for lh, lw in shapes]
+    kernels.reset_launches()
+    out = kfl._walks(R, R, torch.zeros(2, *shapes[0]), 15, 8, 3, False,
+                     pyr_scale)
+    assert [len(p) for p in walks] == runs
+    assert all(len(p) <= kfl.MAX_LEVELS for p in walks)
+    assert [(L.h, L.w) for p in walks for L in p] == shapes
+    assert out.shape == (2,) + shapes[-1]
+    assert kfl.flow_levels.launches == len(runs)
+
+
+def test_walks_equal_the_per_level_route(monkeypatch, rng):
+    """Split into walks (one level a walk here, so that 3 levels take
+    three), with each walk run by its plain version, the device route
+    equals the per-level route bit for bit: the resize between walks is
+    the one between levels."""
+    monkeypatch.setattr(kfl, "MAX_LEVELS", 1)
+    monkeypatch.setattr(kfl, "_launch", lambda *a: kfl.flow_levels_plain(*a))
+    R0s, R1s = _levels(128, 128, 3, rng)
+    fl = torch.from_numpy(rng.uniform(-3, 3, (2,) + tuple(
+        R0s[0].shape[1:])).astype(np.float32))
+    kernels.reset_launches()
+    got = kfl._walks(R0s, R1s, fl, 15, 8, 2, True, 0.5)
+    assert torch.equal(got, _route(R0s, R1s, fl, 15, 8, 2, True, 0.5))
+    assert len(R0s) == kfl.flow_levels.launches == 3
+
+
 def _cu_int(name):
     src = (CSRC / "flow_level.cu").read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
