@@ -29,7 +29,14 @@ prints no result line):
      (K7B_WITNESS), and K12's walk (one launch a frame step) and its
      one-level launch against the points and status of the per-level
      route they replaced (K12_WITNESS) and the walk against that route on
-     the card (bit for bit) and its plain version; hold
+     the card (bit for bit) and its plain version, K11 (one launch for a
+     frame's coarse levels) and K1 (a group of lanes a track) against
+     the bytes of their first designs (K11_WITNESS, K1_WITNESS); run the
+     settings past the kernels' old limits at 1080p (F2: 16 levels at
+     pyr_scale 0.8; F5: lk_sparse and lk_dense at 10 levels; F4: poly_n
+     9, 11, 13; F3: winsize 63, 81, 101 at fast_warp 0 and 8) through
+     api.flow or pipeline.track_clip against the plain route on the card,
+     and each kernel they reach against its plain version; hold
      api.flow and pipeline.track_clip against the OpenCV oracle's
      tests/golden/oracle_v1.npz;
   4. time each kernel, its plain version and, where one PyTorch call
@@ -573,18 +580,22 @@ def k7b_witness_hash(key, dev) -> str:
     return tensors_hash(outs)
 
 
-@phase("device launches a call of K4, K7b, K12's and K5's walks, K3 and "
-       "K7a (profiler)")
+@phase("device launches a call of K4, K7b, K12's and K5's walks, K3, "
+       "K7a, K11 and K1 (profiler)")
 def check_launches(dev, clip, clip_b, cfg, cfg_h):
     """torch.profiler's device kernels of one call of K4 (a 1080p frame),
     K7b (B's 17 720p frames, and 4 x 9 1080p frames as path C), K12's
     walk (a 1080p frame pair of path H), K5's walk (the gated levels of a
-    1080p frame pair of path A), K3 (a 1080p frame) and K7a (C's 36
-    frames): one each, where the routes they replaced made 15 (five
-    coarse levels x vertical, horizontal, K3), 5 (a level each, and the
-    glue between) and 4 (a level each, and the resizes between)."""
+    1080p frame pair of path A), K3 (a 1080p frame), K7a (C's 36
+    frames), K11 (a 1080p frame's five coarse levels) and K1 (K = 1024,
+    from z, the prediction written too): one each, where the routes they
+    replaced made 15 (five coarse levels x vertical, horizontal, K3), 5
+    (a level each, and the glue between), 4 (a level each, and the
+    resizes between) and 10 (K11: two a level)."""
+    from kalman_hydra_tpu_torch.kernels.ekf import ekf_predict_update
     from kalman_hydra_tpu_torch.kernels.level_image import (
-        coarse_polyexp_fused, coarse_polyexp_fused_batch)
+        coarse_level_images, coarse_polyexp_fused,
+        coarse_polyexp_fused_batch)
     from kalman_hydra_tpu_torch.kernels.flow_level import fits, flow_levels
     from kalman_hydra_tpu_torch.kernels.lk import lk_sparse_levels
     from kalman_hydra_tpu_torch.kernels.polyexp import (
@@ -623,7 +634,11 @@ def check_launches(dev, clip, clip_b, cfg, cfg_h):
         "K3 1080x1920": lambda: poly_expansion_planar(
             img0, f.poly_n, f.poly_sigma, bf),
         f"K7a {H}x{W} N={N_CLIPS * T}": lambda: poly_expansion_planar_batch(
-            imgs0, f.poly_n, f.poly_sigma, bf)}
+            imgs0, f.poly_n, f.poly_sigma, bf),
+        "K11 1080x1920": lambda: coarse_level_images(g0, f.levels,
+                                                     f.pyr_scale),
+        "K1 K=1024 from z": lambda: ekf_predict_update(*k1_args)}
+    k1_args = k1_witness_case("K1 K=1024 n=6 H2", dev)
     bad = []
     for name, fn in calls.items():
         # warmed and timed first, as tools/torch_level_lk_ab.py does: a
@@ -1286,6 +1301,395 @@ def check_k11(dev, gray, cfg, results):
              for (lh, lw, iv, _wv, ih, _wh) in tabs)
     record(results, "coarse_level_images", max(errs), ms["kernel"],
            ms["plain"], H * W * 4 + px * 4, fl, dev=ms)
+
+
+K11_WITNESS = {
+    "K11 1080x1920 L5 s0.5":
+        "b7fdc6e177250720b2b698950219a34c105384a86f9f4eb92b9ceb9d63dd5b9e",
+    "K11 720x1280 L5 s0.5":
+        "9090f8948f4d0c9eccf85fe9a61a5d212f9bf5d6ec8f761382f72d6cd465cf63",
+    "K11 150x203 L4 s0.5":
+        "0c31025b23f01c07526976b0b2e84c0484ec6287cde429c6363c5bba0d71804b",
+    "K11 1080x1920 L16 s0.8":
+        "47219c4340ee312d0da1c4aca580147ce6abc98ec4f5788c99981a8726103c13",
+}
+K11_CASES = ((1080, 1920, 5, 0.5), (720, 1280, 5, 0.5), (150, 203, 4, 0.5),
+             (1080, 1920, 16, 0.8))
+
+
+def k11_witness_keys() -> list:
+    return [f"K11 {h}x{w} L{lv} s{s}" for h, w, lv, s in K11_CASES]
+
+
+def k11_witness_case(key, dev):
+    """The inputs of a K11_WITNESS key, "K11 <h>x<w> L<levels>
+    s<pyr_scale>": an (h, w) f32 image of u8-scale uniform noise from
+    numpy's legacy generator, and (levels, pyr_scale)."""
+    _, shape, lv, s = key.split()
+    h, w = map(int, shape.split("x"))
+    img = (np.random.RandomState(5).random_sample((h, w)) * 255).astype(
+        np.float32)
+    return torch.from_numpy(img).to(dev), (int(lv[1:]), float(s[1:]))
+
+
+def k11_witness_hash(key, dev) -> str:
+    from kalman_hydra_tpu_torch.kernels.level_image import (
+        coarse_level_images)
+    img, args = k11_witness_case(key, dev)
+    return tensors_hash(coarse_level_images(img, *args))
+
+
+K1_WITNESS = {
+    "K1 K=1024 n=6 H2":
+        "e1729fde8041f861ae1ba23ca338fcb5eb0a3f95626022786d107b2fadbcc180",
+    "K1 K=1024 n=6 HK":
+        "d6b218d52c90c6ccd4f051e2bf333aea9472af05f0c7153b8d1ae119845c23dd",
+    "K1 K=256 n=4 H2":
+        "67fe05a97d188444dc8b79dcd3c72b521081646d52e71b0421ce263cd878cd67",
+    "K1 K=256 n=4 HK":
+        "f0d0b2b8e54a897dc1fde2193d402d01dacc11645380065ae7b3edbe377bdb27",
+    "K1 K=1000 n=6 H2":
+        "74a3014a48ee002758b8252a170b083c2ca42018fd9c59fe4c398114053b334a",
+}
+K1_CASES = ((1024, 6, 0), (1024, 6, 1), (256, 4, 0), (256, 4, 1),
+            (1000, 6, 0))
+
+
+def k1_witness_keys() -> list:
+    return [f"K1 K={k} n={n} H{'K' if per else '2'}"
+            for k, n, per in K1_CASES]
+
+
+def k1_witness_case(key, dev):
+    """The inputs of a K1_WITNESS key, "K1 K=<tracks> n=<state> H<2|K>":
+    x (K, n), P (K, n, n) SPD, y (K, 2), H (2, n) = [I2 0] or per track
+    (K, 2, n), F, Q and r of EkfConfig(state_dim=n), all from numpy's
+    legacy generator (the same numbers on every machine)."""
+    from kalman_hydra_tpu_torch.config import EkfConfig
+    from kalman_hydra_tpu_torch.models import dynamics
+    _, ks, ns, hs = key.split()
+    k, n = int(ks[2:]), int(ns[2:])
+    cfg = EkfConfig(state_dim=n)
+    rs = np.random.RandomState(3)
+    x = (rs.standard_normal((k, n)) * 5).astype(np.float32)
+    A = rs.standard_normal((k, n, n)).astype(np.float32)
+    P = (A @ A.transpose(0, 2, 1) + np.eye(n, dtype=np.float32)).astype(
+        np.float32)
+    y = (rs.standard_normal((k, 2)) * 2).astype(np.float32)
+    H = dynamics.position_H(cfg)
+    if hs == "HK":
+        H = (H + 0.1 * rs.standard_normal((k, 2, n))).astype(np.float32)
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for a in (x, P, y, H)]
+    return (*ts, dynamics.transition(cfg), dynamics.process_noise(cfg),
+            cfg.r)
+
+
+def k1_witness_hash(key, dev) -> str:
+    from kalman_hydra_tpu_torch.kernels.ekf import ekf_fused_step
+    return tensors_hash(ekf_fused_step(*k1_witness_case(key, dev)))
+
+
+@phase("K11 against the two-launch route's outputs (bit for bit)")
+def check_k11_witness(dev):
+    """K11, one launch for every coarse level of a frame, on every
+    K11_WITNESS case (1080x1920 and 720x1280 at 5 levels, 150x203 at 4,
+    1080x1920 at 16 levels and pyr_scale 0.8): the bytes of the route it
+    replaced (two launches a level through a scratch plane), one launch a
+    call for up to 12 coarse levels (two for the 15 of the last case)."""
+    from kalman_hydra_tpu_torch.kernels.level_image import (
+        MAX_LEVELS, coarse_level_images, coarse_level_images_plain)
+    bad = []
+    for key, want in K11_WITNESS.items():
+        img, (lv, sc) = k11_witness_case(key, dev)
+        coarse_level_images.launches = 0
+        got = coarse_level_images(img, lv, sc)
+        launches = coarse_level_images.launches
+        same = tensors_hash(got) == want
+        err = max(max_err(a, b) for a, b in zip(
+            got, coarse_level_images_plain(img, lv, sc)))
+        log(f"  {key}: {'same bytes' if same else 'DIFFERENT bytes'} as "
+            f"the old route; {launches} launches for {len(got)} levels; "
+            f"vs plain {err:.3e} (bar 1e-2)")
+        if not same or err >= 1e-2 or \
+                launches != -(-len(got) // MAX_LEVELS):
+            bad.append(key)
+    assert not bad, f"K11 differs from the old route on {bad}"
+
+
+@phase("K1 against the first design's outputs (bit for bit)")
+def check_k1_witness(dev):
+    """K1 (a group of lanes a track) on every K1_WITNESS case (K = 1024
+    and 1000 at n = 6, 256 at n = 4; H shared or per track): the first
+    design's bytes; and its frame-loop call from the measurement z
+    (ekf_predict_update: the prediction written too) against its plain
+    version (bar 1e-4)."""
+    from kalman_hydra_tpu_torch.kernels.ekf import (
+        ekf_predict_update, ekf_predict_update_plain)
+    bad = []
+    for key, want in K1_WITNESS.items():
+        args = k1_witness_case(key, dev)
+        same = k1_witness_hash(key, dev) == want
+        x, P, y, H_ = args[:4]
+        z = y + (x[:, :2] if H_.ndim == 2 else 0.0)
+        err = max(max_err(a, b) for a, b in zip(
+            ekf_predict_update(x, P, z, *args[3:]),
+            ekf_predict_update_plain(x, P, z, *args[3:])))
+        log(f"  {key}: {'same bytes' if same else 'DIFFERENT bytes'} as "
+            f"the first design; from z, 5 outputs vs plain {err:.3e} "
+            f"(bar 1e-4)")
+        if not same or err >= 1e-4:
+            bad.append(key)
+    assert not bad, f"K1 differs from the first design on {bad}"
+
+
+def flow_pair(dev, clip, f, expect, what):
+    """api.flow of frames 0 -> 1 at 1080p through the kernels, with every
+    launch counter reset before and read after (they must equal
+    `expect`), against the composition of the kernels' plain versions on
+    the card (mean EPE < 1e-3 px, the flow-pair bar)."""
+    from kalman_hydra_tpu_torch import api, kernels
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    kernels.reset_launches()
+    got = api.flow(clip[0], clip[1], f, device=dev)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    g0, g1 = (grayscale_u8(torch.from_numpy(clip[i]).to(dev))
+              for i in (0, 1))
+    ref = plain_flow(g0, g1, f)
+    epe = torch.linalg.vector_norm(torch.from_numpy(got).to(dev) - ref,
+                                   dim=-1)
+    log(f"  {what}: launches {counts}; kernels vs plain mean EPE "
+        f"{epe.mean().item():.3e} px (bar 1e-3), max "
+        f"{epe.max().item():.3e}; finite {bool(np.isfinite(got).all())}")
+    assert counts == {k: v for k, v in expect.items() if v}, expect
+    assert np.isfinite(got).all() and epe.mean().item() < 1e-3
+
+
+def flow_expected(f, h, w) -> dict:
+    """Launches of one api.flow call: two frames' pyramids and one pair
+    step of per_frame_expected, without K1."""
+    from kalman_hydra_tpu_torch.config import EkfConfig, RunConfig
+    e = per_frame_expected(RunConfig(flow=f, ekf=EkfConfig(
+        measurement="implicit_flow")), h, w, 2)
+    return {k: v for k, v in e.items() if k != "ekf_fused_step"}
+
+
+@phase("F2: 16 levels at pyr_scale 0.8 (15 coarse levels) through api.flow")
+def fault_f2(dev, clip, cfg):
+    """K4 and K7b at more than 12 coarse levels: one launch for each run
+    of 12 (K4 f32 and K7b bf16 against their plain versions), then the
+    main path's flow at levels 16, pyr_scale 0.8 through api.flow (K4,
+    K3, K5's walks, K2) against the plain route."""
+    from kalman_hydra_tpu_torch.kernels.level_image import (
+        coarse_polyexp_fused, coarse_polyexp_fused_batch,
+        coarse_polyexp_fused_plain)
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    f = dataclasses.replace(cfg.flow, levels=16, pyr_scale=0.8)
+    grays = grayscale_u8(torch.from_numpy(clip[:2]).to(dev))
+    args = (f.levels, f.pyr_scale, f.poly_n, f.poly_sigma)
+    coarse_polyexp_fused.launches = coarse_polyexp_fused_batch.launches = 0
+    k4 = coarse_polyexp_fused(grays[0], *args)
+    k7b = coarse_polyexp_fused_batch(grays, *args,
+                                     out_dtype=torch.bfloat16)
+    e4 = max(max_err(a, b) for a, b in zip(
+        k4, coarse_polyexp_fused_plain(grays[0], *args)))
+    ref = coarse_polyexp_fused_plain(grays, *args, out_dtype=torch.float32)
+    ulps = max(((a.float() - b).abs() / bf16_ulp(b)).max().item()
+               for a, b in zip(k7b, ref))
+    log(f"  K4 {len(k4)} coarse levels in {coarse_polyexp_fused.launches} "
+        f"launches: vs plain {e4:.3e} (bar 1e-3); K7b N=2 bf16 in "
+        f"{coarse_polyexp_fused_batch.launches}: {ulps:.2f} ulp (bar 1)")
+    assert len(k4) == 15 and coarse_polyexp_fused.launches == 2
+    assert coarse_polyexp_fused_batch.launches == 2
+    assert e4 < 1e-3 and ulps <= 1.0
+    flow_pair(dev, clip, f, flow_expected(f, H, W),
+              "levels 16, pyr_scale 0.8, fast_warp 8")
+
+
+@contextlib.contextmanager
+def plain_lk_route():
+    """The Lucas-Kanade flows through the plain versions of K9, K10 and
+    K12 on the card, patched into ops.lk: the plain route a fault's
+    kernels are held against."""
+    from kalman_hydra_tpu_torch.kernels.lk import lk_sparse_levels_plain
+    from kalman_hydra_tpu_torch.kernels.pyramid import pyr_down_levels_plain
+    from kalman_hydra_tpu_torch.kernels.scharr import scharr_gradients_plain
+    from kalman_hydra_tpu_torch.ops import lk
+    saved = lk.build_pyramid, lk.scharr_gradients_levels, lk.lk_sparse_levels
+    lk.build_pyramid = lambda img, n: [img] + pyr_down_levels_plain(img,
+                                                                    n - 1)
+    lk.scharr_gradients_levels = lambda pyr: tuple(
+        scharr_gradients_plain(a) for a in pyr)
+    lk.lk_sparse_levels = lk_sparse_levels_plain
+    try:
+        yield
+    finally:
+        (lk.build_pyramid, lk.scharr_gradients_levels,
+         lk.lk_sparse_levels) = saved
+
+
+@phase("F5: lk_sparse and lk_dense at levels 10 (1080p) through "
+       "pipeline.track_clip and api.flow")
+def fault_f5(dev, clip, cfgs):
+    """Sparse LK (path H's settings) and dense LK at 10 levels: K9 in
+    three launches a pyramid, K10 in two (8 + 2 levels), K12 as two
+    walks a step (levels 8-9, then 0-7, the guess carried between);
+    the tracks and the flow against the plain route on the card."""
+    from kalman_hydra_tpu_torch import api, kernels, pipeline
+    from kalman_hydra_tpu_torch.config import FlowConfig
+    cfg = dataclasses.replace(cfgs["H"], flow=dataclasses.replace(
+        cfgs["H"].flow, levels=10))
+    t = 3
+    tr = drive("F5 lk_sparse", lambda: pipeline.track_clip(
+        clip[:t], cfg, device=dev), per_frame_expected(cfg, H, W, t), {})
+    check_tracks(tr, t, cfg.tracks.num_tracks)
+    with plain_lk_route():
+        kernels.reset_launches()
+        ref = pipeline.track_clip(clip[:t], cfg, device=dev)
+        assert not any(kernels.launch_counts().values())
+    same_tracks(tr, ref, "lk_sparse levels 10, kernels vs plain route")
+    f = FlowConfig(method="lk_dense", levels=10, fast_warp=8)
+    kernels.reset_launches()
+    got = api.flow(clip[0], clip[1], f, device=dev)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    with plain_lk_route():
+        ref = api.flow(clip[0], clip[1], f, device=dev)
+    epe = np.linalg.norm(got - ref, axis=-1)
+    log(f"  lk_dense levels 10: launches {counts}; kernels vs plain mean "
+        f"EPE {epe.mean():.3e} px (bar 1e-3)")
+    assert counts == {k: v for k, v in flow_expected(f, H, W).items() if v}
+    assert np.isfinite(got).all() and epe.mean() < 1e-3
+
+
+POLY_N_CASES = ((9, 1.9), (11, 2.3), (13, 2.7))
+
+
+@phase("F4: poly_n 9, 11, 13 through api.flow (K4, K3; K11 at "
+       "pe_fused=False) and the batched kernels (K7b, K7a)")
+def fault_f4(dev, clip, cfg):
+    """The generic-n builds of K3/K7a and K4/K7b (f32 < 1e-3, bf16 within
+    one ulp of their plain versions; K11 + K3 at pe_fused=False), then
+    the main path's flow through api.flow at each n against the plain
+    route; a poly_n past POLY_N_MAX is refused by check_slice."""
+    from kalman_hydra_tpu_torch import pipeline
+    from kalman_hydra_tpu_torch.config import RunConfig
+    from kalman_hydra_tpu_torch.kernels.level_image import (
+        coarse_polyexp_fused, coarse_polyexp_fused_batch,
+        coarse_polyexp_fused_plain)
+    from kalman_hydra_tpu_torch.kernels.polyexp import (
+        POLY_N_MAX, poly_expansion_planar, poly_expansion_planar_batch,
+        poly_expansion_planar_plain)
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    grays = grayscale_u8(torch.from_numpy(clip[:2]).to(dev))
+    for n, sg in POLY_N_CASES:
+        f = dataclasses.replace(cfg.flow, poly_n=n, poly_sigma=sg)
+        args = (f.levels, f.pyr_scale, n, sg)
+        e3 = max_err(poly_expansion_planar(grays[0], n, sg),
+                     poly_expansion_planar_plain(grays[0], n, sg))
+        e4 = max(max_err(a, b) for a, b in zip(
+            coarse_polyexp_fused(grays[0], *args),
+            coarse_polyexp_fused_plain(grays[0], *args)))
+        u7a = (((poly_expansion_planar_batch(grays, n, sg, torch.bfloat16)
+                 .float() - (r := poly_expansion_planar_plain(grays, n, sg)))
+                .abs() / bf16_ulp(r)).max().item())
+        u7b = max(((a.float() - b).abs() / bf16_ulp(b)).max().item()
+                  for a, b in zip(
+                      coarse_polyexp_fused_batch(grays, *args,
+                                                 out_dtype=torch.bfloat16),
+                      coarse_polyexp_fused_plain(grays, *args)))
+        log(f"  poly_n {n}: K3 f32 {e3:.3e}, K4 f32 {e4:.3e} (bar 1e-3); "
+            f"K7a bf16 {u7a:.2f} ulp, K7b bf16 {u7b:.2f} ulp (bar 1)")
+        assert e3 < 1e-3 and e4 < 1e-3 and u7a <= 1.0 and u7b <= 1.0
+        flow_pair(dev, clip, f, flow_expected(f, H, W),
+                  f"poly_n {n}, fast_warp 8")
+    f = dataclasses.replace(cfg.flow, poly_n=11, poly_sigma=2.3,
+                            pe_fused=False)
+    flow_pair(dev, clip, f, flow_expected(f, H, W),
+              "poly_n 11 at pe_fused=False (K11, K3)")
+    try:
+        pipeline.check_slice(RunConfig(flow=dataclasses.replace(
+            cfg.flow, poly_n=POLY_N_MAX + 2)))
+        raise AssertionError("poly_n past POLY_N_MAX was not refused")
+    except NotImplementedError as e:
+        log(f"  poly_n {POLY_N_MAX + 2}: refused ({e})")
+        assert "F4" in str(e)
+
+
+WINSIZE_CASES = (63, 81, 101)
+WINSIZE_TILES = (63, 81, 95, 99, 101)   # every TILES shape past 61, and M
+
+
+@phase("F3: winsize 63, 81, 101 at fast_warp 0 and 8 through api.flow, "
+       "and each kernel that takes the window vs its plain version")
+def fault_f3(dev, clip, cfg):
+    """Windows past 61 taps: 63, 81, 95 and 99 on the smaller tiles (16 x
+    64, 16 x 32, 8 x 16, 8 x 8), 101 with M in device memory
+    (kernels/flow_iter.py::tile_plan). K2, K8 (1080p), K13 (540x960, 3
+    iterations), K5's walk (a 1080p pair's gated levels), K6 and
+    K8-pairs (2 pairs of 270x480) against their plain versions (bar
+    1e-4, the fused-iteration bar), then the main path's flow at 63, 81
+    and 101 and fast_warp 8 (K5, K2) and 0 (K8) through api.flow against
+    the plain route."""
+    from kalman_hydra_tpu_torch.kernels.flow_iter import (
+        flow_iter, flow_iter_pairs, flow_iter_pairs_plain, flow_iter_plain,
+        flow_iters_pipelined, flow_iters_pipelined_plain, tile_plan)
+    from kalman_hydra_tpu_torch.kernels.flow_level import (
+        fits, flow_levels, flow_levels_plain, walk_fits)
+    from kalman_hydra_tpu_torch.kernels.flow_update import (
+        flow_update, flow_update_pairs, flow_update_pairs_plain,
+        flow_update_plain)
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    from kalman_hydra_tpu_torch.ops.farneback import polyexp_pyramid
+    R0, R1, fl = (torch.from_numpy(a).to(dev) for a in witness_inputs(H, W))
+    r0, r1, fh = (torch.from_numpy(a).to(dev)
+                  for a in witness_inputs(H // 2, W // 2))
+    Rs, _, fs = (torch.from_numpy(a).to(dev)
+                 for a in witness_inputs(270, 480))
+    stack = torch.stack([Rs, Rs.roll(3, -1), Rs.roll(-2, -2)])
+    fb = torch.stack([fs, fs * 0.5])
+    pyrs = [polyexp_pyramid(grayscale_u8(torch.from_numpy(clip[i]).to(dev)),
+                            cfg.flow) for i in (0, 1)]
+    # the exact gather on the clip's planes (1080p, and 3 frames of
+    # 270x480), from a +-2 px prior, as check_k8 holds K8
+    g = torch.Generator().manual_seed(8)
+    e0, e1 = pyrs[0][-1], pyrs[1][-1]
+    fe = (torch.rand(2, H, W, generator=g) * 4 - 2).to(dev)
+    mid = len(pyrs[0]) // 2      # 270x480 at 1080p
+    es = torch.stack([pyrs[0][mid], pyrs[1][mid], pyrs[0][mid]])
+    feb = (torch.rand((2, 2) + tuple(es.shape[2:]), generator=g) * 4
+           - 2).to(dev)
+    gated = [i for i, R in enumerate(pyrs[0])
+             if fits(R.shape[1], R.shape[2], 2)]
+    a_s, b_s = [pyrs[0][i] for i in gated], [pyrs[1][i] for i in gated]
+    f0 = torch.zeros((2,) + tuple(a_s[0].shape[1:]), device=dev)
+    for ws in WINSIZE_TILES:
+        plan = tile_plan(H, W, ws)
+        errs = {
+            "K2": max_err(flow_iter(R0, R1, fl, ws, 8),
+                          flow_iter_plain(R0, R1, fl, ws, 8)),
+            "K8": max_err(flow_update(e0, e1, fe, ws),
+                          flow_update_plain(e0, e1, fe, ws)),
+            "K13": max_err(flow_iters_pipelined(r0, r1, fh, ws, 8, 3),
+                           flow_iters_pipelined_plain(r0, r1, fh, ws, 8, 3)),
+            "K6": max_err(flow_iter_pairs(stack, fb, ws, 8),
+                          flow_iter_pairs_plain(stack, fb, ws, 8)),
+            "K8-pairs": max_err(flow_update_pairs(es, feb, ws),
+                                flow_update_pairs_plain(es, feb, ws))}
+        if walk_fits(ws):
+            errs["K5"] = max_err(
+                flow_levels(a_s, b_s, f0, ws, 8, 3, False, 0.5),
+                flow_levels_plain(a_s, b_s, f0, ws, 8, 3, False, 0.5))
+        log(f"  winsize {ws}: tile {plan.th}x{plan.tw} (shape "
+            f"{plan.shape}; -1: M in device memory); vs plain "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + " (bar 1e-4)")
+        assert max(errs.values()) < 1e-4
+        for fw in (8, 0) if ws in WINSIZE_CASES else ():
+            f = dataclasses.replace(cfg.flow, winsize=ws, fast_warp=fw)
+            flow_pair(dev, clip, f, flow_expected(f, H, W),
+                      f"winsize {ws}, fast_warp {fw}")
 
 
 def pyr_conv(x: torch.Tensor):
@@ -2037,35 +2441,45 @@ def per_frame_expected(cfg, h, w, t) -> dict:
     `takes_k1`. measurement="photometric" computes no flow and launches
     nothing. Lucas-Kanade: see the branches below."""
     from kalman_hydra_tpu_torch import kernels
-    from kalman_hydra_tpu_torch.kernels.flow_level import MAX_LEVELS, fits
+    from kalman_hydra_tpu_torch.kernels.flow_level import (MAX_LEVELS, fits,
+                                                           walk_fits)
+    from kalman_hydra_tpu_torch.kernels.level_image import (
+        MAX_LEVELS as LEVEL_IMAGE_LEVELS)
     from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
     e = dict.fromkeys(kernels.WRAPPERS, 0)
     if cfg.ekf.measurement == "photometric":
         return e
     if f.method in ("lk_sparse", "lk_dense"):
+        from kalman_hydra_tpu_torch.kernels.lk import MAX_LEVELS as LK_LEVELS
         from kalman_hydra_tpu_torch.kernels.pyramid import LAUNCH_LEVELS
+        from kalman_hydra_tpu_torch.kernels.scharr import \
+            MAX_LEVELS as SCHARR_LEVELS
         k9 = -(-(f.levels - 1) // LAUNCH_LEVELS)    # K9 launches a pyramid
+        k10 = -(-f.levels // SCHARR_LEVELS)         # K10 launches
+        k12 = -(-f.levels // LK_LEVELS)             # K12 walks a step
     if f.method == "lk_sparse":
-        # one lk_pyramid per frame (frame 0's is cached): one K9 and one
-        # K10 launch; one K12 launch a step walks every level; the
-        # position update is plain torch, not K1
-        e.update(pyr_down_levels=k9 * t, scharr_gradients_levels=t,
-                 lk_sparse_levels=t - 1)
+        # one lk_pyramid per frame (frame 0's is cached): K9 and K10
+        # launches; K12's walks a step over every level; the position
+        # update is plain torch, not K1
+        e.update(pyr_down_levels=k9 * t, scharr_gradients_levels=k10 * t,
+                 lk_sparse_levels=k12 * (t - 1))
         return e
     if f.method == "lk_dense":
         # per step both frames' pyramids and the previous frame's Scharr
-        # planes of every level (one K10 launch), then K1
+        # planes of every level (K10), then K1
         e.update(pyr_down_levels=2 * k9 * (t - 1),
-                 scharr_gradients_levels=t - 1,
+                 scharr_gradients_levels=k10 * (t - 1),
                  ekf_fused_step=(t - 1) * takes_k1(cfg))
         return e
     plan = farneback_levels(h, w, f.levels, f.pyr_scale)
+    coarse = -(-(len(plan) - 1) // LEVEL_IMAGE_LEVELS)  # K4/K11 launches
     walked = 0
     for (_k, lh, lw, _s, _ks) in plan:
         if f.fast_warp <= 0:
             e["flow_update"] += f.iterations * (t - 1)
-        elif f.fi_level_fused and fits(lh, lw, 2 if f.bf16_poly else 4):
+        elif f.fi_level_fused and walk_fits(f.winsize) and \
+                fits(lh, lw, 2 if f.bf16_poly else 4):
             walked += 1     # one walk for each MAX_LEVELS of them
             e["flow_levels"] = -(-walked // MAX_LEVELS) * (t - 1)
         elif f.fi_pipeline and f.iterations >= 2:
@@ -2073,9 +2487,10 @@ def per_frame_expected(cfg, h, w, t) -> dict:
         else:
             e["flow_iter"] += f.iterations * (t - 1)
     if f.pe_fused:
-        e.update(poly_expansion_planar=t, coarse_polyexp_fused=t)
+        e.update(poly_expansion_planar=t, coarse_polyexp_fused=coarse * t)
     else:
-        e.update(poly_expansion_planar=t * len(plan), coarse_level_images=t)
+        e.update(poly_expansion_planar=t * len(plan),
+                 coarse_level_images=coarse * t)
     e["ekf_fused_step"] = (t - 1) * takes_k1(cfg)
     return e
 
@@ -2917,6 +3332,12 @@ def main() -> int:
     check_k12_witness(dev, clip, cfgs["H"])
     check_k13(dev, clip, cfgs["AP"], results)
     check_k8_pairs(dev, clip_b, cfgs["BX"], results)
+    check_k11_witness(dev)
+    check_k1_witness(dev)
+    fault_f2(dev, clip, cfg)
+    fault_f5(dev, clip, cfgs)
+    fault_f4(dev, clip, cfg)
+    fault_f3(dev, clip, cfg)
     check_golden(dev)
     path_a(dev, clip, cfg, counts_by_path)
     flow_vs_plain(dev, clip, {k: cfgs[k]

@@ -32,25 +32,31 @@
 // clamped indexed loads per tap instead of the TPU's (2D+2)-term select
 // chain (gathers are cheap here; the chain was a workaround for TPU
 // gathers). The window's taps are the launch's parameters, a build for
-// 15 taps (every configuration's winsize) and one for any other count.
+// 15 taps (every configuration's winsize) and one for any other count;
+// a window wider than 61 takes a smaller tile or, from winsize 101, M in
+// device memory (flow_tile.cuh).
 #include "flow_tile.cuh"
 
 // Pair b (b < pairs) reads R0 + p * 5hw and R1 + p * 5hw (p as above;
 // K2 passes pairs = 1, ppc = 0, K6 passes R1 = R0 + 5hw). Planes bf16
 // [bf16 = 1] or f32; flow (pairs, 2, h, w) f32; wts (taps,) f32 in HOST
-// memory (copied into the launch's parameters); smem, the dynamic shared
-// memory of one 32 x 64 tile in bytes, as kernels/flow_iter.py::tile_plan
-// computes it; out (pairs, 2, h, w) f32.
+// memory (copied into the launch's parameters) and, past 61 taps, in
+// device memory too (wts_dev, else null); shape, the tile of
+// kernels/flow_iter.py::tile_plan (0: 32 x 64; 1 ... 4 smaller, past 61
+// taps; -1: M in device memory, in scratch (2, pairs, 5, h, w) f32, else
+// null) and smem, one tile's dynamic shared memory in bytes, as the plan
+// computes them; out (pairs, 2, h, w) f32.
 KH_API int kh_flow_iter(const void* R0, const void* R1, int bf16, int pairs,
                         int ppc, const void* flow, int h, int w, int D,
-                        const void* wts, int taps, float post_scale,
-                        int smem, void* out, void* stream) {
-  if (h <= 0 || w <= 0 || taps <= 0 || taps > kh::fi::kMaxTaps || D < 0 ||
+                        const void* wts, const void* wts_dev, int taps,
+                        float post_scale, int shape, int smem, void* scratch,
+                        void* out, void* stream) {
+  if (h <= 0 || w <= 0 || !kh::fi::window_ok(taps, wts_dev) || D < 0 ||
       pairs <= 0 || ppc < 0 || pairs > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return kh::fi::run_pairs(
       R0, R1, bf16, pairs, ppc, flow, h, w,
       kh::fi::SelectSumM{static_cast<float>(D)},
-      kh::fi::make_window(wts, taps, post_scale), smem, out,
-      static_cast<cudaStream_t>(stream));
+      kh::fi::make_window(wts, taps, post_scale, wts_dev), shape, smem,
+      scratch, out, static_cast<cudaStream_t>(stream));
 }

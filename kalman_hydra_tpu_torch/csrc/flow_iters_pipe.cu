@@ -8,8 +8,8 @@
 // launches bit for bit.
 //
 // Work items and their order. The level is cut into K2's tiles of TH x TW
-// = 32 x 64 pixels: nb row bands of nt column tiles (TH >= bw = taps / 2,
-// which the wrapper's plan guarantees). A work item is (iteration j, band
+// = 32 x 64 pixels (past 61 taps, the smaller tile of K2's plan): nb row
+// bands of nt column tiles. A work item is (iteration j, band
 // b, tile t); one launch covers all n_iters * nb * nt items. Each block
 // claims one item from a global ticket, in skewed order: by s = b + skew *
 // j, then by j, then by t (skew >= 1, kernels/flow_iter.py::pipe_skew's
@@ -20,9 +20,9 @@
 // (r, c) reads the prior flow on row r alone, at columns up to D + 1 away
 // (the fast warp shifts along rows by the flow at neighbouring COLUMNS of
 // the same row: see warp_m/vlerp), and the tile's M spans its rows and
-// columns +- bw. So the flow the item reads lies in bands b - 1 ... b + 1
-// (TH >= bw) and in column tiles t - dt ... t + dt, dt = cdiv(bw + D + 1,
-// TW). The item waits until iteration j - 1 has published each of those
+// columns +- bw. So the flow the item reads lies in bands b - db ... b +
+// db, db = cdiv(bw, TH) (1 on the 32 x 64 tile up to 61 taps), and in
+// column tiles t - dt ... t + dt, dt = cdiv(bw + D + 1, TW). The item waits until iteration j - 1 has published each of those
 // tiles: a per-tile progress word holds the number of iterations done,
 // stored with release semantics by the writer's thread 0 after a
 // __syncthreads, and spun on with acquire loads by one reader thread per
@@ -32,9 +32,10 @@
 // Why this cannot deadlock. A block takes its ticket only once it runs, so
 // every claimed ticket is held by a resident block, and tickets are handed
 // out in increasing order. Item (j, b, t) waits only on items
-// (j - 1, b', t') with b' <= b + 1, whose s' = b' + skew (j - 1) <= s -
-// (skew - 1) <= s, and at s' = s (skew = 1) their j - 1 < j: smaller
-// tickets, whatever t' is. The smallest unfinished claimed ticket
+// (j - 1, b', t') with b' <= b + db, whose s' = b' + skew (j - 1) <= s -
+// (skew - db) <= s (the wrapper's skew >= db, or >= the bands left
+// below), and at s' = s their j - 1 < j: smaller tickets, whatever t'
+// is. The smallest unfinished claimed ticket
 // therefore waits on nothing unfinished and runs to its end; by induction
 // every item does. No cooperative launch is needed. The ticket and the
 // progress words are cleared with cudaMemsetAsync on the launch's stream
@@ -60,17 +61,16 @@
 
 namespace {
 
-using kh::fi::kTileH;
 using kh::fi::kTileThreads;
-using kh::fi::kTileW;
 using kh::fi::Window;
 
-template <int TAPS, typename PT>
+template <int TH, int TW, int TAPS, typename PT>
 __global__ void __launch_bounds__(kTileThreads, 2)
 flow_iters_pipe_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
                        const float* flow_in, int h, int w, float D,
-                       const Window win, int n_iters, int nb, int nt, int dt,
-                       int skew, float* inter, float* out, int* counters) {
+                       const Window win, int n_iters, int nb, int nt, int db,
+                       int dt, int skew, float* inter, float* out,
+                       int* counters) {
   extern __shared__ __align__(16) float sm[];
   __shared__ float s_w[kh::fi::kMaxTaps];
   __shared__ int s_item[3];
@@ -83,10 +83,10 @@ flow_iters_pipe_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
   }
   __syncthreads();
   const int j = s_item[0], b = s_item[1], t = s_item[2];
-  // wait for iteration j - 1 on bands b - 1 ... b + 1 and tiles
+  // wait for iteration j - 1 on bands b - db ... b + db and tiles
   // t - dt ... t + dt, one thread per progress word
   if (j > 0) {
-    const int b0 = max(0, b - 1), b1 = min(nb - 1, b + 1);
+    const int b0 = max(0, b - db), b1 = min(nb - 1, b + db);
     const int t0 = max(0, t - dt), t1 = min(nt - 1, t + dt);
     const int ntw = t1 - t0 + 1;
     for (int i = threadIdx.x; i < (b1 - b0 + 1) * ntw; i += blockDim.x) {
@@ -100,10 +100,8 @@ flow_iters_pipe_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
   const long plane = (long)h * w;
   const float* src = j == 0 ? flow_in : inter + (long)(j - 1) * 2 * plane;
   float* dst = j == n_iters - 1 ? out : inter + (long)j * 2 * plane;
-  kh::fi::tile_body<kTileH, kTileW, TAPS>(R0, R1, src, h, w,
-                                          kh::fi::SelectSumM{D}, win,
-                                          b * kTileH, t * kTileW, dst, sm,
-                                          s_w);
+  kh::fi::tile_body<TH, TW, TAPS>(R0, R1, src, h, w, kh::fi::SelectSumM{D},
+                                  win, b * TH, t * TW, dst, sm, s_w);
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
@@ -112,17 +110,18 @@ flow_iters_pipe_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
   }
 }
 
-template <int TAPS, typename PT>
+template <int TH, int TW, int TAPS, typename PT>
 int launch(const void* R0, const void* R1, const float* flow, int h, int w,
            int D, const Window& win, int n_iters, int skew, int smem,
            float* inter, float* out, int* counters, cudaStream_t s) {
-  auto kern = flow_iters_pipe_kernel<TAPS, PT>;
+  auto kern = flow_iters_pipe_kernel<TH, TW, TAPS, PT>;
   const int bw = win.taps / 2;
-  if (smem != kh::fi::tile_smem_bytes(kTileH, kTileW, bw) || kTileH < bw)
+  const int nb = static_cast<int>(kh::cdiv(h, TH));
+  const int nt = static_cast<int>(kh::cdiv(w, TW));
+  const int db = static_cast<int>(kh::cdiv(bw, TH));
+  const int dt = static_cast<int>(kh::cdiv(bw + D + 1, TW));
+  if (smem != kh::fi::tile_smem_bytes(TH, TW, bw) || skew < min(db, nb))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = static_cast<int>(kh::cdiv(h, kTileH));
-  const int nt = static_cast<int>(kh::cdiv(w, kTileW));
-  const int dt = static_cast<int>(kh::cdiv(bw + D + 1, kTileW));
   if ((long)n_iters * nb * nt > 2147483647L)
     return static_cast<int>(cudaErrorInvalidValue);
   static kh::SmemGrant grant;
@@ -132,40 +131,63 @@ int launch(const void* R0, const void* R1, const float* flow, int h, int w,
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<n_iters * nb * nt, kTileThreads, smem, s>>>(
       static_cast<const PT*>(R0), static_cast<const PT*>(R1), flow, h, w,
-      static_cast<float>(D), win, n_iters, nb, nt, dt, skew, inter, out,
+      static_cast<float>(D), win, n_iters, nb, nt, db, dt, skew, inter, out,
       counters);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tile of K2's plan (flow_tile.cuh::kShapes): shape 0 at 15 taps
+// compiled in or generic, a smaller one (past 61 taps) generic.
 template <typename PT>
 int dispatch(const void* R0, const void* R1, const float* flow, int h,
              int w, int D, const Window& win, int n_iters, int skew,
-             int smem, float* inter, float* out, int* counters,
+             int shape, int smem, float* inter, float* out, int* counters,
              cudaStream_t s) {
-  return win.taps == 15
-             ? launch<15, PT>(R0, R1, flow, h, w, D, win, n_iters, skew,
-                              smem, inter, out, counters, s)
-             : launch<0, PT>(R0, R1, flow, h, w, D, win, n_iters, skew, smem,
-                             inter, out, counters, s);
+  switch (shape) {
+    case 0:
+      return win.taps == 15
+                 ? launch<32, 64, 15, PT>(R0, R1, flow, h, w, D, win,
+                                          n_iters, skew, smem, inter, out,
+                                          counters, s)
+                 : launch<32, 64, 0, PT>(R0, R1, flow, h, w, D, win,
+                                         n_iters, skew, smem, inter, out,
+                                         counters, s);
+    case 1:
+      return launch<16, 64, 0, PT>(R0, R1, flow, h, w, D, win, n_iters,
+                                   skew, smem, inter, out, counters, s);
+    case 2:
+      return launch<16, 32, 0, PT>(R0, R1, flow, h, w, D, win, n_iters,
+                                   skew, smem, inter, out, counters, s);
+    case 3:
+      return launch<8, 16, 0, PT>(R0, R1, flow, h, w, D, win, n_iters,
+                                  skew, smem, inter, out, counters, s);
+    case 4:
+      return launch<8, 8, 0, PT>(R0, R1, flow, h, w, D, win, n_iters, skew,
+                                 smem, inter, out, counters, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // R0, R1 (5, h, w) bf16 [bf16 = 1] or f32; flow (2, h, w) f32 prior;
-// wts (taps,) f32 in HOST memory; n_iters >= 2; skew >= 1 (the order
-// above); smem, the dynamic shared memory of one 32 x 64 tile, as
-// kernels/flow_iter.py::tile_plan computes it; scratch inter (n_iters - 1,
-// 2, h, w) f32 and counters (1 + cdiv(h, 32) * cdiv(w, 64),) int32; out
-// (2, h, w) f32.
+// wts (taps,) f32 in HOST memory and, past 61 taps, in device memory too
+// (wts_dev, else null); n_iters >= 2; skew >= 1 (the order above); shape
+// and smem, the tile of kernels/flow_iter.py::tile_plan (0: 32 x 64; a
+// window too wide for every tile does not come here) and its dynamic
+// shared memory; scratch inter (n_iters - 1, 2, h, w) f32 and counters
+// (1 + the plan's tiles,) int32; out (2, h, w) f32.
 KH_API int kh_flow_iters_pipe(const void* R0, const void* R1, int bf16,
                               const void* flow, int h, int w, int D,
-                              const void* wts, int taps, float post_scale,
-                              int n_iters, int skew, int smem, void* inter,
-                              void* out, void* counters, void* stream) {
-  if (h <= 0 || w <= 0 || taps <= 0 || taps > kh::fi::kMaxTaps || D < 0 ||
-      n_iters < 2 || skew < 1)
+                              const void* wts, const void* wts_dev, int taps,
+                              float post_scale, int n_iters, int skew,
+                              int shape, int smem, void* inter, void* out,
+                              void* counters, void* stream) {
+  if (h <= 0 || w <= 0 || !kh::fi::window_ok(taps, wts_dev) || D < 0 ||
+      n_iters < 2 || skew < 1 || (shape > 0 && taps <= kh::fi::kMaxTaps))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Window win = kh::fi::make_window(wts, taps, post_scale);
+  const Window win = kh::fi::make_window(wts, taps, post_scale, wts_dev);
   auto f = static_cast<const float*>(flow);
   auto in = static_cast<float*>(inter);
   auto o = static_cast<float*>(out);
@@ -173,7 +195,7 @@ KH_API int kh_flow_iters_pipe(const void* R0, const void* R1, int bf16,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return dispatch<__nv_bfloat16>(R0, R1, f, h, w, D, win, n_iters, skew,
-                                   smem, in, o, c, s);
-  return dispatch<float>(R0, R1, f, h, w, D, win, n_iters, skew, smem, in, o,
-                         c, s);
+                                   shape, smem, in, o, c, s);
+  return dispatch<float>(R0, R1, f, h, w, D, win, n_iters, skew, shape, smem,
+                         in, o, c, s);
 }

@@ -161,10 +161,11 @@ struct WalkM {
   }
 };
 
-// Dynamic shared memory of one block: M on the largest tile (shape 0)
-// and its bw halo.
-__host__ __device__ constexpr int walk_smem(int bw) {
-  return kh::fi::tile_smem_bytes(shape_h(0), shape_w(0), bw);
+// Dynamic shared memory of shape s's tile and its bw halo; a launch's
+// blocks take that of the largest shape that fits one block
+// (kernels/flow_level.py::walk_smem), and its plan uses no larger shape.
+__host__ __device__ constexpr int shape_smem(int s, int bw) {
+  return kh::fi::tile_smem_bytes(shape_h(s), shape_w(s), bw);
 }
 
 // Spin until progress word p holds at least `want` (acquire).
@@ -277,18 +278,20 @@ int launch(const Walk& wk, const Window& win, int items, int words,
 // (f32, w) on the device. dims (host, 10 a level; kernels/flow_level.py::
 // walk_plan): h, w, shape (0: 16 x 32 tiles, 1: 8 x 16, 2: 8 x 8), nb,
 // nt, db, dt, skew, first ticket, first progress word. prior (2, h, w)
-// of level 0; wts (taps,) f32 in HOST memory; scale = 1 / pyr_scale;
-// smem, the dynamic shared memory of one block (kernels/flow_level.py::
-// walk_smem); counters (1 + the
+// of level 0; wts (taps,) f32 in HOST memory and, past 61 taps, in
+// device memory too (wts_dev, else null); scale = 1 / pyr_scale; smem,
+// the dynamic shared memory of one block (kernels/flow_level.py::
+// walk_smem: at least every level's shape's); counters (1 + the
 // progress words) int32; out (2, h, w) f32 of the last level.
 KH_API int kh_flow_levels(int levels, const unsigned long long* ptrs,
                           const int* dims, int bf16, const void* prior,
-                          int D, const void* wts, int taps, float post_scale,
-                          int iters, float scale, int smem, void* counters,
-                          void* out, void* stream) {
-  if (levels < 1 || levels > kMaxLevels || taps <= 0 ||
-      taps > kh::fi::kMaxTaps || D < 0 || iters < 1 ||
-      smem != walk_smem(taps / 2))
+                          int D, const void* wts, const void* wts_dev,
+                          int taps, float post_scale, int iters, float scale,
+                          int smem, void* counters, void* out,
+                          void* stream) {
+  if (levels < 1 || levels > kMaxLevels ||
+      !kh::fi::window_ok(taps, wts_dev) || D < 0 || iters < 1 ||
+      smem > 232448 - 4 * kh::fi::kMaxTaps - 16)
     return static_cast<int>(cudaErrorInvalidValue);
   Walk wk{};
   wk.levels = levels;
@@ -317,6 +320,7 @@ KH_API int kh_flow_levels(int levels, const unsigned long long* ptrs,
         L.nb != static_cast<int>(kh::cdiv(L.h, shape_h(L.shape))) ||
         L.nt != static_cast<int>(kh::cdiv(L.w, shape_w(L.shape))) ||
         L.skew < 1 || L.skew < L.db || L.item0 != items ||
+        smem < shape_smem(L.shape, taps / 2) ||
         L.prog0 != words ||
         (l > 0 && !(L.y0 && L.y1 && L.fy && L.x0 && L.x1 && L.fx)))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -324,7 +328,7 @@ KH_API int kh_flow_levels(int levels, const unsigned long long* ptrs,
     words += (long)L.nb * L.nt;
   }
   if (items > 2147483647L) return static_cast<int>(cudaErrorInvalidValue);
-  const Window win = kh::fi::make_window(wts, taps, post_scale);
+  const Window win = kh::fi::make_window(wts, taps, post_scale, wts_dev);
   auto c = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(items), nw = static_cast<int>(words);

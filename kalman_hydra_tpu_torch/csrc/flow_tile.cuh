@@ -42,7 +42,15 @@
 //
 // The window's taps are passed by value (Window, in the kernel's
 // parameter space): with TAPS > 0 each tap is a constant operand of its
-// multiply-add; the generic path reads a copy in shared memory.
+// multiply-add; the generic path reads a copy in shared memory, or, past
+// kMaxTaps taps, the window's copy in device memory.
+//
+// Windows wider than the 32 x 64 tile's shared memory allows (winsize >
+// 61) take a smaller tile (kernels/flow_iter.py::tile_plan picks the
+// first of kShapes whose M fits one block); where none fits (winsize >=
+// 101) the iteration keeps M and its vertical pass in device memory
+// (three launches, one thread a pixel; mem_* below), each sum in the same
+// tap order as the tile body, so every route gives the same values.
 #pragma once
 
 #include "flow_iter.cuh"
@@ -53,22 +61,42 @@ namespace fi {
 constexpr int kTileThreads = 256;
 constexpr int kTileH = 32;       // the tile K2, K6, K8 and K13 launch:
 constexpr int kTileW = 64;       // kernels/flow_iter.py::TILE
-constexpr int kMaxTaps = 61;     // winsize <= 61: the largest that fits
+constexpr int kMaxTaps = 61;     // taps by value: the 32 x 64 tile's most
+
+// The tiles of the pairs kernel (K2, K6, K8, K8-pairs) and K13, largest
+// first (kernels/flow_iter.py::TILES): shape 0 is kTileH x kTileW.
+constexpr int kShapes = 5;
+__host__ __device__ constexpr int tile_h_of(int s) {
+  return s == 0 ? 32 : s <= 2 ? 16 : 8;
+}
+__host__ __device__ constexpr int tile_w_of(int s) {
+  return s <= 1 ? 64 : s == 2 ? 32 : s == 3 ? 16 : 8;
+}
 
 struct Window {
   float w[kMaxTaps];
   int taps;
   float post;
+  const float* wd;   // all taps in device memory (taps > kMaxTaps), or null
 };
 
-// The window's taps, in HOST memory, into a launch's Window.
-inline Window make_window(const void* wts, int taps, float post) {
+// The window's taps, in HOST memory (and, past kMaxTaps, in device memory
+// too: wts_dev), into a launch's Window.
+inline Window make_window(const void* wts, int taps, float post,
+                          const void* wts_dev = nullptr) {
   Window win;
   for (int k = 0; k < kMaxTaps; ++k)
     win.w[k] = k < taps ? static_cast<const float*>(wts)[k] : 0.f;
   win.taps = taps;
   win.post = post;
+  win.wd = static_cast<const float*>(wts_dev);
   return win;
+}
+
+// Whether a Window can be launched: past kMaxTaps its taps must be in
+// device memory.
+inline bool window_ok(int taps, const void* wts_dev) {
+  return taps > 0 && (taps <= kMaxTaps || wts_dev != nullptr);
 }
 
 // Phase 1's source of M at one pixel (r, c), into m[5]: the select-sum
@@ -129,7 +157,10 @@ __device__ __forceinline__ void tile_body(
   const int plane_s = MH * S;      // one M plane in shared memory
   const int tid = threadIdx.x;
   const long plane = (long)h * w;
-  if (TAPS == 0) {   // read after phase 1's barriers
+  // the generic path's taps: the shared copy, or past kMaxTaps the
+  // window's device copy (read after phase 1's barriers)
+  const float* wt = taps > kMaxTaps ? win.wd : s_w;
+  if (TAPS == 0 && taps <= kMaxTaps) {
     for (int k = tid; k < taps; k += kTileThreads) s_w[k] = win.w[k];
   }
 
@@ -167,7 +198,7 @@ __device__ __forceinline__ void tile_body(
     } else {
       for (int o = 0; o < TH; ++o) {
         float acc = 0.f;
-        for (int k = 0; k < taps; ++k) tap(acc, s_w[k], col[(o + k) * S]);
+        for (int k = 0; k < taps; ++k) tap(acc, wt[k], col[(o + k) * S]);
         col[o * S] = acc;
       }
     }
@@ -215,7 +246,7 @@ __device__ __forceinline__ void tile_body(
         for (int o = 0; o < RH; ++o) {
           const int k = m - o;
           if (k < 0 || k >= taps) continue;
-          const float wk = s_w[k];
+          const float wk = wt[k];
 #pragma unroll
           for (int p = 0; p < 5; ++p) tap(g[o][p], wk, v[p]);
         }
@@ -273,12 +304,12 @@ __device__ inline void pipe_item(int q, int n_iters, int nb, int nt,
 }
 
 // One iteration for `pairs` frame pairs of a plane stack in ONE launch,
-// grid = (column tiles, row tiles, pairs), one block per 32 x 64 output
-// tile: pair b reads R0 and R1 offset by its first frame p = b + b / ppc
+// grid = (column tiles, row tiles, pairs), one block per TH x TW output
+// tile (32 x 64 up to 61 taps): pair b reads R0 and R1 offset by its first frame p = b + b / ppc
 // when ppc (pairs per clip) chains clips end to end, else p = b, in place
 // (R1 = R0 + 5hw for a stack; any two planes for one pair), and its own
 // flow and output. K2/K6 run it with SelectSumM, K8/K8-pairs with ExactM.
-template <int TAPS, typename MSrc, typename PT>
+template <int TH, int TW, int TAPS, typename MSrc, typename PT>
 __global__ void __launch_bounds__(kTileThreads, 2)
 pairs_tile_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
                   int ppc, const float* __restrict__ flow, int h, int w,
@@ -289,19 +320,17 @@ pairs_tile_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
   const int b = blockIdx.z;
   const long plane = (long)h * w;
   const long f = (ppc > 0 ? b + b / ppc : b) * 5 * plane;
-  tile_body<kTileH, kTileW, TAPS>(
+  tile_body<TH, TW, TAPS>(
       R0 + f, R1 + f, flow + b * 2 * plane, h, w, msrc, win,
-      blockIdx.y * kTileH, blockIdx.x * kTileW, out + b * 2 * plane, sm,
-      s_w);
+      blockIdx.y * TH, blockIdx.x * TW, out + b * 2 * plane, sm, s_w);
 }
 
-template <int TAPS, typename MSrc, typename PT>
+template <int TH, int TW, int TAPS, typename MSrc, typename PT>
 int launch_pairs(const void* R0, const void* R1, int pairs, int ppc,
                  const float* flow, int h, int w, const MSrc& msrc,
                  const Window& win, int smem, float* out, cudaStream_t s) {
-  auto kern = pairs_tile_kernel<TAPS, MSrc, PT>;
-  if (smem != tile_smem_bytes(kTileH, kTileW, win.taps / 2) ||
-      cdiv(h, kTileH) > 65535)
+  auto kern = pairs_tile_kernel<TH, TW, TAPS, MSrc, PT>;
+  if (smem != tile_smem_bytes(TH, TW, win.taps / 2) || cdiv(h, TH) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   // with kPreferL1 the carveout holds two blocks of `smem` (with their
   // static shared memory and the 1 KB reserved a block), so that the rest
@@ -312,33 +341,157 @@ int launch_pairs(const void* R0, const void* R1, int pairs, int ppc,
   const cudaError_t err = grant.allow(
       kern, smem, MSrc::kPreferL1 ? 2L * (smem + 1024 + 4 * kMaxTaps) : 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(cdiv(w, kTileW), cdiv(h, kTileH), pairs);
+  const dim3 grid(cdiv(w, TW), cdiv(h, TH), pairs);
   kern<<<grid, kTileThreads, smem, s>>>(
       static_cast<const PT*>(R0), static_cast<const PT*>(R1), ppc, flow, h,
       w, msrc, win, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// launch_pairs with the planes' type (bf16 = 1, else f32) and the window's
-// build: 15 taps (every configuration's winsize) at compile time, any
-// other count generic.
+// launch_pairs with the planes' type and the window's build: the 32 x 64
+// tile (shape 0) at 15 taps (every configuration's winsize) at compile
+// time or any other count generic, a smaller tile (shape 1 ... 4, past
+// 61 taps) generic.
+template <typename MSrc, typename PT>
+int run_pairs_t(const void* R0, const void* R1, int pairs, int ppc,
+                const float* f, int h, int w, const MSrc& msrc,
+                const Window& win, int shape, int smem, float* o,
+                cudaStream_t s) {
+  switch (shape) {
+    case 0:
+      return win.taps == 15
+                 ? launch_pairs<32, 64, 15, MSrc, PT>(R0, R1, pairs, ppc, f,
+                                                      h, w, msrc, win, smem,
+                                                      o, s)
+                 : launch_pairs<32, 64, 0, MSrc, PT>(R0, R1, pairs, ppc, f,
+                                                     h, w, msrc, win, smem,
+                                                     o, s);
+    case 1:
+      return launch_pairs<16, 64, 0, MSrc, PT>(R0, R1, pairs, ppc, f, h, w,
+                                               msrc, win, smem, o, s);
+    case 2:
+      return launch_pairs<16, 32, 0, MSrc, PT>(R0, R1, pairs, ppc, f, h, w,
+                                               msrc, win, smem, o, s);
+    case 3:
+      return launch_pairs<8, 16, 0, MSrc, PT>(R0, R1, pairs, ppc, f, h, w,
+                                              msrc, win, smem, o, s);
+    case 4:
+      return launch_pairs<8, 8, 0, MSrc, PT>(R0, R1, pairs, ppc, f, h, w,
+                                             msrc, win, smem, o, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// M in device memory, for a window no tile's shared memory holds: one
+// thread a pixel of a pair in each of three launches, M = (pairs, 5, h, w)
+// and Mv (the same) f32 in `scratch`. Each sum runs its taps in the tile
+// body's order (the vertical window over rows r - bw ... r + bw, clamped:
+// the replicate border on M; then the horizontal one likewise), so the
+// values are the tile body's.
+template <typename MSrc, typename PT>
+__global__ void __launch_bounds__(kTileThreads)
+mem_m_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1, int ppc,
+             const float* __restrict__ flow, int h, int w, const MSrc msrc,
+             float* __restrict__ M) {
+  const long plane = (long)h * w;
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= plane) return;
+  const int b = blockIdx.y, r = static_cast<int>(i / w);
+  const int c = static_cast<int>(i - (long)r * w);
+  const long f = (ppc > 0 ? b + b / ppc : b) * 5 * plane;
+  float m[5];
+  msrc(R0 + f, R1 + f, flow + b * 2 * plane, h, w, r, c, m);
+#pragma unroll
+  for (int p = 0; p < 5; ++p) M[(b * 5L + p) * plane + i] = m[p];
+}
+
+static __global__ void __launch_bounds__(kTileThreads)
+mem_vpass_kernel(const float* __restrict__ M, int h, int w,
+                 const float* __restrict__ wt, int taps,
+                 float* __restrict__ Mv) {
+  const long plane = (long)h * w;
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= plane) return;
+  const int r = static_cast<int>(i / w);
+  const int c = static_cast<int>(i - (long)r * w), bw = taps / 2;
+  const float* src = M + blockIdx.y * plane;
+  float acc = 0.f;
+  for (int k = 0; k < taps; ++k)
+    tap(acc, __ldg(wt + k),
+        src[(long)clampi(r - bw + k, 0, h - 1) * w + c]);
+  Mv[blockIdx.y * plane + i] = acc;
+}
+
+static __global__ void __launch_bounds__(kTileThreads)
+mem_hpass_kernel(const float* __restrict__ Mv, int h, int w,
+                 const float* __restrict__ wt, int taps, float post,
+                 float* __restrict__ out) {
+  const long plane = (long)h * w;
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= plane) return;
+  const int r = static_cast<int>(i / w);
+  const int c = static_cast<int>(i - (long)r * w), bw = taps / 2;
+  const float* src = Mv + blockIdx.y * 5 * plane + (long)r * w;
+  float g[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < taps; ++k) {
+    const float wk = __ldg(wt + k);
+    const int x = clampi(c - bw + k, 0, w - 1);
+#pragma unroll
+    for (int p = 0; p < 5; ++p) tap(g[p], wk, src[p * plane + x]);
+  }
+  float u, v;
+  solve(g, post, &u, &v);
+  out[blockIdx.y * 2 * plane + i] = u;
+  out[(blockIdx.y * 2 + 1) * plane + i] = v;
+}
+
+template <typename MSrc, typename PT>
+int run_mem(const void* R0, const void* R1, int pairs, int ppc,
+            const float* f, int h, int w, const MSrc& msrc,
+            const Window& win, float* scratch, float* o, cudaStream_t s) {
+  const long plane = (long)h * w;
+  if (!win.wd || !scratch) return static_cast<int>(cudaErrorInvalidValue);
+  float* M = scratch;
+  float* Mv = scratch + (long)pairs * 5 * plane;
+  const unsigned blocks = cdiv(plane, kTileThreads);
+  mem_m_kernel<MSrc, PT><<<dim3(blocks, pairs), kTileThreads, 0, s>>>(
+      static_cast<const PT*>(R0), static_cast<const PT*>(R1), ppc, f, h, w,
+      msrc, M);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mem_vpass_kernel<<<dim3(blocks, 5 * pairs), kTileThreads, 0, s>>>(
+      M, h, w, win.wd, win.taps, Mv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mem_hpass_kernel<<<dim3(blocks, pairs), kTileThreads, 0, s>>>(
+      Mv, h, w, win.wd, win.taps, win.post, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One iteration over the pairs with the planes' type (bf16 = 1, else
+// f32): on tile `shape` (kShapes, with `smem` its plan's bytes) or, at
+// shape -1, with M in device memory (`scratch`, (2, pairs, 5, h, w) f32).
 template <typename MSrc>
 int run_pairs(const void* R0, const void* R1, int bf16, int pairs, int ppc,
               const void* flow, int h, int w, const MSrc& msrc,
-              const Window& win, int smem, void* out, cudaStream_t s) {
+              const Window& win, int shape, int smem, void* scratch,
+              void* out, cudaStream_t s) {
   auto f = static_cast<const float*>(flow);
   auto o = static_cast<float*>(out);
-  if (bf16)
-    return win.taps == 15
-               ? launch_pairs<15, MSrc, __nv_bfloat16>(
-                     R0, R1, pairs, ppc, f, h, w, msrc, win, smem, o, s)
-               : launch_pairs<0, MSrc, __nv_bfloat16>(
-                     R0, R1, pairs, ppc, f, h, w, msrc, win, smem, o, s);
-  return win.taps == 15
-             ? launch_pairs<15, MSrc, float>(R0, R1, pairs, ppc, f, h, w,
-                                             msrc, win, smem, o, s)
-             : launch_pairs<0, MSrc, float>(R0, R1, pairs, ppc, f, h, w,
-                                            msrc, win, smem, o, s);
+  auto sc = static_cast<float*>(scratch);
+  if (shape < 0)
+    return bf16 ? run_mem<MSrc, __nv_bfloat16>(R0, R1, pairs, ppc, f, h, w,
+                                               msrc, win, sc, o, s)
+                : run_mem<MSrc, float>(R0, R1, pairs, ppc, f, h, w, msrc,
+                                       win, sc, o, s);
+  if (shape >= kShapes || (shape > 0 && win.taps <= kMaxTaps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? run_pairs_t<MSrc, __nv_bfloat16>(R0, R1, pairs, ppc, f, h,
+                                                 w, msrc, win, shape, smem,
+                                                 o, s)
+              : run_pairs_t<MSrc, float>(R0, R1, pairs, ppc, f, h, w, msrc,
+                                         win, shape, smem, o, s);
 }
 
 }  // namespace fi

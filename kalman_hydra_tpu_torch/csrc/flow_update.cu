@@ -53,37 +53,40 @@
 // K8-pairs (round_m = 0) bit for bit.
 #include "flow_tile.cuh"
 
-// K8. R0, R1 (5, h, w) bf16 [bf16 = 1] or f32, R1 unwarped; flow (2, h, w)
-// f32; wts (taps,) f32 in HOST memory (copied into the launch's
-// parameters); smem, the dynamic shared memory of one 32 x 64 tile in
-// bytes, as kernels/flow_iter.py::tile_plan computes it; out (2, h, w)
-// f32. h, w >= 2.
+// K8: R0, R1 (5, h, w) bf16 [bf16 = 1] or f32, flow (2, h, w) f32; wts
+// (taps,) f32 in HOST memory and, past 61 taps, in device memory too
+// (wts_dev, else null); shape, smem and scratch ((2, 5, h, w) f32 at
+// shape -1, else null) as kernels/flow_iter.py::tile_plan plans them
+// (flow_tile.cuh::run_pairs); out (2, h, w) f32.
 KH_API int kh_flow_update(const void* R0, const void* R1, int bf16,
                           const void* flow, int h, int w, const void* wts,
-                          int taps, int smem, void* out, void* stream) {
-  if (h < 2 || w < 2 || taps <= 0 || taps > kh::fi::kMaxTaps)
+                          const void* wts_dev, int taps, int shape, int smem,
+                          void* scratch, void* out, void* stream) {
+  if (h < 2 || w < 2 || !kh::fi::window_ok(taps, wts_dev))
     return static_cast<int>(cudaErrorInvalidValue);
   return kh::fi::run_pairs(R0, R1, bf16, 1, 0, flow, h, w,
                            kh::fi::ExactM{0},
-                           kh::fi::make_window(wts, taps, 1.f), smem, out,
+                           kh::fi::make_window(wts, taps, 1.f, wts_dev),
+                           shape, smem, scratch, out,
                            static_cast<cudaStream_t>(stream));
 }
 
-// K8-pairs. Rall the (N, 5, h, w) plane stack, bf16 [bf16 = 1] or f32;
-// pair b (b < pairs) reads frames p and p + 1 as above (ppc pairs per
-// clip, 0 = one clip); flow (pairs, 2, h, w) f32; wts, taps and smem as
-// K8's; round_m: M to bf16; out (pairs, 2, h, w) f32.
+// K8-pairs: pair b reads frames p, p + 1 of Rall (N, 5, h, w), p = b + b /
+// ppc when ppc chains clips, else b; flow (pairs, 2, h, w); M rounded to
+// bf16 where round_m; the rest as K8's (scratch (2, pairs, 5, h, w)).
 KH_API int kh_flow_update_pairs(const void* Rall, int bf16, int pairs,
                                 int ppc, const void* flow, int h, int w,
-                                const void* wts, int taps, int round_m,
-                                int smem, void* out, void* stream) {
-  if (h < 2 || w < 2 || taps <= 0 || taps > kh::fi::kMaxTaps ||
+                                const void* wts, const void* wts_dev,
+                                int taps, int round_m, int shape, int smem,
+                                void* scratch, void* out, void* stream) {
+  if (h < 2 || w < 2 || !kh::fi::window_ok(taps, wts_dev) ||
       pairs <= 0 || pairs > 65535 || ppc < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* R1 = static_cast<const char*>(Rall) +
                    5L * h * w * (bf16 ? 2 : 4);       // frame 1
   return kh::fi::run_pairs(Rall, R1, bf16, pairs, ppc, flow, h, w,
                            kh::fi::ExactM{round_m != 0},
-                           kh::fi::make_window(wts, taps, 1.f), smem, out,
+                           kh::fi::make_window(wts, taps, 1.f, wts_dev),
+                           shape, smem, scratch, out,
                            static_cast<cudaStream_t>(stream));
 }

@@ -73,50 +73,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-
-// tmp[f, o, x] = sum_t wt[o, t] * img[f, idx[o, t], x]   (o < ho, x < w)
-__global__ void level_vpass(const float* __restrict__ img, int h, int w,
-                            const int* __restrict__ idx,
-                            const float* __restrict__ wt, int taps,
-                            float* __restrict__ tmp) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int o = blockIdx.y;
-  if (x >= w) return;
-  img += blockIdx.z * (long)h * w;
-  tmp += blockIdx.z * (long)gridDim.y * w;
-  const int* ix = idx + (long)o * taps;
-  const float* wv = wt + (long)o * taps;
-  float acc = 0.f;
-  for (int t = 0; t < taps; ++t) acc += wv[t] * img[(long)ix[t] * w + x];
-  tmp[(long)o * w + x] = acc;
-}
-
-// out[f, o, p] = sum_t wt[p, t] * tmp[f, o, idx[p, t]]  (o < ho, p < wo)
-__global__ void level_hpass(const float* __restrict__ tmp, int w,
-                            const int* __restrict__ idx,
-                            const float* __restrict__ wt, int taps, int wo,
-                            float* __restrict__ out) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int o = blockIdx.y;
-  if (p >= wo) return;
-  tmp += blockIdx.z * (long)gridDim.y * w;
-  out += blockIdx.z * (long)gridDim.y * wo;
-  const int* ix = idx + (long)p * taps;
-  const float* wv = wt + (long)p * taps;
-  const float* row = tmp + (long)o * w;
-  float acc = 0.f;
-  for (int t = 0; t < taps; ++t) acc += wv[t] * row[ix[t]];
-  out[(long)o * wo + p] = acc;
-}
-
-}  // namespace
-
-namespace {
-
-using kh::kPeInW;
-using kh::kPeTaps;
 using kh::kPeTH;
+using kh::pe_in_w;
+using kh::pe_tap_stride;
 using kh::PolyTaps;
 
 constexpr int kFusedThreads = 512;
@@ -139,7 +98,8 @@ struct Level {
 
 struct Plan {
   Level lv[kMaxLevels];
-  PolyTaps t;
+  PolyTaps t;        // n = 0: the level images alone (K11)
+  const float* taps; // n > kPeNMax: [g, xg, xxg, ...] in device memory
   const float* img;  // (frames, h, w)
   int h, w, levels;
 };
@@ -153,7 +113,7 @@ __device__ __forceinline__ int skew(int x) { return x + (x >> 5); }
 // cluster block that runs the tile's polyexp.
 __device__ __forceinline__ void level_rows_h(
     const Level& L, int n, int r0, int rows, int cols, int va0, int v0,
-    int v1, int xlo, int stride, const int2* hf, const float* hw,
+    int v1, int xlo, int stride, int in_w, const int2* hf, const float* hw,
     const float* rb, float* lvl) {
   for (int i = threadIdx.x; i < (v1 - v0) * cols; i += kFusedThreads) {
     const int dv = i / cols, pl = i - dv * cols;
@@ -166,14 +126,15 @@ __device__ __forceinline__ void level_rows_h(
       acc = __fmaf_rn(hw[t * cols + pl], row[skew(x0 + t)], acc);
     const int o_lo = max(v == 0 ? 0 : v + n, r0);
     const int o_hi = min(v == L.lh - 1 ? L.ho - 1 : v + n, r0 + rows - 1);
-    for (int o = o_lo; o <= o_hi; ++o) lvl[(o - r0) * kPeInW + pl] = acc;
+    for (int o = o_lo; o <= o_hi; ++o) lvl[(o - r0) * in_w + pl] = acc;
   }
 }
 
 // kSplit: launched in clusters, where a level may split its tiles; the
 // instantiation without it (a launch with no split tile) has no cluster
-// code at all. Three blocks an SM (40 registers a thread).
-template <typename OutT, int kN, bool kSplit>
+// code at all. kPoly = false (K11) stores the level tile itself, n = 0.
+// Three blocks an SM (40 registers a thread).
+template <typename OutT, int kN, bool kSplit, bool kPoly>
 __global__ void __launch_bounds__(kFusedThreads, 3)
 level_polyexp_kernel(const Plan p) {
   extern __shared__ __align__(16) float smem[];
@@ -183,7 +144,8 @@ level_polyexp_kernel(const Plan p) {
   int li = 0;
   while (li + 1 < p.levels && block >= p.lv[li + 1].block0) ++li;
   const Level& L = p.lv[li];
-  const int n = kN ? kN : p.t.n, tid = threadIdx.x;
+  const int n = !kPoly ? 0 : kN ? kN : p.t.n, tid = threadIdx.x;
+  const int in_w = pe_in_w(n);                  // the level tile's stride
   // A level's blocks start at a multiple of the cluster size, so a
   // cluster holds blocks of one level only; `split` of them (cluster
   // ranks part = 0 .. split - 1 of one tile) build a tile's level rows
@@ -223,7 +185,7 @@ level_polyexp_kernel(const Plan p) {
   // shared memory: the level tile, then (phase A) the tables and the row
   // buffers or (phase B) K3's vertical planes and taps
   float* lvl = smem;
-  float* reg = smem + (L.tile_h + 2 * n) * kPeInW;
+  float* reg = smem + (L.tile_h + 2 * n) * in_w;
   int2* vf = reinterpret_cast<int2*>(reg);
   int2* hf = vf + rows;
   float* vw = reinterpret_cast<float*>(hf + cols);
@@ -285,10 +247,10 @@ level_polyexp_kernel(const Plan p) {
     __syncthreads();
     if (kSplit && S > 1)  // two calls: the local tile's stores stay shared
       level_rows_h(L, n, r0, rows, cols, va0, va0 + g0, va0 + g0 + gn, xlo,
-                   stride, hf, hw, rb, part0);
+                   stride, in_w, hf, hw, rb, part0);
     else
       level_rows_h(L, n, r0, rows, cols, va0, va0 + g0, va0 + g0 + gn, xlo,
-                   stride, hf, hw, rb, lvl);
+                   stride, in_w, hf, hw, rb, lvl);
     __syncthreads();
   }
   if (kSplit && S > 1) {  // the tile's rows are in part 0's level tile
@@ -296,20 +258,30 @@ level_polyexp_kernel(const Plan p) {
     if (part != 0) return;
   }
 
+  const int r_end = min(L.lh, r0 + L.tile_h), c_end = min(L.lw, c0 + L.tile_w);
+  if constexpr (!kPoly) {   // K11: the level tile itself, a row a warp
+    float* out = static_cast<float*>(L.out) + frame * (long)L.lh * L.lw;
+    const int tw = c_end - c0;
+    for (int i = tid; i < (r_end - r0) * tw; i += kFusedThreads) {
+      const int y = i / tw, x = i - y * tw;
+      out[(long)(r0 + y) * L.lw + c0 + x] = lvl[y * in_w + x];
+    }
+    return;
+  }
+
   // K3's tile body on each 16-row band of the level tile
   float* vs = reg;
-  float* tg = reg + 3 * kPeTH * kPeInW;
-  const int taps = 2 * n + 1;
-  if (tid < taps) {
-    tg[tid] = p.t.g[tid];
-    tg[kPeTaps + tid] = p.t.xg[tid];
-    tg[2 * kPeTaps + tid] = p.t.xxg[tid];
+  float* tg = reg + 3 * kPeTH * in_w;
+  const int taps = 2 * n + 1, ts = pe_tap_stride(n);
+  for (int k = tid; k < taps; k += kFusedThreads) {
+    tg[k] = p.taps ? p.taps[k] : p.t.g[k];
+    tg[ts + k] = p.taps ? p.taps[taps + k] : p.t.xg[k];
+    tg[2 * ts + k] = p.taps ? p.taps[2 * taps + k] : p.t.xxg[k];
   }
   __syncthreads();
   OutT* out = static_cast<OutT*>(L.out) + frame * 5L * L.lh * L.lw;
-  const int r_end = min(L.lh, r0 + L.tile_h), c_end = min(L.lw, c0 + L.tile_w);
   for (int band = 0; band < L.tile_h && r0 + band < L.lh; band += kPeTH) {
-    kh::polyexp_tile<OutT, kFusedThreads, kN>(lvl + band * kPeInW, vs, tg,
+    kh::polyexp_tile<OutT, kFusedThreads, kN>(lvl + band * in_w, vs, tg,
                                               p.t, r0 + band, c0, L.lh,
                                               L.lw, r_end, c_end, out);
     __syncthreads();
@@ -317,23 +289,23 @@ level_polyexp_kernel(const Plan p) {
 }
 
 // One grant for each of the kernel's instantiations (common.cuh).
-template <typename OutT, int kN, bool kSplit>
+template <typename OutT, int kN, bool kSplit, bool kPoly>
 cudaError_t grant_smem(int smem) {
   static kh::SmemGrant grant;
-  return grant.allow(level_polyexp_kernel<OutT, kN, kSplit>, smem);
+  return grant.allow(level_polyexp_kernel<OutT, kN, kSplit, kPoly>, smem);
 }
 
-template <typename OutT, int kN>
+template <typename OutT, int kN, bool kPoly = true>
 cudaError_t launch_fused(const Plan& p, dim3 grid, int cluster, int smem,
                          cudaStream_t s) {
   if (cluster == 1) {
-    const cudaError_t e = grant_smem<OutT, kN, false>(smem);
+    const cudaError_t e = grant_smem<OutT, kN, false, kPoly>(smem);
     if (e != cudaSuccess) return e;
-    level_polyexp_kernel<OutT, kN, false><<<grid, kFusedThreads, smem, s>>>(
-        p);
+    level_polyexp_kernel<OutT, kN, false, kPoly>
+        <<<grid, kFusedThreads, smem, s>>>(p);
     return cudaGetLastError();
   }
-  const cudaError_t e = grant_smem<OutT, kN, true>(smem);
+  const cudaError_t e = grant_smem<OutT, kN, true, kPoly>(smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -347,43 +319,25 @@ cudaError_t launch_fused(const Plan& p, dim3 grid, int cluster, int smem,
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, level_polyexp_kernel<OutT, kN, true>, p);
+  return cudaLaunchKernelEx(&cfg, level_polyexp_kernel<OutT, kN, true, kPoly>,
+                            p);
 }
 
 template <typename OutT>
 cudaError_t launch_fused_n(const Plan& p, dim3 grid, int cluster, int smem,
                            cudaStream_t s) {
   switch (p.t.n) {          // cv2's poly_n 5 and 7 unrolled; others not
+                            // (taps from shared memory)
     case 5: return launch_fused<OutT, 5>(p, grid, cluster, smem, s);
     case 7: return launch_fused<OutT, 7>(p, grid, cluster, smem, s);
     default: return launch_fused<OutT, 0>(p, grid, cluster, smem, s);
   }
 }
 
-}  // namespace
-
-// All coarse levels of `frames` images in one launch. img (frames, h, w)
-// f32; per level i (plan order, coarsest first) ptrs[6 i ..] = wv, fv,
-// wht, fh, xs, out and dims[12 i ..] = lh, lw, ho, wo, tv, th, tile_h,
-// tile_w, tiles_x, block0, group, split (kernels/level_image.py::
-// _launch); `blocks` a frame, all levels, in clusters of `cluster`
-// (1, 2, 4 or 8; each level's block0 a multiple of it), `smem` bytes of
-// dynamic shared memory a block.
-KH_API int kh_level_polyexp(const void* img, int frames, int h, int w,
-                            int levels, const unsigned long long* ptrs,
-                            const int* dims, const void* taps_host, int n,
-                            int out_bf16, int blocks, int cluster, int smem,
-                            void* stream) {
-  if (frames <= 0 || blocks <= 0 || blocks > 65535 || levels < 1 ||
-      levels > kMaxLevels || n < 1 || n > kh::kPeNMax || smem > 232448 ||
-      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
-      blocks % cluster)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Plan p{};
-  p.t = kh::poly_taps(static_cast<const float*>(taps_host), n);
-  p.img = static_cast<const float*>(img);
-  p.h = h;
-  p.w = w;
+// Reads a launch's level table (ptrs 6 a level, dims 12 a level) into p;
+// false where it is malformed.
+bool fill_levels(Plan& p, int levels, const unsigned long long* ptrs,
+                 const int* dims, int cluster) {
   p.levels = levels;
   for (int i = 0; i < levels; ++i) {
     const unsigned long long* q = ptrs + 6 * i;
@@ -399,8 +353,47 @@ KH_API int kh_level_polyexp(const void* img, int frames, int h, int w,
     L.th = d[5]; L.tile_h = d[6]; L.tile_w = d[7]; L.tiles_x = d[8];
     L.block0 = d[9]; L.group = d[10]; L.split = d[11];
     if (L.split < 1 || cluster % L.split || L.block0 % cluster)
-      return static_cast<int>(cudaErrorInvalidValue);
+      return false;
   }
+  return true;
+}
+
+bool bad_launch(int frames, int levels, int blocks, int cluster, int smem) {
+  return frames <= 0 || blocks <= 0 || blocks > 65535 || levels < 1 ||
+         levels > kMaxLevels || smem > 232448 ||
+         (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+         blocks % cluster;
+}
+
+}  // namespace
+
+// All coarse levels of `frames` images in one launch, at most kMaxLevels
+// (the wrapper makes one launch for each run of that many). img (frames,
+// h, w) f32; per level i (plan order, coarsest first) ptrs[6 i ..] = wv,
+// fv, wht, fh, xs, out and dims[12 i ..] = lh, lw, ho, wo, tv, th,
+// tile_h, tile_w, tiles_x, block0, group, split (kernels/level_image.py::
+// _launch); `blocks` a frame, all levels, in clusters of `cluster`
+// (1, 2, 4 or 8; each level's block0 a multiple of it), `smem` bytes of
+// dynamic shared memory a block. taps_host = [g, xg, xxg (2n+1 each),
+// ig11, ig03, ig33, ig55] f32 in host memory; for n > kPeNMax the same
+// array in device memory too (taps_dev, else null).
+KH_API int kh_level_polyexp(const void* img, int frames, int h, int w,
+                            int levels, const unsigned long long* ptrs,
+                            const int* dims, const void* taps_host,
+                            const void* taps_dev, int n, int out_bf16,
+                            int blocks, int cluster, int smem,
+                            void* stream) {
+  if (bad_launch(frames, levels, blocks, cluster, smem) || n < 1 ||
+      n > 255 || (n > kh::kPeNMax && !taps_dev))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan p{};
+  p.t = kh::poly_taps(static_cast<const float*>(taps_host), n);
+  p.taps = n > kh::kPeNMax ? static_cast<const float*>(taps_dev) : nullptr;
+  p.img = static_cast<const float*>(img);
+  p.h = h;
+  p.w = w;
+  if (!fill_levels(p, levels, ptrs, dims, cluster))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(frames, blocks);
   return static_cast<int>(
@@ -408,29 +401,35 @@ KH_API int kh_level_polyexp(const void* img, int frames, int h, int w,
                : launch_fused_n<float>(p, grid, cluster, smem, s));
 }
 
-// K11: one coarse level image of one frame, with no polyexp. Replaces
-// level_image_pallas.py::farneback_images_pallas (_levels_kernel), whose
-// two MXU band products V_k . img . H_k^T per level are the same composed
-// weights as above at padding 0 (level_tables(..., n=0) is the unpadded
-// _band_mats). Bound on Hopper: memory; a 1080p frame's five coarse levels
-// must read the 8.3 MB image and write 2.8 MB (3.3 us at 3.35 TB/s), and
-// the image is re-read from L2 per level. img (h, w) f32; vertical table
-// (lh, tv), horizontal table (lw, th); scratch tmp (lh, w) f32; out
+// K11: the coarse level images of one frame, with no polyexp, in ONE
+// launch (at most kMaxLevels levels). Replaces level_image_pallas.py::
+// farneback_images_pallas (_levels_kernel), whose two MXU band products
+// V_k . img . H_k^T per level are the same composed weights as above at
+// padding 0 (level_tables(..., n=0) is the unpadded _band_mats). Bound on
+// Hopper: memory; a 1080p frame's five coarse levels must read the 8.3 MB
+// image and write 2.8 MB (3.3 us at 3.35 TB/s). The route this replaced
+// made two launches a level (vertical taps into a (lh, w) scratch in
+// device memory, then horizontal), re-reading the image per level. Here
+// each block builds its level tile in shared memory as K4 does (the
+// level-row build above, split over a cluster where the plan says so)
+// and stores it: no scratch, the same multiply-adds in the same order,
+// so the route's bytes. What it leaves (PERF.md section 6): each level's
+// vertical taps still load ~2.5 H W image values, mostly from L2, ten
+// times the bytes the function must move, each tile's chain of them one
+// dependent load a tap. img (h, w) f32;
+// ptrs/dims as kh_level_polyexp's (from the plan at n = 0), each out
 // (lh, lw) f32.
-KH_API int kh_level_images(const void* img, int h, int w, const void* iv,
-                           const void* wv, int tv, int lh, const void* ih,
-                           const void* wh, int th, int lw, void* tmp,
-                           void* out, void* stream) {
-  if (lh <= 0 || lw <= 0 || lh > 65535)
+KH_API int kh_level_images(const void* img, int h, int w, int levels,
+                           const unsigned long long* ptrs, const int* dims,
+                           int blocks, int cluster, int smem, void* stream) {
+  if (bad_launch(1, levels, blocks, cluster, smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  level_vpass<<<dim3(kh::cdiv(w, kThreads), lh, 1), kThreads, 0, s>>>(
-      static_cast<const float*>(img), h, w, static_cast<const int*>(iv),
-      static_cast<const float*>(wv), tv, static_cast<float*>(tmp));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  level_hpass<<<dim3(kh::cdiv(lw, kThreads), lh, 1), kThreads, 0, s>>>(
-      static_cast<const float*>(tmp), w, static_cast<const int*>(ih),
-      static_cast<const float*>(wh), th, lw, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  Plan p{};
+  p.img = static_cast<const float*>(img);
+  p.h = h;
+  p.w = w;
+  if (!fill_levels(p, levels, ptrs, dims, cluster))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_fused<float, 0, false>(
+      p, dim3(1, blocks), cluster, smem, static_cast<cudaStream_t>(stream)));
 }

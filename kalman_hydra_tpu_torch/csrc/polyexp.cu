@@ -18,7 +18,8 @@
 // frames; PERF.md).
 //
 // Design (one instantiation for each odd poly_n <= 7;
-// kernels/polyexp.py::polyexp_plan): one 32 x 64 output tile a block of
+// kernels/polyexp.py::polyexp_plan; any other odd n takes the generic
+// build at the end of this file): one 32 x 64 output tile a block of
 // 256 threads, four blocks an SM (three at f32 outputs), the taps
 // compile-time operands (PolyTaps in the launch's parameter space, each
 // an operand of its multiply-add), the frame blockIdx.z.
@@ -271,34 +272,132 @@ int launch_tiled(const float* src, int frames, int h, int w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The generic build, for an odd n with no compiled instantiation (cv2
+// documents 5 and 7; the reference takes any odd n): the same 32 x 64
+// tile, its halo sized from n, the taps read from device memory into
+// shared memory. One thread an output: its vertical sums over the
+// (32 + 2n) x (64 + 2n) input tile into the three moment planes (odd row
+// stride), then its horizontal sums and the five planes, stored straight
+// to device memory. Each sum runs its taps in order, one multiply-add
+// each, with the planes formed as polyexp_tile forms them. Its bound and
+// its use are those of the compiled builds; it is right first, not fast:
+// each tap is a shared-memory load beside its datum.
+__host__ __device__ constexpr int generic_smem(int n) {
+  return 4 * ((kTH + 2 * n) * (kTW + 2 * n) + 3 * kTH * ((kTW + 2 * n) | 1) +
+              3 * (2 * n + 1));
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads)
+polyexp_generic_kernel(const float* __restrict__ src, int h, int w,
+                       const PolyTaps t, const float* __restrict__ taps_dev,
+                       OutT* __restrict__ out) {
+  extern __shared__ __align__(16) float sm[];
+  const int n = t.n, taps = 2 * n + 1, iw = kTW + 2 * n, vw = iw | 1;
+  float* tile = sm;                        // (kTH + 2n) x iw
+  float* vs = tile + (kTH + 2 * n) * iw;   // 3 x kTH x vw
+  float* tg = vs + 3 * kTH * vw;           // g, xg, xxg
+  const long plane = (long)h * w;
+  src += blockIdx.z * plane;
+  out += blockIdx.z * 5 * plane;
+  const int r0 = blockIdx.y * kTH, c0 = blockIdx.x * kTW;
+  const int tid = threadIdx.x;
+  for (int k = tid; k < 3 * taps; k += kThreads) tg[k] = taps_dev[k];
+  for (int i = tid; i < (kTH + 2 * n) * iw; i += kThreads) {
+    const int rr = i / iw, cc = i - rr * iw;
+    tile[i] = __ldg(src + (long)clampi(r0 + rr - n, 0, h - 1) * w +
+                    clampi(c0 + cc - n, 0, w - 1));
+  }
+  __syncthreads();
+  for (int i = tid; i < kTH * iw; i += kThreads) {
+    const int rr = i / iw, cc = i - rr * iw;
+    float v0 = 0.f, v1 = 0.f, v2 = 0.f;
+    for (int k = 0; k < taps; ++k) {
+      const float s = tile[(rr + k) * iw + cc];
+      v0 = __fmaf_rn(tg[k], s, v0);
+      v1 = __fmaf_rn(tg[taps + k], s, v1);
+      v2 = __fmaf_rn(tg[2 * taps + k], s, v2);
+    }
+    vs[rr * vw + cc] = v0;
+    vs[(kTH + rr) * vw + cc] = v1;
+    vs[(2 * kTH + rr) * vw + cc] = v2;
+  }
+  __syncthreads();
+  for (int i = tid; i < kTH * kTW; i += kThreads) {
+    const int rr = i / kTW, cc = i - rr * kTW;
+    const int r = r0 + rr, c = c0 + cc;
+    if (r >= h || c >= w) continue;
+    float m00 = 0.f, m10 = 0.f, m20 = 0.f, m01 = 0.f, m11 = 0.f, m02 = 0.f;
+    for (int k = 0; k < taps; ++k) {
+      const float a = vs[rr * vw + cc + k];
+      const float b = vs[(kTH + rr) * vw + cc + k];
+      const float d = vs[(2 * kTH + rr) * vw + cc + k];
+      const float g = tg[k], xg = tg[taps + k];
+      m00 = __fmaf_rn(g, a, m00);
+      m10 = __fmaf_rn(xg, a, m10);
+      m20 = __fmaf_rn(tg[2 * taps + k], a, m20);
+      m01 = __fmaf_rn(g, b, m01);
+      m11 = __fmaf_rn(xg, b, m11);
+      m02 = __fmaf_rn(g, d, m02);
+    }
+    const long o = (long)r * w + c;
+    kh::store(out + o, m10 * t.ig11);
+    kh::store(out + plane + o, m01 * t.ig11);
+    kh::store(out + 2 * plane + o, m00 * t.ig03 + m20 * t.ig33);
+    kh::store(out + 3 * plane + o, m00 * t.ig03 + m02 * t.ig33);
+    kh::store(out + 4 * plane + o, m11 * t.ig55);
+  }
+}
+
+template <typename OutT>
+int launch_generic(const float* src, int frames, int h, int w,
+                   const PolyTaps& t, const float* taps_dev, int smem,
+                   OutT* out, cudaStream_t s) {
+  static kh::SmemGrant grant;
+  auto kern = polyexp_generic_kernel<OutT>;
+  if (!taps_dev || smem != generic_smem(t.n) || smem > 232448 ||
+      kh::cdiv(h, kTH) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = grant.allow(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(kh::cdiv(w, kTW), kh::cdiv(h, kTH), frames);
+  kern<<<grid, kThreads, smem, s>>>(src, h, w, t, taps_dev, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename OutT>
 int run(const float* src, int frames, int h, int w, const PolyTaps& t,
-        int smem, OutT* out, cudaStream_t s) {
+        const float* taps_dev, int smem, OutT* out, cudaStream_t s) {
   switch (t.n) {
     case 1: return launch_tiled<OutT, 1>(src, frames, h, w, t, smem, out, s);
     case 3: return launch_tiled<OutT, 3>(src, frames, h, w, t, smem, out, s);
     case 5: return launch_tiled<OutT, 5>(src, frames, h, w, t, smem, out, s);
     case 7: return launch_tiled<OutT, 7>(src, frames, h, w, t, smem, out, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return launch_generic<OutT>(src, frames, h, w, t, taps_dev, smem, out,
+                                  s);
   }
 }
 
 }  // namespace
 
 // img (frames, h, w) f32 -> out (frames, 5, h, w), replicate border, at
-// an odd n <= 7; smem the dynamic shared memory of one block, as
-// kernels/polyexp.py::polyexp_plan computes it.
+// an odd n; taps_host = [g, xg, xxg (2n+1 each), ig11, ig03, ig33, ig55]
+// f32 in host memory, and for an n with no compiled build the same array
+// in device memory (taps_dev, else null); smem the dynamic shared memory
+// of one block, as kernels/polyexp.py::polyexp_plan computes it.
 KH_API int kh_polyexp(const void* img, int frames, int h, int w,
-                      const void* taps_host, int n, int out_bf16, int smem,
-                      void* out, void* stream) {
-  if (n < 1 || n > kNMax || n % 2 == 0 || h <= 0 || w <= 0 ||
+                      const void* taps_host, const void* taps_dev, int n,
+                      int out_bf16, int smem, void* out, void* stream) {
+  if (n < 1 || n > 255 || n % 2 == 0 || h <= 0 || w <= 0 ||
       frames <= 0 || frames > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const PolyTaps t = kh::poly_taps(static_cast<const float*>(taps_host), n);
   const float* src = static_cast<const float*>(img);
+  const float* td = static_cast<const float*>(taps_dev);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    return run(src, frames, h, w, t, smem, static_cast<__nv_bfloat16*>(out),
-               s);
-  return run(src, frames, h, w, t, smem, static_cast<float*>(out), s);
+    return run(src, frames, h, w, t, td, smem,
+               static_cast<__nv_bfloat16*>(out), s);
+  return run(src, frames, h, w, t, td, smem, static_cast<float*>(out), s);
 }

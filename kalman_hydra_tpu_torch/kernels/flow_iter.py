@@ -18,8 +18,11 @@ clamp their indices where the TPU kernels read edge-padded slabs.
 
 K2, K6 and K13 run one tile body in shared memory (csrc/flow_tile.cuh),
 as K8 and K8-pairs do (kernels/flow_update.py): `tile_plan` is the tile
-and shared-memory plan the wrappers pass to the kernels, `pipe_items` /
-`pipe_waits` K13's work order and wait set.
+and shared-memory plan the wrappers pass to the kernels (the 32 x 64
+tile up to winsize 61, a smaller tile past it, and where no tile fits,
+from winsize 101, M in device memory: three launches an iteration; K13
+then runs n_iters of them), `pipe_items` / `pipe_waits` K13's work order
+and wait set.
 
 CPU tensors take `flow_iter_plain` / `flow_iter_pairs_plain` /
 `flow_iters_pipelined_plain`; CUDA tensors launch the kernel, or raise.
@@ -149,38 +152,47 @@ def flow_iter_pairs_plain(Rall, flow_b, winsize: int, max_disp: int,
 
 
 SMEM_LIMIT = 232_448     # bytes of shared memory one H100 block may use
-MAX_TAPS = 61            # csrc/flow_tile.cuh::kMaxTaps
+MAX_TAPS = 61            # csrc/flow_tile.cuh::kMaxTaps: taps by value
 STATIC_SMEM = 4 * MAX_TAPS + 16   # the kernels' static shared memory
 TILE = (32, 64)          # (rows, columns): csrc/flow_tile.cuh kTileH, kTileW
+# the tiles past MAX_TAPS taps, largest first (flow_tile.cuh::kShapes 1-4)
+TILES = (TILE, (16, 64), (16, 32), (8, 16), (8, 8))
+MEM = -1                 # the plan's shape where no tile fits
 
 
 class TilePlan(NamedTuple):
-    th: int          # tile rows
-    tw: int          # tile columns
+    th: int          # tile rows (0 with M in device memory)
+    tw: int          # tile columns (0 likewise)
     taps: int        # window taps, 2 * (winsize // 2) + 1
-    rows: int        # tiles down the level (K13's bands)
-    cols: int        # tiles across it
-    smem: int        # dynamic shared memory of one block, bytes
+    rows: int        # tiles down the level (K13's bands; 0 likewise)
+    cols: int        # tiles across it (0 likewise)
+    smem: int        # dynamic shared memory of one block, bytes (0 likewise)
+    shape: int = 0   # index into TILES, or MEM: M in device memory
+
+
+def tile_smem(th: int, tw: int, taps: int) -> int:
+    """One tile's dynamic shared memory: M on the tile and its bw = taps
+    // 2 halo, 5 f32 planes of (th + 2 bw) rows at an odd row stride of
+    (tw + 2 bw) | 1 (csrc/flow_tile.cuh)."""
+    bw = taps // 2
+    return 4 * 5 * (th + 2 * bw) * ((tw + 2 * bw) | 1)
 
 
 def tile_plan(h: int, w: int, winsize: int) -> TilePlan:
-    """The tiles of an h x w level and one block's shared memory: M on the
-    tile and its bw = taps // 2 halo, 5 f32 planes of (th + 2 bw) rows at
-    an odd row stride of (tw + 2 bw) | 1 (csrc/flow_tile.cuh). Raises
-    where the window does not fit one block's shared memory."""
-    th, tw = TILE
+    """The tiles of an h x w level and one block's shared memory: up to
+    MAX_TAPS taps the 32 x 64 tile; past it the first of TILES whose
+    tile_smem (with the kernels' static shared memory) fits one block
+    (16 x 64 at winsize 63, 16 x 32 at 81, 8 x 8 up to 99); where none
+    fits, shape MEM: M in device memory."""
     if h < 1 or w < 1:
         raise ValueError(f"level {h}x{w} is empty")
     taps = 2 * (winsize // 2) + 1
-    bw = taps // 2
-    smem = 4 * 5 * (th + 2 * bw) * ((tw + 2 * bw) | 1)
-    if taps > MAX_TAPS or smem + STATIC_SMEM > SMEM_LIMIT:
-        raise ValueError(
-            f"winsize {winsize}: a {th}x{tw} tile with its {bw}-pixel "
-            f"halo needs {smem + STATIC_SMEM} B of shared memory, and one "
-            f"block may use {SMEM_LIMIT} B (at most {MAX_TAPS} taps, "
-            f"winsize <= {MAX_TAPS})")
-    return TilePlan(th, tw, taps, -(-h // th), -(-w // tw), smem)
+    for shape, (th, tw) in enumerate(TILES if taps > MAX_TAPS else TILES[:1]):
+        smem = tile_smem(th, tw, taps)
+        if smem + STATIC_SMEM <= SMEM_LIMIT:
+            return TilePlan(th, tw, taps, -(-h // th), -(-w // tw), smem,
+                            shape)
+    return TilePlan(0, 0, taps, 0, 0, 0, MEM)
 
 
 def pipe_dt(plan: TilePlan, max_disp: int) -> int:
@@ -189,16 +201,24 @@ def pipe_dt(plan: TilePlan, max_disp: int) -> int:
     return -(-(plan.taps // 2 + int(max_disp) + 1) // plan.tw)
 
 
+def pipe_db(plan: TilePlan) -> int:
+    """Bands on each side whose prior flow a K13 tile reads: M on the
+    halo (bw rows); 1 on the 32 x 64 tile."""
+    return -(-(plan.taps // 2) // plan.th)
+
+
 def pipe_skew(plan: TilePlan, n_iters: int, sms: int) -> int:
     """K13's skew: enough that, once all n_iters iterations are in
     flight, the tickets between an item and the items it waits for,
     (skew - 1) * cols * n_iters, outnumber twice the blocks the card
     holds at once (2 an SM), so that a waiting item rarely finds its
-    neighbours still running; at most the band count. 7 at 1080p and 13
-    at 540x960 on 132 SMs (winsize 15; PERF.md has the measured skews)."""
+    neighbours still running; at most the band count, and at least the
+    bands a tile's flow reaches (pipe_db) or the band count, so that
+    every wait is on a smaller ticket. 7 at 1080p and 13 at 540x960 on
+    132 SMs (winsize 15; PERF.md has the measured skews)."""
     resident = 2 * sms
-    return max(1, min(plan.rows,
-                      -(-2 * resident // (plan.cols * n_iters)) + 1))
+    return max(1, min(plan.rows, max(pipe_db(plan), -(-2 * resident // (
+        plan.cols * n_iters)) + 1)))
 
 
 def pipe_items(n_iters: int, nb: int, nt: int, skew: int = 1) -> list:
@@ -212,21 +232,50 @@ def pipe_items(n_iters: int, nb: int, nt: int, skew: int = 1) -> list:
     return out
 
 
-def pipe_waits(j: int, b: int, t: int, nb: int, nt: int, dt: int) -> list:
-    """The items (j - 1, b', t') item (j, b, t) waits for: bands b - 1 ...
-    b + 1 and tiles t - dt ... t + dt, clipped to the level."""
+def pipe_waits(j: int, b: int, t: int, nb: int, nt: int, dt: int,
+               db: int = 1) -> list:
+    """The items (j - 1, b', t') item (j, b, t) waits for: bands b - db ...
+    b + db and tiles t - dt ... t + dt, clipped to the level."""
     if j == 0:
         return []
     return [(j - 1, bb, tt)
-            for bb in range(max(0, b - 1), min(nb - 1, b + 1) + 1)
+            for bb in range(max(0, b - db), min(nb - 1, b + db) + 1)
             for tt in range(max(0, t - dt), min(nt - 1, t + dt) + 1)]
 
 
-def _host_window(winsize: int, gaussian: bool):
-    """(taps as a C float pointer, count, post_scale): the kernels copy
-    the taps into their launch parameters."""
+_device_windows: dict = {}
+
+
+def device_window(wts: np.ndarray, device):
+    """A window's taps in device memory (cached per device and taps), the
+    kernels' copy past MAX_TAPS taps; None up to it (the taps ride in the
+    launch's parameters)."""
+    if wts.shape[0] <= MAX_TAPS:
+        return None
+    key = (str(device), wts.tobytes())
+    t = _device_windows.get(key)
+    if t is None:
+        t = _device_windows[key] = torch.as_tensor(wts, device=device)
+    return t
+
+
+def _host_window(winsize: int, gaussian: bool, device=None):
+    """(taps as a C float pointer, the taps' device copy as one past
+    MAX_TAPS taps, else None, count, post_scale): the kernels copy the
+    taps into their launch parameters."""
     wts, post = window_weights(winsize, bool(gaussian))
-    return wts.ctypes.data, wts.shape[0], post
+    dw = device_window(wts, device)
+    return (wts.ctypes.data, None if dw is None else dw.data_ptr(),
+            wts.shape[0], post)
+
+
+def mem_scratch(plan: TilePlan, pairs: int, h: int, w: int, device):
+    """M and its vertical pass, (2, pairs, 5, h, w) f32, for a plan with
+    M in device memory; None for a tile plan."""
+    if plan.shape != MEM:
+        return None
+    return torch.empty((2, pairs, 5, h, w), dtype=torch.float32,
+                       device=device)
 
 
 def _launch(R0, R1, flow_b, ppc: int, winsize: int, max_disp: int,
@@ -235,14 +284,17 @@ def _launch(R0, R1, flow_b, ppc: int, winsize: int, max_disp: int,
     R0 and R1 offset by its first frame (see csrc/flow_iter.cu)."""
     B, _, h, w = flow_b.shape
     plan = tile_plan(h, w, winsize)
-    wts, taps, post = _host_window(winsize, gaussian)
+    wts, wts_dev, taps, post = _host_window(winsize, gaussian, R0.device)
     out = torch.empty((B, 2, h, w), dtype=torch.float32, device=R0.device)
+    scratch = mem_scratch(plan, B, h, w, R0.device)
     P, I = _build.P, _build.I
-    fn = _build.function("kh_flow_iter", P, P, I, I, I, P, I, I, I, P, I,
-                         _build.F, I, P, P)
+    fn = _build.function("kh_flow_iter", P, P, I, I, I, P, I, I, I, P, P, I,
+                         _build.F, I, I, P, P, P)
     rc = fn(R0.data_ptr(), R1.data_ptr(), int(R0.dtype == torch.bfloat16),
-            B, ppc, flow_b.data_ptr(), h, w, int(max_disp), wts, taps, post,
-            plan.smem, out.data_ptr(), _build.stream(R0))
+            B, ppc, flow_b.data_ptr(), h, w, int(max_disp), wts, wts_dev,
+            taps, post, plan.shape, plan.smem,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            _build.stream(R0))
     _build.check(rc, "kh_flow_iter")
     return out
 
@@ -323,9 +375,23 @@ def flow_iters_pipelined(R0, R1, flow, winsize: int, max_disp: int,
     if R0.shape[0] != 5 or R1.shape != R0.shape or flow.shape != (2, h, w):
         raise ValueError(f"flow_iters_pipelined: R0 {tuple(R0.shape)}, R1 "
                          f"{tuple(R1.shape)}, flow {tuple(flow.shape)}")
-    out = _launch_pipe(R0, R1, flow, winsize, max_disp, n_iters, gaussian)
+    out = _pipe_route(R0, R1, flow, winsize, max_disp, n_iters, gaussian)
     flow_iters_pipelined.launches += 1
     return out
+
+
+def _pipe_route(R0, R1, flow, winsize: int, max_disp: int, n_iters: int,
+                gaussian: bool) -> torch.Tensor:
+    """K13's launch on a tile of tile_plan, or, where no tile holds the
+    window, n_iters iterations with M in device memory (K2's route)."""
+    _, h, w = R0.shape
+    if tile_plan(h, w, winsize).shape != MEM:
+        return _launch_pipe(R0, R1, flow, winsize, max_disp, n_iters,
+                            gaussian)
+    for _ in range(n_iters):
+        flow = _launch(R0, R1, flow[None], 0, winsize, max_disp,
+                       gaussian)[0]
+    return flow
 
 
 flow_iters_pipelined.launches = 0
@@ -333,14 +399,12 @@ flow_iters_pipelined.launches = 0
 
 def _launch_pipe(R0, R1, flow, winsize: int, max_disp: int, n_iters: int,
                  gaussian: bool) -> torch.Tensor:
-    """kh_flow_iters_pipe on one level, in pipe_skew's order."""
+    """kh_flow_iters_pipe on one level, on a tile of tile_plan, in
+    pipe_skew's order."""
     _, h, w = R0.shape
     plan = tile_plan(h, w, winsize)
-    if plan.th < plan.taps // 2:
-        raise ValueError(f"flow_iters_pipelined: winsize {winsize} reaches "
-                         f"past the neighbouring band of {plan.th} rows")
-    wts, taps, post = _host_window(winsize, gaussian)
     dev = R0.device
+    wts, wts_dev, taps, post = _host_window(winsize, gaussian, dev)
     skew = pipe_skew(plan, n_iters, _sm_count(dev))
     inter = torch.empty((n_iters - 1, 2, h, w), dtype=torch.float32,
                         device=dev)
@@ -348,11 +412,11 @@ def _launch_pipe(R0, R1, flow, winsize: int, max_disp: int, n_iters: int,
     counters = torch.empty(1 + plan.rows * plan.cols, dtype=torch.int32,
                            device=dev)
     P, I = _build.P, _build.I
-    fn = _build.function("kh_flow_iters_pipe", P, P, I, P, I, I, I, P, I,
-                         _build.F, I, I, I, P, P, P, P)
+    fn = _build.function("kh_flow_iters_pipe", P, P, I, P, I, I, I, P, P, I,
+                         _build.F, I, I, I, I, P, P, P, P)
     rc = fn(R0.data_ptr(), R1.data_ptr(), int(R0.dtype == torch.bfloat16),
-            flow.data_ptr(), h, w, int(max_disp), wts, taps, post,
-            int(n_iters), int(skew), plan.smem, inter.data_ptr(),
+            flow.data_ptr(), h, w, int(max_disp), wts, wts_dev, taps, post,
+            int(n_iters), int(skew), plan.shape, plan.smem, inter.data_ptr(),
             out.data_ptr(), counters.data_ptr(), _build.stream(R0))
     _build.check(rc, "kh_flow_iters_pipe")
     return out

@@ -12,6 +12,10 @@ f32 flow, after `iters` K2 iterations a level with the flow resized
 1 / pyr_scale between levels: one launch for each MAX_LEVELS of them.
 `flow_level` is its launch over one level and counts there.
 
+`walk_fits(winsize)`: whether a walk's smallest tile holds the window
+(winsize <= 99); a wider one runs K2's route on every level
+(ops/farneback.py), which gives the same values.
+
 `fits` is the port's gate, the counterpart of the reference's 12 MB VMEM
 gate (`fits_vmem`): a level is admitted while the working set that the
 first design (a cooperative grid with M in device memory) needed stayed
@@ -37,8 +41,9 @@ import numpy as np
 import torch
 
 from . import _build
-from .flow_iter import (MAX_TAPS, PLANE_DTYPES, _host_window, _sm_count,
-                        flow_iter_plain, pipe_items)
+from .flow_iter import (PLANE_DTYPES, SMEM_LIMIT, STATIC_SMEM,
+                        _host_window, _sm_count, flow_iter_plain, pipe_items,
+                        tile_smem)
 from ..ops.pyramid import resize_coeffs, resize_coeffs_device, resize_linear
 
 L2_BUDGET_BYTES = 25 * 2 ** 20
@@ -76,11 +81,25 @@ class WalkLevel(NamedTuple):
     prog0: int       # its first progress word
 
 
+def _first_shape(winsize: int):
+    """The largest WALK_TILES shape whose M fits one block, or None."""
+    taps = 2 * (winsize // 2) + 1
+    return next((i for i, (th, tw) in enumerate(WALK_TILES)
+                 if tile_smem(th, tw, taps) + STATIC_SMEM <= SMEM_LIMIT),
+                None)
+
+
+def walk_fits(winsize: int) -> bool:
+    """Whether the walk takes this window: some tile holds its M."""
+    return _first_shape(winsize) is not None
+
+
 def walk_plan(shapes: Sequence[Tuple[int, int]], winsize: int,
               max_disp: int, iters: int, sms: int = 132) -> List[WalkLevel]:
     """The walk's levels (shapes coarsest first): each cut into the
     smallest WALK_TILES shape of which one iteration's tiles fit the
-    blocks `sms` SMs hold at once, 16 x 32 where none does; an item of
+    blocks `sms` SMs hold at once, the largest that fits one block's
+    shared memory (16 x 32 up to winsize 81) where none does; an item of
     tile (b, t) reads the flow of bands b - db ... b + db (db = cdiv(bw,
     th)) and tiles t - dt ... t + dt (dt = cdiv(bw + max_disp + 1, tw));
     skew max(1, db, nb) orders a level's items iteration after iteration
@@ -90,7 +109,8 @@ def walk_plan(shapes: Sequence[Tuple[int, int]], winsize: int,
         raise ValueError(f"walk over {len(shapes)} levels (1 ... "
                          f"{MAX_LEVELS})")
     taps = 2 * (winsize // 2) + 1
-    if taps > MAX_TAPS or iters < 1 or max_disp < 0:
+    first = _first_shape(winsize)
+    if first is None or iters < 1 or max_disp < 0:
         raise ValueError(f"walk: winsize {winsize}, iters {iters}, "
                          f"max_disp {max_disp}")
     bw = taps // 2
@@ -98,9 +118,9 @@ def walk_plan(shapes: Sequence[Tuple[int, int]], winsize: int,
     for h, w in shapes:
         if h < 1 or w < 1:
             raise ValueError(f"level {h}x{w} is empty")
-        shape = next((i for i in range(len(WALK_TILES) - 1, 0, -1)
+        shape = next((i for i in range(len(WALK_TILES) - 1, first, -1)
                       if -(-h // WALK_TILES[i][0]) * -(-w // WALK_TILES[i][1])
-                      <= BLOCKS_PER_SM * sms), 0)
+                      <= BLOCKS_PER_SM * sms), first)
         th, tw = WALK_TILES[shape]
         nb, nt = -(-h // th), -(-w // tw)
         db = -(-bw // th)
@@ -114,11 +134,11 @@ def walk_plan(shapes: Sequence[Tuple[int, int]], winsize: int,
 
 def walk_smem(winsize: int) -> int:
     """Dynamic shared memory of one block (csrc/flow_level.cu): M on the
-    16 x 32 tile and its bw halo, 5 f32 planes at an odd row stride, as
-    csrc/flow_tile.cuh lays them out."""
-    bw = winsize // 2
-    th, tw = WALK_TILES[0]
-    return 4 * 5 * (th + 2 * bw) * ((tw + 2 * bw) | 1)
+    largest WALK_TILES tile that fits (16 x 32 up to winsize 81) and its
+    bw halo, 5 f32 planes at an odd row stride, as csrc/flow_tile.cuh
+    lays them out."""
+    th, tw = WALK_TILES[_first_shape(winsize)]
+    return tile_smem(th, tw, 2 * (winsize // 2) + 1)
 
 
 def walk_items(plan: Sequence[WalkLevel], iters: int) -> list:
@@ -197,7 +217,7 @@ def _launch(R0s, R1s, flow, winsize: int, max_disp: int, iters: int,
     dev = R0s[0].device
     shapes = [tuple(R.shape[1:]) for R in R0s]
     plan = walk_plan(shapes, winsize, max_disp, iters, _sm_count(dev))
-    wts, taps, post = _host_window(winsize, gaussian)
+    wts, wts_dev, taps, post = _host_window(winsize, gaussian, dev)
     sizes = [2 * h * w for h, w in shapes]
     scratch = torch.empty(iters * sum(sizes) - sizes[-1],
                           dtype=torch.float32, device=dev)
@@ -219,11 +239,11 @@ def _launch(R0s, R1s, flow, winsize: int, max_disp: int, iters: int,
         dims[i] = (L.h, L.w, L.shape, L.nb, L.nt, L.db, L.dt, L.skew,
                    L.item0, L.prog0)
     P, I, F = _build.P, _build.I, _build.F
-    fn = _build.function("kh_flow_levels", I, P, P, I, P, I, P, I, F, I, F,
-                         I, P, P, P)
+    fn = _build.function("kh_flow_levels", I, P, P, I, P, I, P, P, I, F, I,
+                         F, I, P, P, P)
     rc = fn(len(plan), ptrs.ctypes.data, dims.ctypes.data,
             int(R0s[0].dtype == torch.bfloat16), flow.data_ptr(),
-            int(max_disp), wts, taps, post, int(iters),
+            int(max_disp), wts, wts_dev, taps, post, int(iters),
             float(1.0 / pyr_scale), walk_smem(winsize), counters.data_ptr(),
             out.data_ptr(), _build.stream(R0s[0]))
     _build.check(rc, "kh_flow_levels")

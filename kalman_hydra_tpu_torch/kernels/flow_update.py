@@ -35,8 +35,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .flow_iter import (PLANE_DTYPES, check_pairs, pair_frames,
-                        solve_warped, tile_plan)
+from .flow_iter import (PLANE_DTYPES, check_pairs, device_window,
+                        mem_scratch, pair_frames, solve_warped, tile_plan)
 from ..ops.filters import gaussian_kernel
 from ..ops.warp import warp_poly_planar
 
@@ -81,23 +81,30 @@ def _check(name: str, planes, flow, shapes_ok: bool) -> None:
             _build.require(t, name, (t.dtype,), t.ndim)
 
 
-def _host_window(winsize: int, gaussian: bool):
-    """(taps as a C float pointer, count): the kernel copies the taps
-    into its launch parameters."""
+def _host_window(winsize: int, gaussian: bool, device=None):
+    """(taps as a C float pointer, the taps' device copy as one past 61
+    taps, else None, count): the kernel copies the taps into its launch
+    parameters."""
     wts = update_weights(winsize, bool(gaussian))
-    return wts.ctypes.data, wts.shape[0]
+    dw = device_window(wts, device)
+    return (wts.ctypes.data, None if dw is None else dw.data_ptr(),
+            wts.shape[0])
 
 
 def _launch(R0, R1, flow, winsize: int, gaussian: bool) -> torch.Tensor:
-    """kh_flow_update on one pair of checked planes."""
+    """kh_flow_update on one pair of checked planes, on tile_plan's tile
+    or with M in device memory."""
     h, w = flow.shape[-2:]
     plan = tile_plan(h, w, winsize)
-    wts, taps = _host_window(winsize, gaussian)
+    wts, wts_dev, taps = _host_window(winsize, gaussian, R0.device)
     out = torch.empty((2, h, w), dtype=torch.float32, device=R0.device)
+    scratch = mem_scratch(plan, 1, h, w, R0.device)
     P, I = _build.P, _build.I
-    fn = _build.function("kh_flow_update", P, P, I, P, I, I, P, I, I, P, P)
+    fn = _build.function("kh_flow_update", P, P, I, P, I, I, P, P, I, I, I,
+                         P, P, P)
     rc = fn(R0.data_ptr(), R1.data_ptr(), int(R0.dtype == torch.bfloat16),
-            flow.data_ptr(), h, w, wts, taps, plan.smem, out.data_ptr(),
+            flow.data_ptr(), h, w, wts, wts_dev, taps, plan.shape, plan.smem,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             _build.stream(R0))
     _build.check(rc, "kh_flow_update")
     return out
@@ -136,14 +143,17 @@ def _launch_pairs(Rall, flow_b, winsize: int, gaussian: bool,
     """kh_flow_update_pairs on a checked stack and its pairs' flows."""
     B, _, h, w = flow_b.shape
     plan = tile_plan(h, w, winsize)
-    wts, taps = _host_window(winsize, gaussian)
+    wts, wts_dev, taps = _host_window(winsize, gaussian, Rall.device)
     out = torch.empty((B, 2, h, w), dtype=torch.float32, device=Rall.device)
+    scratch = mem_scratch(plan, B, h, w, Rall.device)
     P, I = _build.P, _build.I
-    fn = _build.function("kh_flow_update_pairs", P, I, I, I, P, I, I, P, I,
-                         I, I, P, P)
+    fn = _build.function("kh_flow_update_pairs", P, I, I, I, P, I, I, P, P,
+                         I, I, I, I, P, P, P)
     rc = fn(Rall.data_ptr(), int(Rall.dtype == torch.bfloat16), B,
-            max(clip_len - 1, 0), flow_b.data_ptr(), h, w, wts, taps,
-            int(round_m), plan.smem, out.data_ptr(), _build.stream(Rall))
+            max(clip_len - 1, 0), flow_b.data_ptr(), h, w, wts, wts_dev, taps,
+            int(round_m), plan.shape, plan.smem,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            _build.stream(Rall))
     _build.check(rc, "kh_flow_update_pairs")
     return out
 

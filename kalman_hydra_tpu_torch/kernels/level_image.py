@@ -26,9 +26,17 @@ once a call, or raise.
 K11 (`coarse_level_images`) replaces ::farneback_images_pallas: the same
 level images at padding 0 (the reference's unpadded _band_mats), with no
 polyexp, each (lh, lw) f32, coarse levels only (level 0, the 3-tap blur,
-stays plain torch as the reference leaves it to XLA). Its plain version
-is `coarse_level_images_plain`, the coarse entries of
+stays plain torch as the reference leaves it to XLA): the same kernel,
+planned at n = 0, storing its level tiles. Its plain version is
+`coarse_level_images_plain`, the coarse entries of
 ops.pyramid.farneback_images.
+
+A launch takes at most MAX_LEVELS levels; a call with more (a pyr_scale
+near 1: 15 coarse levels at 1080p, levels 16 and 0.8) makes one launch
+for each run of MAX_LEVELS, and each wrapper counts every launch. Each
+level is built from the source image alone, so the split changes no
+byte. Any odd poly_n up to POLY_N_MAX runs (n > 8 with its taps in device
+memory and its tile rows widened to n).
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .polyexp import poly_taps, polyexp_valid_plain
+from .polyexp import poly_taps, poly_taps_on, polyexp_valid_plain
 from ..ops.filters import border_index, gaussian_kernel, pad1d
 from ..ops.pyramid import farneback_images, farneback_levels, resize_coeffs
 
@@ -80,7 +88,7 @@ def _tap_table(mat: np.ndarray):
     return idx, wt
 
 
-@lru_cache(maxsize=16)
+@lru_cache(maxsize=32)
 def level_tables(h: int, w: int, levels: int, pyr_scale: float, n: int):
     """Per coarse plan entry (coarsest first): (lh, lw, iv, wv, ih, wh)
     where (iv, wv) map the n-padded level rows to image rows and (ih, wh)
@@ -98,21 +106,6 @@ def level_tables(h: int, w: int, levels: int, pyr_scale: float, n: int):
     return tuple(out)
 
 
-_device_tables: dict = {}
-
-
-def _tables_on(device, h, w, levels, pyr_scale, n):
-    key = (str(device), h, w, levels, float(pyr_scale), n)
-    tabs = _device_tables.get(key)
-    if tabs is None:
-        tabs = [(lh, lw) + tuple(torch.as_tensor(a, device=device)
-                                 for a in arrs)
-                for (lh, lw, *arrs) in level_tables(h, w, levels,
-                                                    float(pyr_scale), n)]
-        _device_tables[key] = tabs
-    return tabs
-
-
 def coarse_polyexp_fused_plain(img: torch.Tensor, levels: int,
                                pyr_scale: float, poly_n: int,
                                poly_sigma: float, out_dtype=torch.float32):
@@ -127,8 +120,9 @@ def coarse_polyexp_fused_plain(img: torch.Tensor, levels: int,
 
 # The fused launch's geometry (csrc/level_image.cu::level_polyexp_kernel)
 THREADS = 512          # threads a block
-PE_TH, PE_IN_W = 16, 80  # K3's tile body: output rows a band, row stride
-PE_TAPS = 17             # 2 * kNMax + 1
+MAX_LEVELS = 12        # levels a launch (csrc/level_image.cu::kMaxLevels)
+PE_TH = 16             # K3's tile body (polyexp.cuh): output rows a band
+PE_N_BY_VALUE = 8      # kPeNMax: the taps and tile rows sized for n <= 8
 TILE_H_MAX = 64          # output rows a tile, a multiple of PE_TH
 TILE_W_MAX = 64          # output columns a tile (K3's body's width)
 ROW_FLOATS = 4096        # the row buffers' budget
@@ -139,6 +133,16 @@ SMEM_MAX = 232448        # bytes of shared memory a block may take
 SMEM_BUDGET = 72 * 1024  # a block's share when three fill an SM
 GROUP_MIN = 2            # level rows a row-buffer pass takes at least
 SPLIT_MAX = 8            # blocks that build one tile's rows (a cluster)
+
+
+def pe_in_w(n: int) -> int:
+    """The level tile's row stride in floats (polyexp.cuh::pe_in_w)."""
+    return TILE_W_MAX + 2 * max(n, PE_N_BY_VALUE)
+
+
+def pe_tap_stride(n: int) -> int:
+    """The shared tap rows' stride (polyexp.cuh::pe_tap_stride)."""
+    return 2 * max(n, PE_N_BY_VALUE) + 1
 
 
 class FusedLevel(NamedTuple):
@@ -204,18 +208,19 @@ def _level_shape(lv, tile_h, tile_w, n):
     stride = _skew(span - 1) + 1
     rows, cols = min(tile_h + 2 * n, ho), min(tile_w + 2 * n, wo)
     group = min(rows, max(GROUP_MIN, ROW_FLOATS // stride))
+    in_w = pe_in_w(n)
     a = 2 * rows + 2 * cols + rows * tv + th * cols + group * stride
-    b = 3 * PE_TH * PE_IN_W + 3 * PE_TAPS
-    smem = 4 * ((tile_h + 2 * n) * PE_IN_W + max(a, b))
+    b = 3 * PE_TH * in_w + 3 * pe_tap_stride(n)
+    smem = 4 * ((tile_h + 2 * n) * in_w + max(a, b))
     rows_work = (rows * span * tv * 2 + rows * cols * th) / THREADS
-    pe_work = (tile_h // PE_TH * (PE_TH * PE_IN_W * 3 + PE_TH * TILE_W_MAX
+    pe_work = (tile_h // PE_TH * (PE_TH * in_w * 3 + PE_TH * TILE_W_MAX
                                   * 6) * (2 * n + 1)) / THREADS
     return tiles_x, tiles_x * tiles_y, xs, group, smem, (rows_work, pe_work)
 
 
 @lru_cache(maxsize=32)
 def fused_plan(h: int, w: int, levels: int, pyr_scale: float, n: int,
-               frames: int) -> FusedPlan:
+               frames: int, split_max: int = 0) -> FusedPlan:
     """Tile sizes and splits of the fused launch, per coarse level (plan
     order, coarsest first). Each level starts at the largest tile
     (TILE_H_MAX rows, TILE_W_MAX columns, no more than the level needs)
@@ -227,7 +232,12 @@ def fused_plan(h: int, w: int, levels: int, pyr_scale: float, n: int,
     the blocks building each tile's rows (up to SPLIT_MAX, a cluster),
     or tiles halved, rows first. At one 1080p frame (K4) the deep levels
     split for latency; at 36 frames (K7b) they stay whole, one block a
-    tile, for throughput."""
+    tile, for throughput. n = 0 plans K11's launch (the level images
+    alone) with split_max IMG_SPLIT_MAX (else SPLIT_MAX). Raises where a
+    level's smallest tile does not fit one block's shared memory
+    (SMEM_MAX; pipeline.check_slice keeps poly_n within POLY_N_MAX, where
+    no 1080p or 720p level comes near it)."""
+    split_max = split_max or SPLIT_MAX
     tabs = []
     for (lh, lw, iv, wv, ih, wh) in level_tables(h, w, levels,
                                                 float(pyr_scale), n):
@@ -265,7 +275,7 @@ def fused_plan(h: int, w: int, levels: int, pyr_scale: float, n: int,
                 key=lambda j: longest(shapes[j], sizes[j][2]))
         th_, tw_, split = sizes[i]
         trials = []
-        if split < SPLIT_MAX:
+        if split < split_max:
             trials.append([th_, tw_, split * 2])
         if th_ > PE_TH:
             trials.append([max(PE_TH, th_ // 2 // PE_TH * PE_TH), tw_, split])
@@ -283,6 +293,12 @@ def fused_plan(h: int, w: int, levels: int, pyr_scale: float, n: int,
         if best is None:
             break
         _, sizes[i], shapes = best
+    for i, s_ in enumerate(shapes):
+        if s_[4] > SMEM_MAX:
+            raise ValueError(
+                f"fused_plan: level {i} ({tabs[i]['lh']}x{tabs[i]['lw']}) "
+                f"at poly_n {n} needs {s_[4]} B of shared memory a block, "
+                f"more than {SMEM_MAX} B")
     cluster = max(z[2] for z in sizes)
     out, block0 = [], 0
     for t, (th_, tw_, split), s in zip(tabs, sizes, shapes):
@@ -293,6 +309,12 @@ def fused_plan(h: int, w: int, levels: int, pyr_scale: float, n: int,
         block0 += blocks
     return FusedPlan(tuple(out), block0, max(lv.smem for lv in out),
                      cluster)
+
+
+# K11 (the level images alone, n = 0) splits a tile's rows over at most
+# 4 blocks, the split_max that timed fastest for one 1080p frame
+# (tools/torch_k11_plans.py; PERF.md section 6).
+IMG_SPLIT_MAX = 4
 
 
 _fused_tables: dict = {}
@@ -318,38 +340,75 @@ def _fused_tables_on(device, h, w, levels, pyr_scale, n, plan):
     return tabs
 
 
+_launch_plans: dict = {}
+
+
+def _launch_plan(device, h, w, levels, pyr_scale, n, frames, split_max=0):
+    """The plan of a call and, for each launch (a run of at most
+    MAX_LEVELS levels), its level table: (plan, [(ptrs (levels, 6)
+    uint64 with each level's output pointer still 0, dims (levels, 12)
+    int32, blocks, first level)]), cached per device and shape: a call
+    then only allocates its outputs and fills in their pointers. Each
+    run's block0 counts from its first level (a multiple of the cluster,
+    as every level's blocks are)."""
+    key = (str(device), h, w, levels, float(pyr_scale), n, frames,
+           split_max)
+    hit = _launch_plans.get(key)
+    if hit is not None:
+        return hit
+    plan = fused_plan(h, w, levels, float(pyr_scale), n, frames, split_max)
+    tables = _fused_tables_on(device, h, w, levels, pyr_scale, n, plan)
+    runs = []
+    for r0 in range(0, len(plan.levels), MAX_LEVELS):
+        ptrs, dims, block0 = [], [], 0
+        for lv, tabs in zip(plan.levels[r0:r0 + MAX_LEVELS],
+                            tables[r0:r0 + MAX_LEVELS]):
+            ptrs.append([t.data_ptr() for t in tabs] + [0])
+            dims.append([lv.lh, lv.lw, lv.ho, lv.wo, lv.tv, lv.th,
+                         lv.tile_h, lv.tile_w, lv.tiles_x, block0, lv.group,
+                         lv.split])
+            block0 += lv.blocks
+        runs.append((np.ascontiguousarray(ptrs, dtype=np.uint64),
+                     np.ascontiguousarray(dims, dtype=np.int32), block0, r0))
+    hit = _launch_plans[key] = (plan, runs)
+    return hit
+
+
+def _run_ptrs(template, outs, r0):
+    """A launch's pointer table: the cached template (copied, so that
+    concurrent calls never share one) with its levels' output pointers."""
+    ptrs = template.copy()
+    ptrs[:, 5] = [o.data_ptr() for o in outs[r0:r0 + len(ptrs)]]
+    return ptrs
+
+
 def _launch(imgs: torch.Tensor, levels: int, pyr_scale: float, n: int,
             poly_sigma: float, out_dtype):
-    """One kh_level_polyexp launch over a (N, H, W) f32 stack -> list of
-    (N, 5, lh, lw), coarsest first."""
+    """kh_level_polyexp over a (N, H, W) f32 stack -> (list of
+    (N, 5, lh, lw), coarsest first; launches made)."""
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"coarse_polyexp_fused: out_dtype {out_dtype}")
     N, h, w = imgs.shape
     dev = imgs.device
-    plan = fused_plan(h, w, levels, float(pyr_scale), n, N)
+    plan, runs = _launch_plan(dev, h, w, levels, pyr_scale, n, N)
     outs = [torch.empty((N, 5, lv.lh, lv.lw), dtype=out_dtype, device=dev)
             for lv in plan.levels]
     if not outs:
-        return outs
-    ptrs, dims, block0 = [], [], 0
-    for lv, tabs, out in zip(plan.levels, _fused_tables_on(
-            dev, h, w, levels, pyr_scale, n, plan), outs):
-        ptrs.append([t.data_ptr() for t in tabs] + [out.data_ptr()])
-        dims.append([lv.lh, lv.lw, lv.ho, lv.wo, lv.tv, lv.th, lv.tile_h,
-                     lv.tile_w, lv.tiles_x, block0, lv.group, lv.split])
-        block0 += lv.blocks
-    ptrs = np.ascontiguousarray(ptrs, dtype=np.uint64)
-    dims = np.ascontiguousarray(dims, dtype=np.int32)
+        return outs, 0
     taps = poly_taps(n, float(poly_sigma))
+    taps_dev = (poly_taps_on(dev, n, float(poly_sigma)).data_ptr()
+                if n > PE_N_BY_VALUE else None)
     P, I = _build.P, _build.I
-    fn = _build.function("kh_level_polyexp", P, I, I, I, I, P, P, P, I, I,
-                         I, I, I, P)
-    rc = fn(imgs.data_ptr(), N, h, w, len(outs), ptrs.ctypes.data,
-            dims.ctypes.data, taps.ctypes.data, n,
-            int(out_dtype == torch.bfloat16), plan.blocks, plan.cluster,
-            plan.smem, _build.stream(imgs))
-    _build.check(rc, "kh_level_polyexp")
-    return outs
+    fn = _build.function("kh_level_polyexp", P, I, I, I, I, P, P, P, P, I,
+                         I, I, I, I, P)
+    for tmpl, dims, blocks, r0 in runs:
+        ptrs = _run_ptrs(tmpl, outs, r0)
+        rc = fn(imgs.data_ptr(), N, h, w, len(dims), ptrs.ctypes.data,
+                dims.ctypes.data, taps.ctypes.data, taps_dev, n,
+                int(out_dtype == torch.bfloat16), blocks, plan.cluster,
+                plan.smem, _build.stream(imgs))
+        _build.check(rc, "kh_level_polyexp")
+    return outs, len(runs)
 
 
 def coarse_polyexp_fused(img: torch.Tensor, levels: int, pyr_scale: float,
@@ -360,10 +419,10 @@ def coarse_polyexp_fused(img: torch.Tensor, levels: int, pyr_scale: float,
         return coarse_polyexp_fused_plain(img, levels, pyr_scale, poly_n,
                                           poly_sigma, out_dtype)
     _build.require(img, "img", (torch.float32,), 2)
-    outs = [o[0] for o in _launch(img[None], levels, pyr_scale, poly_n,
-                                  poly_sigma, out_dtype)]
-    coarse_polyexp_fused.launches += 1
-    return outs
+    outs, launches = _launch(img[None], levels, pyr_scale, poly_n,
+                             poly_sigma, out_dtype)
+    coarse_polyexp_fused.launches += launches
+    return [o[0] for o in outs]
 
 
 coarse_polyexp_fused.launches = 0
@@ -373,13 +432,14 @@ def coarse_polyexp_fused_batch(imgs: torch.Tensor, levels: int,
                                pyr_scale: float, poly_n: int,
                                poly_sigma: float, out_dtype=torch.float32):
     """(N, H, W) frames -> list of (N, 5, lh, lw) planes, coarse levels
-    only, one launch for all frames and levels."""
+    only, one launch for all frames and every MAX_LEVELS levels."""
     if imgs.device.type == "cpu":
         return coarse_polyexp_fused_plain(imgs, levels, pyr_scale, poly_n,
                                           poly_sigma, out_dtype)
     _build.require(imgs, "imgs", (torch.float32,), 3)
-    outs = _launch(imgs, levels, pyr_scale, poly_n, poly_sigma, out_dtype)
-    coarse_polyexp_fused_batch.launches += 1
+    outs, launches = _launch(imgs, levels, pyr_scale, poly_n, poly_sigma,
+                             out_dtype)
+    coarse_polyexp_fused_batch.launches += launches
     return outs
 
 
@@ -393,26 +453,33 @@ def coarse_level_images_plain(img: torch.Tensor, levels: int,
 
 def coarse_level_images(img: torch.Tensor, levels: int, pyr_scale: float):
     """(H, W) image -> list of (lh, lw) f32 level images, coarse levels
-    only, coarsest first."""
+    only, coarsest first: one launch for every MAX_LEVELS levels."""
     if img.device.type == "cpu":
         return coarse_level_images_plain(img, levels, pyr_scale)
     _build.require(img, "img", (torch.float32,), 2)
-    h, w = img.shape
-    P, I = _build.P, _build.I
-    fn = _build.function("kh_level_images", P, I, I, P, P, I, I, P, P, I, I,
-                         P, P, P)
-    outs = []
-    for (lh, lw, iv, wv, ih, wh) in _tables_on(img.device, h, w, levels,
-                                                pyr_scale, 0):
-        tmp = torch.empty((lh, w), dtype=torch.float32, device=img.device)
-        out = torch.empty((lh, lw), dtype=torch.float32, device=img.device)
-        rc = fn(img.data_ptr(), h, w, iv.data_ptr(), wv.data_ptr(),
-                iv.shape[1], lh, ih.data_ptr(), wh.data_ptr(), ih.shape[1],
-                lw, tmp.data_ptr(), out.data_ptr(), _build.stream(img))
-        _build.check(rc, "kh_level_images")
-        outs.append(out)
-    coarse_level_images.launches += 1
+    outs, launches = _launch_images(img, levels, pyr_scale)
+    coarse_level_images.launches += launches
     return outs
+
+
+def _launch_images(img: torch.Tensor, levels: int, pyr_scale: float):
+    """kh_level_images on a checked (H, W) image, the fused plan at n = 0
+    -> (list of (lh, lw), launches made)."""
+    h, w = img.shape
+    dev = img.device
+    plan, runs = _launch_plan(dev, h, w, levels, pyr_scale, 0, 1,
+                              IMG_SPLIT_MAX)
+    outs = [torch.empty((lv.lh, lv.lw), dtype=torch.float32, device=dev)
+            for lv in plan.levels]
+    P, I = _build.P, _build.I
+    fn = _build.function("kh_level_images", P, I, I, I, P, P, I, I, I, P)
+    for tmpl, dims, blocks, r0 in runs:
+        ptrs = _run_ptrs(tmpl, outs, r0)
+        rc = fn(img.data_ptr(), h, w, len(dims), ptrs.ctypes.data,
+                dims.ctypes.data, blocks, plan.cluster, plan.smem,
+                _build.stream(img))
+        _build.check(rc, "kh_level_images")
+    return outs, len(runs)
 
 
 coarse_level_images.launches = 0

@@ -24,7 +24,10 @@ The walk takes each level's images and Scharr planes (finest first) and
 the level-0 points, and does in the kernel what ops/lk.py did between
 one-level launches (`level_args`: the point and guess clipped to the
 level and moved into its padded frame, the clamp `window`; the answer
-moved back out, x2 between levels, level 0's status). Its plain version,
+moved back out, x2 between levels, level 0's status), MAX_LEVELS levels
+a launch: a deeper pyramid takes one walk for each MAX_LEVELS levels,
+coarsest first, each handing the next its finest level's guess x2 (the
+level loop's own step). Its plain version,
 `lk_sparse_levels_plain`, is that per-level loop over `lk_level_plain`
 with the torch glue, which `lk_sparse` runs on a CPU tensor.
 """
@@ -224,10 +227,10 @@ def lk_sparse_levels(pyr_a, pyr_b, grads, pts, win: int, max_iter: int,
         return lk_sparse_levels_plain(pyr_a, pyr_b, grads, pts, win,
                                       max_iter, eps, min_eig, halo, guess)
     L = len(pyr_a)
-    if not 1 <= L <= MAX_LEVELS or len(pyr_b) != L or len(grads) != L:
+    if L < 1 or len(pyr_b) != L or len(grads) != L:
         raise ValueError(f"lk_sparse_levels: {L} levels of images, "
                          f"{len(pyr_b)} and {len(grads)} of the others "
-                         f"(1 to {MAX_LEVELS}, equal)")
+                         f"(1 or more, equal)")
     f32 = (torch.float32,)
     K = pts.shape[0]
     if (pts.device.type != "cuda" or pts.dtype != torch.float32
@@ -249,9 +252,28 @@ def lk_sparse_levels(pyr_a, pyr_b, grads, pts, win: int, max_iter: int,
                 raise ValueError(f"lk_sparse_levels: {name}[{lvl}] "
                                  f"{tuple(t.shape)} is not "
                                  f"{tuple(pyr_a[lvl].shape)}")
-    out, status = _launch_walk(pyr_a, pyr_b, grads, pts, win, max_iter, eps,
-                               min_eig, halo, guess)
-    lk_sparse_levels.launches += K > 0
+    return _walks(pyr_a, pyr_b, grads, pts, win, max_iter, eps, min_eig,
+                  halo, guess)
+
+
+def _walks(pyr_a, pyr_b, grads, pts, win, max_iter, eps, min_eig, halo,
+           guess):
+    """One `_launch_walk` for each MAX_LEVELS levels, coarsest first: walk
+    [l0, l0 + MAX_LEVELS) tracks pts / 2^l0 as its level-0 points (a
+    power of two: exact), and its finest level's answer x2 seeds the next
+    walk's coarsest level, as the level loop carries it."""
+    L, K = len(pyr_a), pts.shape[0]
+    starts = list(range(0, L, MAX_LEVELS))[::-1]
+    if len(starts) > 1 and guess is None:
+        guess = pts * (1.0 / (2 ** (L - 1)))
+    for l0 in starts:
+        if l0 < starts[0]:
+            guess = out * 2.0
+        sl = slice(l0, l0 + MAX_LEVELS)
+        out, status = _launch_walk(pyr_a[sl], pyr_b[sl], grads[sl],
+                                   pts if l0 == 0 else pts * (1.0 / 2 ** l0),
+                                   win, max_iter, eps, min_eig, halo, guess)
+        lk_sparse_levels.launches += K > 0
     return out, status
 
 

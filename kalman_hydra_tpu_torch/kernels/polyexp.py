@@ -8,7 +8,9 @@ rounding at the store. K7a replaces ::poly_expansion_planar_batch:
 (N, H, W) -> (N, 5, H, W), the same kernel with a frame index, so it
 equals per-frame K3 bit for bit. `polyexp_plan` is the kernel's tile and
 shared-memory plan: 32 x 64 tiles with the taps compiled in, one build
-for each odd poly_n up to 7.
+for each odd poly_n up to 7 (COMPILED_N); any other odd poly_n up to
+POLY_N_MAX takes the kernel's generic build, its taps in shared memory
+(copied from device memory) and its tile's halo sized from n.
 
 CPU tensors take the plain version (one function for both: it maps any
 leading dims); CUDA tensors launch the kernel, or raise.
@@ -113,7 +115,11 @@ def poly_expansion_planar_plain(img: torch.Tensor, poly_n: int,
 
 
 SMEM_LIMIT = 232_448     # bytes of shared memory one H100 block may use
-COMPILED_N = (1, 3, 5, 7)   # the poly_n csrc/polyexp.cu builds (kNMax 7)
+# csrc/polyexp.cu's builds with the taps compiled in (its kNMax = 7);
+# any other odd n up to POLY_N_MAX takes its generic build. (K4/K7b's
+# taps ride in the launch parameters up to polyexp.cuh::kPeNMax = 8 and
+# come from device memory past it.)
+COMPILED_N = (1, 3, 5, 7)
 
 
 class PolyexpPlan(NamedTuple):
@@ -122,23 +128,67 @@ class PolyexpPlan(NamedTuple):
     smem: int        # dynamic shared memory of one block, bytes
 
 
+def _generic_smem(n: int) -> int:
+    """The generic build's block (csrc/polyexp.cu::generic_smem): the
+    (32 + 2n) x (64 + 2n) input tile, the three vertical-moment planes
+    (32 rows at the odd stride (64 + 2n) | 1) and the 3 (2n + 1) taps."""
+    return 4 * ((32 + 2 * n) * (64 + 2 * n) + 3 * 32 * ((64 + 2 * n) | 1)
+                + 3 * (2 * n + 1))
+
+
+def _poly_n_max() -> int:
+    """The largest odd poly_n that runs on the card: K3/K7a's generic
+    tile fits one block's shared memory, and so does K4/K7b's smallest
+    level tile (16 rows, level_image.py::pe_in_w(n) floats a row) with
+    its polyexp body, within half of it, so that the other half holds the
+    level's tap tables (their size depends on the image)."""
+    n = 9
+    while True:
+        m = n + 2
+        in_w = 64 + 2 * m
+        k4 = 4 * ((16 + 2 * m) * in_w + 3 * 16 * in_w + 3 * (2 * m + 1))
+        if _generic_smem(m) > SMEM_LIMIT or k4 > SMEM_LIMIT // 2:
+            return n
+        n = m
+
+
+POLY_N_MAX = _poly_n_max()   # 51: pipeline.check_slice refuses a larger n
+
+
 def polyexp_plan(n: int, out_dtype=torch.float32) -> PolyexpPlan:
-    """csrc/polyexp.cu's tiles and shared memory for poly_n = n (odd, at
-    most 7): a 32 x 64 tile, the input tile ((32 + 2n) rows of 80 floats)
-    or, after the vertical pass, the five output planes staged at a row
-    stride of 72 (bf16) or 68 (f32) elements, whichever is larger, and
-    the three vertical-moment planes (32 rows at the odd stride (64 + 2n)
-    | 1)."""
-    if n not in COMPILED_N:
-        raise ValueError(f"poly_n {n}: the kernel takes {COMPILED_N}")
-    ob = torch.empty((), dtype=out_dtype).element_size()
+    """csrc/polyexp.cu's tiles and shared memory for an odd poly_n = n.
+    With the taps compiled in (n in COMPILED_N): a 32 x 64 tile, the input
+    tile ((32 + 2n) rows of 80 floats) or, after the vertical pass, the
+    five output planes staged at a row stride of 72 (bf16) or 68 (f32)
+    elements, whichever is larger, and the three vertical-moment planes
+    (32 rows at the odd stride (64 + 2n) | 1). The generic build (any
+    other odd n up to POLY_N_MAX): `_generic_smem`."""
+    if n < 1 or n % 2 == 0 or n > POLY_N_MAX:
+        raise ValueError(f"poly_n {n}: the kernel takes odd n up to "
+                         f"{POLY_N_MAX}")
     th, tw = 32, 64
+    if n not in COMPILED_N:
+        return PolyexpPlan(th, tw, _generic_smem(n))
+    ob = torch.empty((), dtype=out_dtype).element_size()
     stage = 5 * th * (tw + (8 if ob == 2 else 4)) * ob // 4
     smem = 4 * (max((th + 2 * n) * (tw + 16), stage)
                 + 3 * th * ((tw + 2 * n) | 1))
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"poly_n {n}: {smem} B of shared memory a block")
     return PolyexpPlan(th, tw, smem)
+
+
+_device_taps: dict = {}
+
+
+def poly_taps_on(device, n: int, sigma: float) -> torch.Tensor:
+    """`poly_taps` in device memory, cached per (device, n, sigma): the
+    generic builds of K3/K7a and K4/K7b read their taps from there."""
+    key = (str(device), n, float(sigma))
+    t = _device_taps.get(key)
+    if t is None:
+        t = torch.as_tensor(np.array(poly_taps(n, float(sigma))),
+                            device=device)
+        _device_taps[key] = t
+    return t
 
 
 def _launch(imgs: torch.Tensor, poly_n: int, poly_sigma: float,
@@ -150,9 +200,11 @@ def _launch(imgs: torch.Tensor, poly_n: int, poly_sigma: float,
     plan = polyexp_plan(poly_n, out_dtype)
     out = torch.empty((N, 5, h, w), dtype=out_dtype, device=imgs.device)
     taps = poly_taps(poly_n, float(poly_sigma))
+    taps_dev = (None if poly_n in COMPILED_N else
+                poly_taps_on(imgs.device, poly_n, poly_sigma).data_ptr())
     P, I = _build.P, _build.I
-    fn = _build.function("kh_polyexp", P, I, I, I, P, I, I, I, P, P)
-    rc = fn(imgs.data_ptr(), N, h, w, taps.ctypes.data, poly_n,
+    fn = _build.function("kh_polyexp", P, I, I, I, P, P, I, I, I, P, P)
+    rc = fn(imgs.data_ptr(), N, h, w, taps.ctypes.data, taps_dev, poly_n,
             int(out_dtype == torch.bfloat16), plan.smem, out.data_ptr(),
             _build.stream(imgs))
     _build.check(rc, "kh_polyexp")

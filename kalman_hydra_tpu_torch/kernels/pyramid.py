@@ -27,7 +27,6 @@ from . import _build
 from ..ops.filters import sep_filter2d
 
 PYR_TAPS = np.array([1.0, 4.0, 6.0, 4.0, 1.0], dtype=np.float32) / 16.0
-MAX_LEVELS = 8            # levels a wrapper call takes
 LAUNCH_LEVELS = 4         # levels a launch takes (csrc/pyramid.cu)
 # (tile_h, tile_w, threads) of the coarsest level's tile by levels in a
 # launch, largest first: a launch takes the first with MIN_BLOCKS blocks,
@@ -112,9 +111,9 @@ def pyr_plan(h: int, w: int, n: int, aligned: bool = True) -> PyrPlan:
     to LAUNCH_LEVELS levels, the next from the last level it wrote.
     16-byte loads (`vec`) need a source width that is a multiple of 4
     and, for the image itself, an `aligned` pointer."""
-    if not 1 <= n <= MAX_LEVELS:
+    if n < 1:
         raise ValueError(f"pyr_down_levels: {n} levels; the wrapper takes "
-                         f"1..{MAX_LEVELS}")
+                         f"1 or more")
     if h < 1 or w < 1:
         raise ValueError(f"pyr_down_levels: empty image {h}x{w}")
     shapes, offsets = [], []

@@ -80,7 +80,8 @@ def scharr_plan(shapes: Tuple[Tuple[int, int], ...],
 
 
 def scharr_gradients_levels(pyr: Sequence[torch.Tensor]):
-    """((gx, gy) of each level of `pyr`), one launch on the card."""
+    """((gx, gy) of each level of `pyr`): one launch on the card for each
+    MAX_LEVELS of them (an LK pyramid of more than 8 levels takes two)."""
     if not pyr or pyr[0].device.type == "cpu":
         return tuple(scharr_gradients_plain(a) for a in pyr)
     for i, a in enumerate(pyr):
@@ -88,6 +89,18 @@ def scharr_gradients_levels(pyr: Sequence[torch.Tensor]):
         if a.device != pyr[0].device:
             raise ValueError(f"pyr[{i}]: on {a.device}, pyr[0] on "
                              f"{pyr[0].device}")
+    return _launches(pyr)
+
+
+def _launches(pyr: Sequence[torch.Tensor]):
+    """One `_launch` for each MAX_LEVELS of the checked levels."""
+    return sum((_launch(pyr[i:i + MAX_LEVELS])
+                for i in range(0, len(pyr), MAX_LEVELS)), ())
+
+
+def _launch(pyr: Sequence[torch.Tensor]):
+    """One kh_scharr_levels launch over at most MAX_LEVELS checked
+    levels."""
     shapes = tuple((a.shape[0], a.shape[1]) for a in pyr)
     plan = scharr_plan(shapes, tuple(a.data_ptr() % 16 == 0 for a in pyr))
     buf = torch.empty(plan.size, dtype=torch.float32, device=pyr[0].device)

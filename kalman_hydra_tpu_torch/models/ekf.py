@@ -13,6 +13,7 @@ masking, never a shape change.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -117,10 +118,36 @@ def measure_position(flow: torch.Tensor, x_prev: torch.Tensor,
                      x_pred: torch.Tensor, cfg: EkfConfig):
     """Linear measurement z = p_prev + flow(p_prev); returns (y, H) with
     y = z - H x_pred."""
-    p_prev = x_prev[:, 0:2]
-    z = p_prev + sample_flow(flow, p_prev)
-    H = torch.as_tensor(dynamics.position_H(cfg), device=flow.device)
+    z, H = position_z(flow, x_prev, cfg)
     return z - x_pred[:, 0:2], H
+
+
+def position_z(flow: torch.Tensor, x_prev: torch.Tensor, cfg: EkfConfig):
+    """The position measurement z = p_prev + flow(p_prev) and its H."""
+    p_prev = x_prev[:, 0:2]
+    return p_prev + sample_flow(flow, p_prev), position_H_on(cfg,
+                                                              flow.device)
+
+
+_H_on: dict = {}
+
+
+def position_H_on(cfg: EkfConfig, device) -> torch.Tensor:
+    """dynamics.position_H on `device`, uploaded once per (config,
+    device)."""
+    key = (cfg, str(device))
+    H = _H_on.get(key)
+    if H is None:
+        H = _H_on[key] = torch.as_tensor(dynamics.position_H(cfg),
+                                         device=device)
+    return H
+
+
+@lru_cache(maxsize=32)
+def transition_noise(cfg: EkfConfig):
+    """(dynamics.transition, dynamics.process_noise) of a config, built
+    once: the K1 launch's constants."""
+    return dynamics.transition(cfg), dynamics.process_noise(cfg)
 
 
 def measure_implicit_flow(flow: torch.Tensor, x_prev: torch.Tensor,
@@ -131,7 +158,7 @@ def measure_implicit_flow(flow: torch.Tensor, x_prev: torch.Tensor,
     p_prev, p_lin = x_prev[:, 0:2], x_lin[:, 0:2]
     disp, jac = sample_flow_with_grad(flow, p_lin)
     A = torch.eye(2, dtype=torch.float32, device=flow.device) - jac
-    Hpos = torch.as_tensor(dynamics.position_H(cfg), device=flow.device)
+    Hpos = position_H_on(cfg, flow.device)
     return p_prev + disp - p_lin, torch.einsum("kij,jn->kin", A, Hpos)
 
 
@@ -139,25 +166,26 @@ def ekf_step(state: TrackState, flow: torch.Tensor, cfg: EkfConfig,
              F: torch.Tensor, Q: torch.Tensor):
     """One frame: predict + update of all K tracks against a dense flow.
 
-    The position measurement with a shared Q goes through the K1 wrapper
-    with the PRE-predict state and the residual vs the prediction (its
-    contract); the separate predict here feeds the residual and the
-    gate's aux outputs. A per-track Q (adaptive_q), the implicit-flow
+    The position measurement with a shared Q is one K1 launch
+    (`ekf_predict_update`): from the PRE-predict state and the
+    measurement z it forms the prediction (which the commit and the
+    gate's aux outputs take), the residual and the update. A per-track Q
+    (adaptive_q), the implicit-flow
     (I)EKF and the UKF take the plain update, on the card too: that is
     the reference's own route (its K1 takes only the linear update with a
     shared Q), not a fallback."""
-    from ..kernels.ekf import ekf_fused_step
+    from ..kernels.ekf import ekf_predict_update
     x_prev = state.x
+    if cfg.measurement == "position" and state.q_scale is None:
+        z, H = position_z(flow, x_prev, cfg)
+        x_pred, P_pred, x_new, P_new, nis = ekf_predict_update(
+            state.x, state.P, z, H, *transition_noise(cfg), cfg.r)
+        return commit_update(state, x_pred, P_pred, x_new, P_new, nis, cfg)
     x_pred, P_pred = predict(state.x, state.P, F, Q, state.q_scale)
     if cfg.measurement == "position":
         y, H = measure_position(flow, x_prev, x_pred, cfg)
-        if state.q_scale is None:
-            x_new, P_new, nis = ekf_fused_step(
-                state.x, state.P, y, H, dynamics.transition(cfg),
-                dynamics.process_noise(cfg), cfg.r)
-        else:
-            x_new, P_new, nis = update(x_pred, P_pred, y, H,
-                                       measurement_noise(cfg, flow.device))
+        x_new, P_new, nis = update(x_pred, P_pred, y, H,
+                                   measurement_noise(cfg, flow.device))
     elif cfg.filter_type == "ukf":
         from .ukf import ukf_update
         x_new, P_new, nis = ukf_update(x_pred, P_pred, flow,

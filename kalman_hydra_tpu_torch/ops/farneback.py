@@ -13,7 +13,8 @@ bilinear gather of the unwarped planes included (the reference gathers
 in XLA, `_warp_poly_planar`, then runs its Pallas kernel; the plain
 gather is `ops.warp.warp_poly_planar`). At `fast_warp > 0`, with
 `fi_level_fused`, the run of levels that pass K5's gate
-(`kernels.flow_level.fits`) runs in one K5 launch for every MAX_LEVELS of
+(`kernels.flow_level.fits`; every level fails it at a window no walk tile
+holds, `walk_fits`) runs in one K5 launch for every MAX_LEVELS of
 them, every iteration of each and the resizes between them (the
 reference runs one Pallas call a level, the resize in XLA between them);
 every other level runs all its iterations in one K13 launch with
@@ -41,7 +42,7 @@ import torch
 from ..config import FlowConfig
 from ..kernels.flow_iter import (flow_iter, flow_iter_pairs,
                                  flow_iters_pipelined, pair_count)
-from ..kernels.flow_level import fits, flow_levels
+from ..kernels.flow_level import fits, flow_levels, walk_fits
 from ..kernels.flow_update import flow_update, flow_update_pairs
 from ..kernels.level_image import (coarse_level_images, coarse_polyexp_fused,
                                    coarse_polyexp_fused_batch)
@@ -90,7 +91,8 @@ def farneback_from_pyramids(Rs_a, Rs_b, cfg: FlowConfig,
             flow_p = torch.zeros((2, lh, lw), dtype=torch.float32,
                                  device=R0.device)
         isz = R0.element_size()
-        if cfg.fast_warp > 0 and cfg.fi_level_fused and fits(lh, lw, isz):
+        if cfg.fast_warp > 0 and cfg.fi_level_fused and \
+                walk_fits(cfg.winsize) and fits(lh, lw, isz):
             # this level and every next one under the gate: one walk a
             # MAX_LEVELS of them
             j = i + 1

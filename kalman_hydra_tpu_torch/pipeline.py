@@ -62,6 +62,7 @@ from . import cuda_device
 from .config import EkfConfig, FlowConfig, RunConfig, TrackConfig
 from .io import Trajectories
 from .kernels.flow_iter import pair_count, pair_frames
+from .kernels.polyexp import POLY_N_MAX
 from .models import dynamics, lifecycle
 from .models.ekf import (TrackState, commit_update, ekf_step, init_tracks,
                          measurement_noise, predict, update)
@@ -151,6 +152,12 @@ def check_slice(cfg: RunConfig, flow_only: bool = False) -> None:
         raise NotImplementedError(
             f"ekf.measurement={m!r}, the mesh-render channel (ROADMAP "
             "P11b), is outside the ported slice of kalman_hydra_tpu")
+    f = cfg.flow
+    if f.method == "farneback" and f.poly_n > POLY_N_MAX:
+        raise NotImplementedError(
+            f"flow.poly_n={f.poly_n}: the polynomial expansion's tiles on "
+            f"the card take poly_n <= {POLY_N_MAX} (ROADMAP section 3, "
+            "F4's remaining limit)")
 
 
 def _photometric(cfg: RunConfig) -> bool:

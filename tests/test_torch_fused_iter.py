@@ -18,8 +18,8 @@ import torch
 
 from kalman_hydra_tpu_torch.kernels import _build
 from kalman_hydra_tpu_torch.kernels.flow_iter import (
-    MAX_TAPS, SMEM_LIMIT, STATIC_SMEM, TILE, pipe_dt, pipe_items, pipe_skew,
-    pipe_waits, tile_plan)
+    MAX_TAPS, MEM, SMEM_LIMIT, STATIC_SMEM, TILE, TILES, pipe_dt, pipe_items,
+    pipe_skew, pipe_waits, tile_plan, tile_smem)
 
 # the modules (the package's `flow_iter` and `flow_update` are the
 # wrapper functions)
@@ -56,16 +56,38 @@ def test_tile_plan_counts_and_shared_memory(h, w, winsize):
     assert plan.th >= bw
 
 
+# the tile each window past MAX_TAPS takes ((0, 0): M in device memory)
+WIDE_TILES = {62: (16, 64), 63: (16, 64), 65: (16, 64), 81: (16, 32),
+              101: (0, 0), 121: (0, 0), 201: (0, 0), 1001: (0, 0),
+              2001: (0, 0)}
+
+
 @pytest.mark.parametrize("winsize", (1, 3, 5, 15, 31, 43, 59, 61, 62, 63,
                                      65, 101, 121, 201, 1001, 2001))
 def test_tile_plan_raises_for_a_window_that_does_not_fit(winsize):
+    """No window raises any more: every one plans a route. Up to
+    MAX_TAPS taps the 32 x 64 tile with its old shared memory (so the old
+    bytes); past it the first of TILES whose M fits one block, no larger
+    one fitting; where none fits (winsize >= 101), M in device memory."""
     taps = 2 * (winsize // 2) + 1
-    need = _smem(taps)
-    if taps <= MAX_TAPS and need + STATIC_SMEM <= SMEM_LIMIT:
-        assert tile_plan(37, 53, winsize).smem == need
+    plan = tile_plan(37, 53, winsize)
+    assert plan.taps == taps
+    fit = [tile_smem(th, tw, taps) + STATIC_SMEM <= SMEM_LIMIT
+           for th, tw in TILES]
+    if taps <= MAX_TAPS:
+        assert (plan.shape, plan.th, plan.tw) == (0, *TILE)
+        assert plan.smem == _smem(taps) and fit[0]
+    elif plan.shape == MEM:
+        assert not any(fit) and WIDE_TILES[winsize] == (0, 0)
+        assert (plan.th, plan.tw, plan.rows, plan.cols, plan.smem) == \
+            (0, 0, 0, 0, 0)
     else:
-        with pytest.raises(ValueError, match="232448 B"):
-            tile_plan(37, 53, winsize)
+        assert (plan.th, plan.tw) == TILES[plan.shape] == WIDE_TILES[winsize]
+        assert plan.shape > 0 and fit[plan.shape]
+        assert not any(fit[:plan.shape])
+        assert plan.smem == tile_smem(plan.th, plan.tw, taps)
+        assert plan.rows == -(-37 // plan.th) and \
+            plan.cols == -(-53 // plan.tw)
 
 
 @pytest.mark.parametrize("h,w", ((0, 5), (5, 0), (0, 0), (-1, 4),
@@ -85,12 +107,32 @@ def _cuh_int(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
+def _c_select(expr, s):
+    """The value of a chain of C selects `s <op> k ? v : ...` at s."""
+    while "?" in expr:
+        cond, val, expr = re.match(r"(.+?) \? (\d+) : (.+)", expr).groups()
+        lhs, op, k = cond.split()
+        if {"==": s == int(k), "<=": s <= int(k), "<": s < int(k)}[op]:
+            return int(val)
+    return int(expr)
+
+
 def test_the_plan_uses_the_tile_the_kernels_build():
     """TILE and MAX_TAPS are flow_tile.cuh's kTileH, kTileW and kMaxTaps,
-    and the flow's staging (2 planes of th x (tw + 1)) fits in M's buffer
-    at the smallest window."""
-    assert TILE == (_cuh_int("kTileH"), _cuh_int("kTileW"))
+    TILES its kShapes tiles (tile_h_of, tile_w_of), and the flow's
+    staging (2 planes of th x (tw + 1)) fits in M's buffer at the smallest
+    window."""
+    assert TILE == (_cuh_int("kTileH"), _cuh_int("kTileW")) == TILES[0]
     assert MAX_TAPS == _cuh_int("kMaxTaps")
+    assert len(TILES) == _cuh_int("kShapes")
+    src = (CSRC / "flow_tile.cuh").read_text()
+    for fn, col in (("tile_h_of", 0), ("tile_w_of", 1)):
+        body = re.search(rf"int {fn}\(int s\) \{{\s*return ([^;]+);",
+                         src).group(1)
+        for s_, t in enumerate(TILES):
+            assert _c_select(" ".join(body.split()), s_) == t[col]
+    for th, tw in TILES:
+        assert 4 * 2 * th * (tw + 1) <= tile_smem(th, tw, 1)
     assert 4 * 2 * TILE[0] * (TILE[1] + 1) <= tile_plan(1, 1, 1).smem
 
 
@@ -154,15 +196,16 @@ def _record_calls(monkeypatch):
 
 
 @pytest.mark.parametrize("gaussian", (False, True))
-@pytest.mark.parametrize("winsize", (5, 15, 31))
+@pytest.mark.parametrize("winsize", (5, 15, 31, 63, 101))
 @pytest.mark.parametrize("name", ("kh_flow_update", "kh_flow_update_pairs"))
 def test_k8_wrappers_call_the_c_interface_as_declared(monkeypatch, name,
                                                       winsize, gaussian):
     """K8's and K8-pairs' launchers, run on CPU tensors with the library
     call recorded, declare the argument types of csrc/flow_update.cu's
-    signature, pass the planes unwarped with no M, Mv or R1w scratch,
-    their plan's shared memory at K8's windows, and K8's own taps
-    (update_weights) in host memory."""
+    signature, pass the planes unwarped, their plan's tile and shared
+    memory, and K8's own taps (update_weights) in host memory; past 61
+    taps also in device memory, and from winsize 101 (M in device memory)
+    the M and Mv scratch, which a tile plan does without."""
     calls = _record_calls(monkeypatch)
     h, w = 37, 53
     if name == "kh_flow_update":
@@ -179,15 +222,23 @@ def test_k8_wrappers_call_the_c_interface_as_declared(monkeypatch, name,
     plan = tile_plan(h, w, winsize)
     wts = fu.update_weights(winsize, gaussian)
     if name == "kh_flow_update":
-        _, _, bf16, _, hh, ww, ptr, taps, smem, _, _ = args
+        (_, _, bf16, _, hh, ww, ptr, dptr, taps, shape, smem, scratch, _,
+         _) = args
         assert bf16 == 1
     else:
-        _, bf16, pairs, ppc, _, hh, ww, ptr, taps, round_m, smem, _, _ = args
+        (_, bf16, pairs, ppc, _, hh, ww, ptr, dptr, taps, round_m, shape,
+         smem, scratch, _, _) = args
         assert (bf16, pairs, ppc, round_m) == (0, 4, 2, 1)
-    assert (hh, ww, smem) == (h, w, plan.smem)
+    assert (hh, ww, shape, smem) == (h, w, plan.shape, plan.smem)
     assert taps == plan.taps == len(wts) == 2 * (winsize // 2) + 1
     got = np.ctypeslib.as_array((ctypes.c_float * taps).from_address(ptr))
     assert np.array_equal(got, wts)
+    assert (dptr is None) == (taps <= MAX_TAPS)
+    if dptr is not None:
+        got = np.ctypeslib.as_array((ctypes.c_float * taps).from_address(
+            dptr))
+        assert np.array_equal(got, wts)
+    assert (scratch is None) == (plan.shape != MEM)
 
 
 def _exact_warp_np(R1, dx, dy):

@@ -21,7 +21,7 @@ from kalman_hydra_tpu_torch.kernels import level_image as li
 from kalman_hydra_tpu_torch.kernels.polyexp import poly_taps
 
 CSRC = Path(li.__file__).resolve().parents[1] / "csrc"
-SIGMA = {5: 1.1, 7: 1.5}
+SIGMA = {5: 1.1, 7: 1.5, 9: 1.9}
 
 
 def _fma(a, b, c):
@@ -44,7 +44,7 @@ def _level_tile(img, lv, tabs, r0, c0, n):
     stride = li._skew(span - 1) + 1
     assert lv.group * stride <= max(li.ROW_FLOATS, li.GROUP_MIN * stride)
     vt0, vt1 = max(r0 - n, 0), min(r0 + rows - 1 - n, lv.lh - 1)
-    tile = np.full((lv.tile_h + 2 * n, li.PE_IN_W), np.nan, np.float32)
+    tile = np.full((lv.tile_h + 2 * n, li.pe_in_w(n)), np.nan, np.float32)
     for part in range(lv.split):
         va0 = vt0 + part * (vt1 - vt0 + 1) // lv.split
         nv = vt0 + (part + 1) * (vt1 - vt0 + 1) // lv.split - va0
@@ -216,6 +216,60 @@ def test_fused_model_meets_the_plain_bar(monkeypatch, shape, levels, n,
             assert np.abs(a - np.asarray(b, np.float32)).max() < 1e-3
 
 
+def test_fused_model_takes_a_wide_poly_n():
+    """poly_n 9 (the generic build: the level tile's rows and the shared
+    taps widened to n, polyexp.cuh::pe_in_w and pe_tap_stride): the NumPy
+    model of the fused kernel against coarse_polyexp_fused_plain and the
+    JAX coarse_polyexp_fused in interpret mode (bar 1e-3)."""
+    img = (np.random.RandomState(3).random_sample((64, 96)) * 255).astype(
+        np.float32)
+    got = _fused_model(img, 3, 9)
+    plain = li.coarse_polyexp_fused_plain(torch.from_numpy(img), 3, 0.5, 9,
+                                          SIGMA[9])
+    ref = level_image_pallas.coarse_polyexp_fused(
+        jnp.asarray(img), 3, 0.5, 9, SIGMA[9], interpret=True)
+    assert len(got) == len(plain) == len(ref)
+    for a, b, c in zip(got, plain, ref):
+        assert np.abs(a - b.numpy()).max() < 1e-3
+        assert np.abs(a - np.asarray(c, np.float32)).max() < 1e-3
+
+
+@pytest.mark.parametrize("shape,levels", (((64, 96), 3), ((148, 212), 4)))
+def test_k11_model_meets_the_plain_bar(shape, levels):
+    """K11 in one launch: the fused kernel's level tiles at n = 0 (its
+    plan, split across a cluster where one frame's plan splits), stored
+    as they are, against coarse_level_images_plain and, at 64x96, the
+    JAX farneback_images_pallas in interpret mode (bar 1e-2, PARITY.md's
+    for the Pallas kernel; the model's own error is far below it)."""
+    rs = np.random.RandomState(4)
+    img = (rs.random_sample(shape) * 255).astype(np.float32)
+    h, w = shape
+    plan = li.fused_plan(h, w, levels, 0.5, 0, 1, li.IMG_SPLIT_MAX)
+    got = []
+    for lv, (lh, lw, iv, wv, ih, wh) in zip(
+            plan.levels, li.level_tables(h, w, levels, 0.5, 0)):
+        assert (lv.ho, lv.wo) == (lh, lw)
+        tabs = (wv, li.first_count(iv, wv), wh.T, li.first_count(ih, wh))
+        out = np.full((lh, lw), np.nan, np.float32)
+        for r0 in range(0, lh, lv.tile_h):
+            for c0 in range(0, lw, lv.tile_w):
+                tile = _level_tile(img, lv, tabs, r0, c0, 0)
+                r1, c1 = min(lh, r0 + lv.tile_h), min(lw, c0 + lv.tile_w)
+                assert np.isnan(out[r0:r1, c0:c1]).all()
+                out[r0:r1, c0:c1] = tile[:r1 - r0, :c1 - c0]
+        assert not np.isnan(out).any()
+        got.append(out)
+    plain = li.coarse_level_images_plain(torch.from_numpy(img), levels, 0.5)
+    assert len(got) == len(plain)
+    for a, b in zip(got, plain):
+        assert np.abs(a - b.numpy()).max() < 1e-3
+    if shape == (64, 96):
+        ref = level_image_pallas.farneback_images_pallas(
+            jnp.asarray(img), levels, 0.5, interpret=True)[:-1]
+        for a, b in zip(got, ref):
+            assert np.abs(a - np.asarray(b, np.float32)).max() < 1e-2
+
+
 def test_tap_tables_are_contiguous_runs():
     """The tables the kernel reads as (first, count) runs: each row's
     non-zero taps are contiguous (first_count raises otherwise) and the
@@ -270,13 +324,15 @@ def test_level_polyexp_calls_the_c_interface_as_declared(monkeypatch,
     monkeypatch.setattr(_build, "stream", lambda t: 0)
     h, w, levels, n = 148, 212, 3, 5
     imgs = torch.zeros(frames, h, w)
-    outs = li._launch(imgs, levels, 0.5, n, 1.1, dtype)
+    outs, launches = li._launch(imgs, levels, 0.5, n, 1.1, dtype)
+    assert launches == 1
     (fname, argtypes, args, p, d, got), = calls
     assert fname == "kh_level_polyexp"
     assert list(argtypes) == _c_signature("level_image.cu", fname)
     assert len(args) == len(argtypes)
-    (img, nf, hh, ww, nl, ptrs, dims, taps, nn, bf16, blocks, cluster,
-     smem, _stream) = args
+    (img, nf, hh, ww, nl, ptrs, dims, taps, taps_dev, nn, bf16, blocks,
+     cluster, smem, _stream) = args
+    assert taps_dev is None         # n <= 8: the taps by value
     plan = li.fused_plan(h, w, levels, 0.5, n, frames)
     assert (img, nf, hh, ww, nl, nn) == (imgs.data_ptr(), frames, h, w,
                                          len(plan.levels), n)

@@ -70,8 +70,10 @@ def test_polyexp_plan_other_n_take_the_first_design(n):
             pe.polyexp_plan(n)
 
 
-@pytest.mark.parametrize("n", (0, 9))
+@pytest.mark.parametrize("n", (0, 2, pe.POLY_N_MAX + 2))
 def test_polyexp_plan_refuses_n_out_of_range(n):
+    """n must be odd, from 1 to POLY_N_MAX (9 and past were refused until
+    the generic build: test_polyexp_plan_takes_the_generic_build)."""
     with pytest.raises(ValueError):
         pe.polyexp_plan(n)
 
@@ -187,7 +189,9 @@ def test_polyexp_calls_the_c_interface_as_declared(monkeypatch, frames,
     assert fname == "kh_polyexp"
     assert list(argtypes) == _c_signature(fname)
     assert len(args) == len(argtypes)
-    (img, nf, h, w, _taps, nn, bf16, smem, out_ptr, _stream) = args
+    (img, nf, h, w, _taps, taps_dev, nn, bf16, smem, out_ptr,
+     _stream) = args
+    assert taps_dev is None         # the compiled builds' taps are by value
     assert (img, nf, h, w, nn, bf16, smem, out_ptr) == (
         imgs.data_ptr(), frames, 40, 70, n, int(dtype == torch.bfloat16),
         pe.polyexp_plan(n, dtype).smem, out.data_ptr())

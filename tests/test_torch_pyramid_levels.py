@@ -101,14 +101,18 @@ def test_pyr_plan(shape):
 
 
 def test_pyr_plan_level_limits():
-    """Beyond LAUNCH_LEVELS levels the plan chains a second launch from
-    the last level the first wrote; beyond MAX_LEVELS, and for no level
-    or an empty image, it raises."""
+    """Beyond LAUNCH_LEVELS levels the plan chains a launch from the last
+    level the one before wrote, however many levels (9, an LK pyramid of
+    10, takes three); for no level or an empty image it raises."""
     plan = tp.pyr_plan(1080, 1920, 7)
     assert [(ln.src, ln.levels) for ln in plan.launches] == [(0, 4), (4, 3)]
     assert list(plan.launches[1].table)[8:] == [
         v for s in plan.shapes[4:] for v in s]
-    for n in (0, tp.MAX_LEVELS + 1):
+    plan = tp.pyr_plan(1080, 1920, 9)
+    assert [(ln.src, ln.levels) for ln in plan.launches] == [
+        (0, 4), (4, 4), (8, 1)]
+    assert plan.shapes[-1] == (3, 4)
+    for n in (0, -1):
         with pytest.raises(ValueError, match="levels"):
             tp.pyr_plan(37, 53, n)
     with pytest.raises(ValueError, match="empty"):

@@ -316,8 +316,9 @@ def test_flow_levels_calls_the_c_interface_as_declared(monkeypatch, dtype,
     assert fname == "kh_flow_levels"
     assert list(argtypes) == _c_signature(fname)
     assert len(args) == len(argtypes)
-    (n, _p, _d, bf16, prior, D, _wts, taps, post, iters, scale, smem,
-     _counters, out_ptr, _stream) = args
+    (n, _p, _d, bf16, prior, D, _wts, wts_dev, taps, post, iters, scale,
+     smem, _counters, out_ptr, _stream) = args
+    assert wts_dev is None          # 15 taps ride in the parameters
     plan = kfl.walk_plan(shapes, 15, 8, 3)
     assert (n, bf16, prior, D, taps, iters, smem, out_ptr) == (
         3, int(dtype == torch.bfloat16), fl.data_ptr(), 8, 15, 3,
