@@ -86,6 +86,22 @@ prints no result line):
           6-state, adaptive_q 0.3, fixed-lag 8, 1080p T=9;
        Q. pipeline.track_precomputed_flow over AP's 8 flows from AP's
           1024 seeds (K1 only);
+       S, S-D, S-H. A's, D's and H's configs streamed from a .npy of
+          the clip through api.track_video(path, streaming=True): the
+          per-frame launches, the array run's tracks (< 1e-3 px; bit
+          for bit printed);
+       S-mem. A's config streamed over 9 and 65 frames (a walk forward
+          and back over the clip): peak card memory within 8 MiB
+          (track_clip of the 65 frames printed beside);
+       S-ckpt. A's and W's configs checkpointed every frame over 5
+          frames, then resumed over 9: the uninterrupted tail (< 1e-4);
+       S-F. F's config (RTS) streamed per frame: track_clip at
+          pair_batch=False (< 1e-3 px);
+       S-cli. the CLI's track --stream --checkpoint, then --resume, on
+          A's config at 1080p T=5: exit 0 and a .report.json each;
+       then whether cv2 and the native loader are on the host (where both
+       are, each decodes an MJPG copy of the clip), and S-fps: S against
+       A's array run, in turns;
      check the launch counts, the outputs against the plain functions,
      the CPU smoothers, the per-frame path and the CPU path, and report
      frames/s; H, H0, W and J again through the per-level K9/K10 launches
@@ -101,6 +117,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3115,6 +3132,214 @@ def path_q(dev, clip, cfg_ap, counts_by_path, name):
         f"steps/s, 1080p flows, K={K}; {name}")
 
 
+T_MEM = 65                                 # path S-mem's long stream
+MEM_BAR = 8 * 2**20                        # a 1080p RGB frame is 6.2 MB
+
+
+def stream_dir() -> Path:
+    """Scratch for the streamed paths' files, in the git-ignored build/
+    of this checkout (deleted at the end of the run)."""
+    d = Path(__file__).resolve().parent / "build" / "chip_smoke_stream"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def identical(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("positions", "alive", "nis", "track_id"))
+
+
+def path_stream(label, ref, dev, npy, clip, cfg, counts_by_path):
+    """A path's config (None: RunConfig()) streamed from the .npy clip
+    through api.track_video(streaming=True): the launches of the
+    per-frame path, the same tracks as the path's array run (< 1e-3 px,
+    alive and track_id identical)."""
+    from kalman_hydra_tpu_torch import api
+    from kalman_hydra_tpu_torch.config import RunConfig
+
+    @phase(f"path {label} (api.track_video(clip.npy, streaming=True), "
+           f"{ref}'s config, 1080p T={T})")
+    def run():
+        c = cfg or RunConfig()
+        tr = drive(label, lambda: api.track_video(
+            str(npy), cfg, streaming=True, device=dev),
+            per_frame_expected(c, H, W, T), counts_by_path)
+        check_tracks(tr, T, c.tracks.num_tracks)
+        arr = api.track_video(clip, cfg, device=dev)
+        same_tracks(tr, arr, f"{label} streamed vs {ref}'s array run")
+        log(f"  {label} bit-identical to {ref}'s array run: "
+            f"{identical(tr, arr)}")
+    return run()
+
+
+def walk(clip, n):
+    """n frames walking the clip forward and back (0..8, 7..0, 1..)."""
+    i, step = 0, 1
+    for _ in range(n):
+        yield clip[i]
+        if not 0 <= i + step < len(clip):
+            step = -step
+        i += step
+
+
+def peak_bytes(dev, fn) -> int:
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
+@phase(f"path S-mem (A's config streamed over {T} and {T_MEM} frames: peak "
+       "card memory)")
+def path_s_mem(dev, clip, cfg):
+    """O(1) card memory in the stream's length: the 65-frame stream's
+    peak within MEM_BAR of the 9-frame one's; track_clip's peak on the
+    same 65 frames for contrast."""
+    from kalman_hydra_tpu_torch import pipeline
+    peaks, runs = {}, {}
+    for n in (T, T_MEM):
+        peaks[n] = peak_bytes(dev, lambda: runs.__setitem__(
+            n, pipeline.track_stream(walk(clip, n), cfg, device=dev)))
+        check_tracks(runs[n], n, K)
+    frames = np.stack(list(walk(clip, T_MEM)))
+    clip_peak = peak_bytes(dev, lambda: pipeline.track_clip(
+        frames, cfg, device=dev))
+    mib = {n: v / 2**20 for n, v in peaks.items()}
+    log(f"  peak card memory (max_memory_allocated): {T} frames streamed "
+        f"{mib[T]:.1f} MiB, {T_MEM} frames streamed {mib[T_MEM]:.1f} MiB "
+        f"(gap {mib[T_MEM] - mib[T]:.2f} MiB, bar "
+        f"{MEM_BAR / 2**20:.0f} MiB); track_clip of the {T_MEM} frames "
+        f"{clip_peak / 2**20:.1f} MiB")
+    assert peaks[T_MEM] - peaks[T] < MEM_BAR
+
+
+@phase("path S-ckpt (checkpoint every frame over 5 frames, then a resume "
+       "over all 9: A's and W's configs)")
+def path_s_ckpt(dev, clip, cfgs):
+    """The resumed rows (frames 5-8) against the uninterrupted stream's
+    tail: < 1e-4 px (smoothed positions too), alive and track_id
+    identical."""
+    from kalman_hydra_tpu_torch import pipeline
+    for label in ("A", "W"):
+        cfg = cfgs[label]
+        ck = str(stream_dir() / f"ckpt_{label}.npz")
+        full = pipeline.track_stream(iter(clip), cfg, device=dev)
+        pipeline.track_stream(iter(clip[:5]), cfg, checkpoint_path=ck,
+                              checkpoint_every=1, device=dev)
+        res = pipeline.track_stream(iter(clip), cfg, checkpoint_path=ck,
+                                    resume=True, device=dev)
+        n = res.positions.shape[0]
+        tail = {f: getattr(full, f)[-n:] for f in
+                ("positions", "alive", "nis", "track_id", "smoothed")
+                if getattr(full, f) is not None}
+        err = np.abs(res.positions - tail["positions"]).max()
+        sm = (0.0 if res.smoothed is None
+              else np.abs(res.smoothed - tail["smoothed"]).max())
+        same = bool(np.array_equal(res.alive, tail["alive"])
+                    and np.array_equal(res.track_id, tail["track_id"]))
+        bits = same and all(np.array_equal(getattr(res, f), tail[f])
+                            for f in ("positions", "nis"))
+        log(f"  {label}: resumed {n} rows vs the uninterrupted tail: max "
+            f"|pos diff| {err:.3e} px, smoothed {sm:.3e} px (bar 1e-4); "
+            f"alive and track_id identical: {same}; bit-identical: {bits}")
+        assert n == T - 5 and err < 1e-4 and sm < 1e-4 and same
+        assert (res.smoothed is None) == (full.smoothed is None)
+
+
+@phase(f"path S-F (F's config, RTS, streamed per frame, {H_F}x{W_F} "
+       f"T={T_F})")
+def path_s_f(dev, clip_f, cfg_f, counts_by_path):
+    """The stream keeps the filter history in host memory and smooths it
+    chunk by chunk; its smoothed positions within 1e-3 px of track_clip's
+    (one RTS on the card) at pair_batch=False."""
+    from kalman_hydra_tpu_torch import api, pipeline
+    tr = drive("S-F", lambda: api.track_video(clip_f, cfg_f, streaming=True,
+                                              device=dev),
+               per_frame_expected(cfg_f, H_F, W_F, T_F), counts_by_path)
+    check_tracks(tr, T_F, cfg_f.tracks.num_tracks)
+    ref = pipeline.track_clip(clip_f, cfg_f.replace(pair_batch=False),
+                              device=dev)
+    same_tracks(tr, ref, "S-F streamed vs track_clip at pair_batch=False")
+
+
+@phase("path S-cli (cli track --stream --checkpoint, then --resume, "
+       "1080p T=5)")
+def path_s_cli(dev, clip, cfg):
+    """The CLI on A's config (--config): both runs exit 0 and write their
+    .report.json."""
+    from kalman_hydra_tpu_torch import cli
+    d = stream_dir()
+    npy, cfg_json, ck = d / "cli_clip.npy", d / "cli_cfg.json", \
+        d / "cli_ckpt.npz"
+    np.save(npy, clip[:5])
+    cfg_json.write_text(cfg.to_json())
+    for i, extra in enumerate(([], ["--resume"])):
+        out = d / f"cli_tracks_{i}.npz"
+        rc = cli.main(["track", str(npy), "--out", str(out), "--config",
+                       str(cfg_json), "--stream", "--checkpoint", str(ck),
+                       "--checkpoint-every", "2", "--device", str(dev)]
+                      + extra)
+        report = json.loads(out.with_suffix(".report.json").read_text())
+        log(f"  cli track --stream{' --resume' if extra else ''}: exit "
+            f"{rc}; report: {report['frames']} frames, live fraction "
+            f"{report['live_fraction_last']:.3f}")
+        assert rc == 0 and report["frames"] == (1 if extra else 5)
+
+
+@phase("decoders on this host (cv2, the native loader) against the .npy")
+def check_decoders(clip):
+    """Both are optional, as in the reference: where both are present the
+    clip goes through each as MJPG (lossy), and each must give its 9
+    frames within a mean |diff| of 4 of the .npy frames and of 2 of each
+    other (the reference's bar between two decoders)."""
+    import importlib.util
+    from kalman_hydra_tpu_torch.io import native_loader
+    from kalman_hydra_tpu_torch.io.video import FrameStream
+    have_cv2 = importlib.util.find_spec("cv2") is not None
+    have_native = native_loader.available()
+    log(f"  cv2 available: {have_cv2}; native loader available: "
+        f"{have_native}")
+    if not (have_cv2 and have_native):
+        return
+    import cv2
+    avi = str(stream_dir() / "clip.avi")
+    wr = cv2.VideoWriter(avi, cv2.VideoWriter_fourcc(*"MJPG"), 30, (W, H))
+    for f in clip:
+        wr.write(np.ascontiguousarray(f))
+    wr.release()
+    py = FrameStream(avi).read_all()
+    ns = native_loader.NativeFrameStream(avi)
+    nat = ns.read_all()
+    ns.close()
+    d_py = np.abs(py.astype(np.int16) - clip).mean()
+    d_nat = np.abs(nat.astype(np.int16) - py).mean()
+    log(f"  MJPG through cv2: mean |diff| vs the .npy {d_py:.3f}; native "
+        f"vs cv2 {d_nat:.3f}")
+    assert py.shape == nat.shape == clip.shape
+    assert d_py < 4 and d_nat < 2
+
+
+@phase("path S-fps (S and A's array run, frames/s in turns)")
+def path_s_fps(dev, npy, clip, cfg, name):
+    """Median of 3 warm runs of each, in turns (A, S, S, A, A, S). A
+    record, not a claim. Returns S's median clip time."""
+    from kalman_hydra_tpu_torch import api
+    fns = {"A (array)": lambda: api.track_video(clip, cfg, device=dev),
+           "S (streamed .npy)": lambda: api.track_video(
+               str(npy), cfg, streaming=True, device=dev)}
+    a, s = fns
+    ts = {k: [] for k in fns}
+    for k in (a, s, s, a, a, s):
+        ts[k] += clip_seconds(fns[k], 1)
+    for k, v in ts.items():
+        log(f"  {k}: clip times {['%.4f' % t for t in v]} s; median "
+            f"{statistics.median(v):.4f} s -> "
+            f"{(T - 1) / statistics.median(v):.2f} frames/s (1080p, T={T}, "
+            f"K={K}; {name})")
+    return statistics.median(ts[s])
+
+
 def profile_path(label, fn, steps, trace_path, clip_s):
     """Device busy time, idle share and the top device consumers of one
     warm run of `fn` (a path's clip or clip batch, `steps` frame steps);
@@ -3265,9 +3490,9 @@ def path_configs(pipeline) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="TRACE_JSON", default=None,
-                    help="also profile one warm run of paths A-D, H, AP "
-                         "and BX and write each Chrome trace beside this "
-                         "name (_A ... _D, _H, _AP, _BX)")
+                    help="also profile one warm run of paths A-D, H, AP, "
+                         "BX and S and write each Chrome trace beside this "
+                         "name (_A ... _D, _H, _AP, _BX, _S)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this check "
@@ -3362,6 +3587,17 @@ def main() -> int:
                          counts_by_path, name),
              "W": path_w(dev, clip, cfgs["W"], counts_by_path, name),
              "Q": path_q(dev, clip, cfgs["AP"], counts_by_path, name)}
+    npy = stream_dir() / "clip.npy"
+    np.save(npy, clip)
+    path_stream("S", "A", dev, npy, clip, cfg, counts_by_path)
+    path_stream("S-D", "D", dev, npy, clip, None, counts_by_path)
+    path_stream("S-H", "H", dev, npy, clip, cfgs["H"], counts_by_path)
+    path_s_mem(dev, clip, cfg)
+    path_s_ckpt(dev, clip, cfgs)
+    path_s_f(dev, clip_f, cfgs["F"], counts_by_path)
+    path_s_cli(dev, clip, cfg)
+    check_decoders(clip)
+    walls["S"] = path_s_fps(dev, npy, clip, cfg, name)
     if args.profile:
         from kalman_hydra_tpu_torch import api
         runs = {"A": (lambda: api.track_video(clip, cfg, device=dev), T - 1),
@@ -3376,11 +3612,14 @@ def main() -> int:
                 "AP": (lambda: api.track_video(clip, cfgs["AP"],
                                                device=dev), T - 1),
                 "BX": (lambda: api.track_video(clip_b, cfgs["BX"],
-                                               device=dev), T_B - 1)}
+                                               device=dev), T_B - 1),
+                "S": (lambda: api.track_video(str(npy), cfg, streaming=True,
+                                              device=dev), T - 1)}
         trace = Path(args.profile)
         for label, (fn, steps) in runs.items():
             profile_path(label, fn, steps, str(trace.with_name(
                 f"{trace.stem}_{label}{trace.suffix}")), walls[label])
+    shutil.rmtree(stream_dir())
     ref = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "kalman_hydra_tpu"))
     if ref:

@@ -1,16 +1,19 @@
 """kalman_hydra_tpu_torch — PyTorch/CUDA port of the kalman_hydra_tpu tracker.
 
 The JAX package (`kalman_hydra_tpu`) is the reference; this package mirrors
-its layout (`ops/`, `models/`, `kernels/`, `pipeline.py`, `api.py`) and runs
-the Farneback and Lucas-Kanade (sparse and dense) + EKF tracking paths
-(per-frame, pair-batched, multi-clip) on an NVIDIA Hopper card. Each Pallas kernel on those paths has a hand-written
+its layout (`ops/`, `models/`, `kernels/`, `io/`, `utils/`, `pipeline.py`,
+`api.py`, `cli.py`) and runs the Farneback and Lucas-Kanade (sparse and
+dense) + EKF tracking paths (per-frame, pair-batched, multi-clip, and
+streamed from video files with checkpoint/resume) on an NVIDIA Hopper
+card. Each Pallas kernel on those paths has a hand-written
 CUDA C++ counterpart in `csrc/`, built with nvcc at first use
 (`kernels/_build.py`) and paired with a plain PyTorch version that runs on
 CPU tensors.
 
-The port keeps its own copies of the reference's `config.py` and
-`io/export.py` (held equal by tests) and imports neither jax nor any
-module of `kalman_hydra_tpu`. Its entry points run on the card unless the
+The port keeps its own copies of the reference's host code (`config.py`,
+`io/export.py`, `io/video.py`, `io/synthetic.py`, `utils/checkpoint.py`,
+..., held equal by tests) and imports neither jax nor any module of
+`kalman_hydra_tpu`. Its entry points run on the card unless the
 caller passes `device="cpu"`.
 """
 

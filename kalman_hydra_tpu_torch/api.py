@@ -7,21 +7,21 @@ for `flow`. Lucas-Kanade configs (`FlowConfig.method` "lk_sparse" or
 "lk_dense") and every measurement channel but the mesh render
 (`EkfConfig.measurement`, `filter_type`, `adaptive_q`) run through the
 same entry points; `pipeline.track_precomputed_flow` tracks over
-supplied flows. Only in-memory clips are
-ported so far: file decode and
-streaming wait for ROADMAP P12. Every entry point runs on the card unless
-the caller passes device="cpu"; without a card it raises.
+supplied flows. `track_video` and `smooth` take an in-memory clip or a
+video path, and with streaming=True track frame by frame with O(1) card
+memory (`pipeline.track_stream`). Every entry point runs on the card
+unless the caller passes device="cpu"; without a card it raises.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 
 from . import pipeline as _pipeline
 from .config import FlowConfig, RunConfig
-from .io import Trajectories, save as save_tracks
+from .io import FrameStream, PrefetchStream, Trajectories, save as save_tracks
 from .ops.color import grayscale_u8
 from .ops.farneback import farneback
 from .ops.lk import lk_dense
@@ -57,17 +57,35 @@ def flow(a: np.ndarray, b: np.ndarray, cfg: Optional[FlowConfig] = None,
     return farneback(a_t, b_t, cfg, flow0).cpu().numpy()
 
 
-def track_video(source: np.ndarray, cfg: Optional[RunConfig] = None,
+def track_video(source: Union[str, np.ndarray],
+                cfg: Optional[RunConfig] = None,
                 out_path: Optional[str] = None, streaming: bool = False,
                 max_frames: Optional[int] = None, *,
                 device="cuda") -> Trajectories:
-    """Track a (T, H, W[, 3]) uint8 clip on `device`; optionally export."""
-    if isinstance(source, str) or streaming:
-        raise NotImplementedError("video files and streaming are outside "
-                                  "the ported slice (ROADMAP P12)")
+    """Track a video file (a codec cv2 reads, or a .npz/.npy clip) or a
+    (T, H, W[, 3]) uint8 array on `device`; optionally export. With
+    streaming, frame by frame with O(1) card memory (a file is decoded
+    on a background thread). As in the reference, `max_frames` bounds
+    an array and a file read whole, not a streamed file."""
     cfg = cfg or RunConfig()
-    frames = source if max_frames is None else source[:max_frames]
-    tracks = _pipeline.track_clip(frames, cfg, device=device)
+    if isinstance(source, str):
+        stream = FrameStream(source)
+        if streaming:
+            # the decode thread owns the stream until it has read it out
+            tracks = _pipeline.track_stream(PrefetchStream(stream, depth=4),
+                                            cfg, device=device)
+        else:
+            try:
+                frames = stream.read_all(limit=max_frames)
+            finally:
+                stream.close()
+            tracks = _pipeline.track_clip(frames, cfg, device=device)
+    else:
+        frames = source if max_frames is None else source[:max_frames]
+        if streaming:
+            tracks = _pipeline.track_stream(iter(frames), cfg, device=device)
+        else:
+            tracks = _pipeline.track_clip(frames, cfg, device=device)
     if out_path:
         save_tracks(tracks, out_path)
     return tracks
@@ -83,12 +101,12 @@ def flow_sequence(frames: np.ndarray, cfg: Optional[RunConfig] = None,
                                    smooth).cpu().numpy()
 
 
-def smooth(frames_or_tracks: np.ndarray, cfg: Optional[RunConfig] = None,
-           *, device="cuda") -> Trajectories:
-    """Track a (T, H, W[, 3]) uint8 clip with the RTS smoother on
-    (BASELINE.json:11); a config whose smoother is off gets the default
-    SmoothConfig(enabled=True). The parameter keeps the reference's
-    name, which also admits a video path there (ROADMAP P12)."""
+def smooth(frames_or_tracks: Union[str, np.ndarray],
+           cfg: Optional[RunConfig] = None, *,
+           device="cuda") -> Trajectories:
+    """Track a video path or a (T, H, W[, 3]) uint8 clip with the RTS
+    smoother on (BASELINE.json:11); a config whose smoother is off gets
+    the default SmoothConfig(enabled=True)."""
     cfg = cfg or RunConfig()
     if not cfg.smooth.enabled:
         cfg = cfg.replace(smooth=cfg.smooth.__class__(enabled=True))
@@ -110,3 +128,8 @@ def track_videos(clips: np.ndarray, cfg: Optional[RunConfig] = None,
                                   "slice (ROADMAP P13)")
     cfg = cfg or RunConfig()
     return _pipeline.track_clips(clips, cfg, device=device)
+
+
+def export(tracks: Trajectories, path: str) -> None:
+    """Write trajectories to .npz (everything) or .csv (long format)."""
+    save_tracks(tracks, path)

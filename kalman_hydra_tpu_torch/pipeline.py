@@ -42,7 +42,11 @@ pair, optionally per-pixel KF smoothed (models/pixel_ekf.py).
 
 The reference's `lax.scan` is a Python loop here and its `lax.cond`
 refresh cadence a plain `if`; the clip stays on the device and only the
-(T, K) trajectory rows leave it at the end.
+(T, K) trajectory rows leave it at the end. `track_stream` runs the same
+per-frame step over a host frame stream with O(1) card memory: each
+frame crosses to the card once (`io.video.device_prefetch`), each step's
+row crosses back, and the state can be checkpointed and resumed
+(`utils/checkpoint.py`).
 
 Only the ported slices run: `check_slice` raises NotImplementedError,
 naming the ROADMAP item, for any other setting (the mesh-render
@@ -53,7 +57,9 @@ pallas_interpret, fi_tile_h, fi_shift_skip, pe_tile_h) are ignored.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+import itertools
+import os
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +67,7 @@ import torch
 from . import cuda_device
 from .config import EkfConfig, FlowConfig, RunConfig, TrackConfig
 from .io import Trajectories
+from .io.video import device_prefetch
 from .kernels.flow_iter import pair_count, pair_frames
 from .kernels.polyexp import POLY_N_MAX
 from .models import dynamics, lifecycle
@@ -78,6 +85,7 @@ from .ops.features import corner_pool
 from .ops.lk import lk_dense, lk_pyramid, lk_sparse
 from .ops.segment import segment_body
 from .ops.warp import sample_flow
+from .utils.checkpoint import load_state, save_state
 
 _ROWS = ("pos", "alive", "nis", "track_id")
 _HISTORY = ("x_filt", "P_filt", "x_pred", "P_pred")
@@ -555,11 +563,17 @@ def flow_sequence(frames: torch.Tensor, cfg: RunConfig,
     return flows
 
 
-def upload(a: np.ndarray, device) -> torch.Tensor:
+def _device(device) -> torch.device:
+    """`device` as a torch.device; a card is set up (TF32 off) before any
+    work, and asking for one without a card raises."""
     device = torch.device(device)
     if device.type == "cuda":
-        cuda_device(device.index or 0)       # TF32 off before any work
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return cuda_device(device.index or 0)
+    return device
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(_device(device))
 
 
 def _seeds(seeds, device) -> Optional[torch.Tensor]:
@@ -659,3 +673,219 @@ def track_clips(clips: np.ndarray, cfg: RunConfig,
     return [_trajectories(track_arrays(
         c, cfg, seeds=None if seeds_d is None else seeds_d[b]))
         for b, c in enumerate(clips_d)]
+
+
+class _RowFetch:
+    """Moves each step's row (its outputs under `keys`) to host memory.
+    On the card a row is copied, non-blocking, into one of two sets of
+    pinned buffers as soon as its step has been issued, and read once the
+    next step has been issued: the host waits for the step before the one
+    it just issued, never for that one."""
+
+    def __init__(self, keys, device: torch.device):
+        self.keys = keys
+        self.cuda = device.type == "cuda"
+        self.slots = [None, None]    # (pinned buffers, event after the copy)
+        self.n = 0
+        self.pending = None          # the last pushed row (CPU) or slot
+
+    def push(self, out: dict) -> Optional[dict]:
+        """Queue this step's row; return the previous step's, if any."""
+        prev = self.flush()
+        if not self.cuda:
+            self.pending = {k: out[k].numpy().copy() for k in self.keys}
+            return prev
+        j = self.n % 2
+        self.n += 1
+        if self.slots[j] is None:
+            self.slots[j] = ({k: torch.empty(out[k].shape,
+                                             dtype=out[k].dtype,
+                                             pin_memory=True)
+                              for k in self.keys}, torch.cuda.Event())
+        # the slot's last row was read out when the push after it ran
+        bufs, done = self.slots[j]
+        for k in self.keys:
+            bufs[k].copy_(out[k], non_blocking=True)
+        done.record()
+        self.pending = j
+        return prev
+
+    def flush(self) -> Optional[dict]:
+        """The queued row, read out (None if there is none)."""
+        prev, self.pending = self.pending, None
+        if prev is None or not self.cuda:
+            return prev
+        bufs, done = self.slots[prev]
+        done.synchronize()
+        return {k: v.numpy().copy() for k, v in bufs.items()}
+
+
+def _state_row(carry: Carry, cfg: RunConfig, fetch_keys) -> dict:
+    """Host row of a bare filter state (frame 0, or a resume at the end
+    of the stream): nis 0, the state itself as its prediction."""
+    x = carry.tracks.x.cpu().numpy()
+    P = carry.tracks.P.cpu().numpy()
+    row = {"pos": x[:, 0:2], "alive": carry.tracks.alive.cpu().numpy(),
+           "nis": np.zeros(cfg.tracks.num_tracks, np.float32),
+           "track_id": carry.tracks.track_id.cpu().numpy()}
+    if "x_filt" in fetch_keys:
+        row.update({"x_filt": x, "P_filt": P, "x_pred": x, "P_pred": P})
+    if "smoothed_lag" in fetch_keys:
+        row["smoothed_lag"] = x[:, 0:2]
+    return row
+
+
+def _assemble_lag_smoothed(rows: List[dict], carry: Carry,
+                           cfg: RunConfig) -> np.ndarray:
+    """Align the per-step fixed-lag emissions into a (T, K, 2) smoothed
+    trajectory: step t's `smoothed_lag` is frame t - lag; the last `lag`
+    frames come from one RTS over the final carry window (the window the
+    step smoother held), so every frame is smoothed with all the future
+    the window ever saw."""
+    L = cfg.smooth.lag
+    T = len(rows)
+    smoothed = np.stack([r["pos"] for r in rows]).astype(np.float32)
+    for t in range(L, T):
+        smoothed[t - L] = rows[t]["smoothed_lag"]
+    # the final window: entry i is frame T - 1 - L + i
+    xf, Pf, xp, Pp, tid, alive = carry.lag_buf
+    F = torch.as_tensor(dynamics.transition(cfg.ekf), device=xf.device)
+    xs, _ = rts_smooth(F, xf, Pf, xp, Pp, breaks=segment_breaks(tid, alive))
+    xs = xs[..., 0:2].cpu().numpy()
+    for i in range(L + 1):
+        f = T - 1 - L + i
+        if 0 <= f < T:
+            smoothed[f] = xs[i]
+    return smoothed
+
+
+def _resume_carry(path: str, cfg: RunConfig, dev: torch.device) -> Carry:
+    """The Carry a checkpoint holds: the previous frame's pyramid rebuilt
+    from its gray frame; the corner pool, the fixed-lag window and the
+    warm-start field restored where the file has them (the pool
+    recomputed from the frame, the window primed flat from the state,
+    the field zero, where it does not)."""
+    state, prev_gray, frame_idx, ccache, lbuf, pflow = load_state(path)
+    prev_gray = upload(prev_gray, dev)
+    tracks = TrackState(*[None if a is None else upload(a, dev)
+                          for a in state])
+    corner_cache = ()
+    if cfg.tracks.reinit and cfg.tracks.reinit_every > 1:
+        corner_cache = (tuple(upload(a, dev) for a in ccache)
+                        if ccache is not None
+                        else _fresh_corner_pool(prev_gray, cfg))
+    lag = _lag(cfg)
+    lag_buf = ()
+    if lag:
+        lag_buf = (tuple(upload(a, dev) for a in lbuf)
+                   if lbuf is not None and lbuf[0].shape[0] == lag + 1
+                   else _lag_buf_init(tracks, lag))
+    prev_flow = None
+    if cfg.flow.temporal_init and not _photometric(cfg):
+        prev_flow = (upload(np.asarray(pflow, np.float32), dev)
+                     if pflow is not None
+                     else torch.zeros(prev_gray.shape + (2,),
+                                      dtype=torch.float32, device=dev))
+    return Carry(tracks=tracks, prev_gray=prev_gray,
+                 prev_rpyr=_flow_pyramid(prev_gray, cfg),
+                 corner_cache=corner_cache, frame_idx=frame_idx,
+                 lag_buf=lag_buf, prev_flow=prev_flow)
+
+
+def track_stream(frame_iter: Iterator[np.ndarray], cfg: RunConfig,
+                 frame0: np.ndarray = None,
+                 checkpoint_path: Optional[str] = None,
+                 checkpoint_every: int = 0, resume: bool = False,
+                 render_tmpl=None, seeds: Optional[np.ndarray] = None, *,
+                 device="cuda") -> Trajectories:
+    """Track a host frame stream with O(1) card memory, on `device` (the
+    card unless the caller asks for "cpu").
+
+    One per-frame step a frame (`make_step`, whatever cfg.pair_batch
+    says); the next frames' copies to the card overlap the step's compute
+    (`io.video.device_prefetch`), and only each step's row comes back.
+    With `checkpoint_path` and `checkpoint_every` the filter state is
+    written every N frames; `resume=True` reloads it and skips the frames
+    it has consumed. `seeds` replaces the corner seeding with (K, 2)
+    positions (ignored on resume: the checkpoint carries the tracks).
+    Smoothing: with `lag` the fixed-lag rows and one RTS over the final
+    window; otherwise the filter history is kept in host memory and
+    smoothed a chunk at a time. `render_tmpl`, the mesh-render channels'
+    template, is not ported yet."""
+    if render_tmpl is not None:
+        raise NotImplementedError("track_stream(render_tmpl=...): the "
+                                  "mesh-render channels are outside the "
+                                  "ported slice (ROADMAP P11b)")
+    check_slice(cfg)
+    dev = _device(device)
+    fetch_keys = _ROWS
+    use_lag = bool(_lag(cfg))
+    if use_lag:
+        fetch_keys += ("smoothed_lag",)
+    elif cfg.smooth.enabled:
+        fetch_keys += _HISTORY
+
+    rows = []
+    it = iter(frame_iter)
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        carry = _resume_carry(checkpoint_path, cfg, dev)
+        # frame_idx counts filter steps: the state at frame_idx = k has
+        # consumed frames 0..k (frame 0 seeded the filter)
+        skipped = sum(1 for _ in itertools.islice(it, carry.frame_idx + 1))
+        if skipped < carry.frame_idx + 1:
+            raise ValueError(
+                f"resume: stream ended after {skipped} frames but the "
+                f"checkpoint was written at frame {carry.frame_idx}; the "
+                f"stream must replay at least the first "
+                f"{carry.frame_idx + 1} frames")
+    else:
+        if frame0 is None:
+            frame0 = next(it)
+        carry = init_from_frame(upload(frame0, dev), cfg)
+        if seeds is not None:
+            carry = carry._replace(tracks=init_tracks(cfg.ekf,
+                                                      _seeds(seeds, dev)))
+        if cfg.tracks.init_velocity:
+            # peek at frame 1 to prime the velocities as track_arrays
+            # does, then replay it through the loop
+            frame1 = next(it, None)
+            if frame1 is not None:
+                carry = _prime_init_velocity(carry, upload(frame1, dev), cfg)
+                it = itertools.chain([frame1], it)
+        if carry.lag_buf and (seeds is not None or cfg.tracks.init_velocity):
+            # re-prime the window from the replaced seed state
+            carry = carry._replace(lag_buf=_lag_buf_init(carry.tracks,
+                                                         _lag(cfg)))
+        rows.append(_state_row(carry, cfg, fetch_keys))
+
+    step = make_step(cfg, dev)
+    fetch = _RowFetch(fetch_keys, dev)
+    for frame in device_prefetch(it, depth=2, device=dev):
+        carry, out = step(carry, frame)
+        row = fetch.push(out)
+        if row is not None:
+            rows.append(row)
+        if (checkpoint_path and checkpoint_every
+                and carry.frame_idx % checkpoint_every == 0):
+            save_state(checkpoint_path, carry.tracks, carry.prev_gray,
+                       carry.frame_idx, corner_cache=carry.corner_cache,
+                       lag_buf=carry.lag_buf, prev_flow=carry.prev_flow)
+    row = fetch.flush()
+    if row is not None:
+        rows.append(row)
+    if not rows:
+        # resumed at (or past) the end of the stream: the restored state
+        # as one row
+        rows.append(_state_row(carry, cfg, fetch_keys))
+    smoothed = None
+    if use_lag and len(rows) > 1:
+        smoothed = _assemble_lag_smoothed(rows, carry, cfg)
+    elif cfg.smooth.enabled and len(rows) > 1:
+        hist = {k: torch.from_numpy(np.stack([r[k] for r in rows]))
+                for k in _HISTORY + ("track_id", "alive")}
+        smoothed = _smooth_history_chunked(hist, cfg, dev)[..., 0:2].numpy()
+    return Trajectories(
+        **{f: np.stack([r[k] for r in rows]) for f, k in
+           (("positions", "pos"), ("alive", "alive"), ("nis", "nis"),
+            ("track_id", "track_id"))},
+        smoothed=smoothed)

@@ -224,6 +224,8 @@ _ENTRY_POINTS = {
         lambda clip, dev: pipeline.track_precomputed_flow(
             np.zeros((1, 48, 64, 2), np.float32), np.ones((2, 2)),
             tconfig.RunConfig(), **dev),
+    "pipeline.track_stream": lambda clip, dev: pipeline.track_stream(
+        iter(clip), pipeline.main_path_config(8), **dev),
 }
 
 
@@ -262,6 +264,9 @@ _REFERENCE_FORM = {
         lambda clip, tmp: pipeline.track_precomputed_flow(
             np.zeros((2, 48, 64, 2), np.float32), np.ones((2, 2)), _SMALL,
             device="cpu"),
+    "pipeline.track_stream": lambda clip, tmp: pipeline.track_stream(
+        iter(clip), _SMALL, None, None, 0, False, None, None,
+        device="cpu"),
 }
 
 
@@ -336,7 +341,9 @@ _OUTSIDE = {
     "flow_render": lambda: pipeline.check_slice(_BASE.replace(
         ekf=tconfig.EkfConfig(measurement="flow_render"), **_RENDER)),
     "track_video_streaming": lambda: api.track_video(
-        np.zeros((2, 48, 64), np.uint8), streaming=True, device="cpu"),
+        np.zeros((2, 48, 64), np.uint8), _BASE.replace(
+            ekf=tconfig.EkfConfig(measurement="render"), **_RENDER),
+        streaming=True, device="cpu"),
     "track_videos_sharded": lambda: api.track_videos(
         np.zeros((1, 2, 48, 64), np.uint8), sharded=True, device="cpu"),
     "track_clip_render_tmpl": lambda: pipeline.track_clip(
@@ -349,7 +356,7 @@ _OUTSIDE = {
 def test_outside_the_slice_raises(name):
     """What stays outside the ported slices raises NotImplementedError
     naming its ROADMAP item: the mesh-render channels (P11b, also as
-    track_clip's render_tmpl), streaming (P12), clips sharded over cards
+    track_clip's render_tmpl, and streamed), clips sharded over cards
     (P13)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _OUTSIDE[name]()

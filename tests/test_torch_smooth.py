@@ -137,8 +137,24 @@ def _assert_smoothed(got: dict, ref: dict):
     assert np.abs(got["smoothed"] - ref["smoothed"]).max() < 1e-3
 
 
+@pytest.fixture(scope="module")
+def port_rows(clip):
+    """The port's track_arrays rows, filter history included, under (e)
+    by lag, each computed once; lag 0 (one RTS) is also (f)'s
+    monolithic smoother."""
+    cache = {}
+
+    def rows(lag):
+        if lag not in cache:
+            cache[lag] = {k: v.numpy() for k, v in tp.track_arrays(
+                torch.from_numpy(clip), _ported(_smooth_cfg(lag=lag)),
+                with_history=True).items()}
+        return cache[lag]
+    return rows
+
+
 @pytest.mark.parametrize("lag", [0, 2])
-def test_track_arrays_smoothing_matches_reference(clip, lag):
+def test_track_arrays_smoothing_matches_reference(clip, lag, port_rows):
     """(e) RunConfig() with smoothing, monolithic RTS and the fixed-lag
     smoother at lag=2: `smoothed` < 1e-3 px; with_history returns the
     reference's filter history too."""
@@ -146,25 +162,24 @@ def test_track_arrays_smoothing_matches_reference(clip, lag):
     ref = jax.device_get(jax.jit(jp.track_arrays,
                                  static_argnames=("cfg", "with_history"))(
         jnp.asarray(clip), cfg, True))
-    got = {k: v.numpy() for k, v in tp.track_arrays(
-        torch.from_numpy(clip), _ported(cfg), with_history=True).items()}
+    got = port_rows(lag)
     assert set(got) == set(ref)
     _assert_smoothed(got, ref)
     for k in ("x_filt", "P_filt", "x_pred", "P_pred"):
         assert np.abs(got[k] - ref[k]).max() < 1e-3, k
 
 
-def test_track_clip_chunked_matches_reference(clip):
+def test_track_clip_chunked_matches_reference(clip, port_rows):
     """(f) track_clip with SmoothConfig(chunk=2): the history goes through
     host memory and is smoothed two frames at a time: `smoothed` < 1e-3
-    px against the reference's track_clip."""
+    px against the reference's track_clip, < 1e-4 against the port's
+    monolithic RTS (track_clip's smoothing is track_arrays')."""
     cfg = _smooth_cfg(chunk=2)
     ref = jp.track_clip(clip, cfg)
     got = tp.track_clip(clip, _ported(cfg), device="cpu")
     assert np.abs(got.positions - ref.positions).max() < 1e-3
     assert np.abs(got.smoothed - ref.smoothed).max() < 1e-3
-    mono = tp.track_clip(clip, _ported(_smooth_cfg()), device="cpu")
-    assert np.abs(got.smoothed - mono.smoothed).max() < 1e-4
+    assert np.abs(got.smoothed - port_rows(0)["smoothed"]).max() < 1e-4
 
 
 def _pair_cfg(lag: int) -> RunConfig:
