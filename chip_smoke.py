@@ -102,6 +102,33 @@ prints no result line):
        then whether cv2 and the native loader are on the host (where both
        are, each decodes an MJPG copy of the clip), and S-fps: S against
        A's array run, in turns;
+       R. api.track_mesh on deforming_body_clip at 1080x1920, T=9, V=256
+          (its deformation scaled by 480/1080: R-480's motion in px a
+          frame), measurement "render" (no kernel of K1-K13): two card
+          runs with
+          equal hashes, the CPU's run of the same call (positions < 1e-3
+          px, alive and track_id identical), the median vertex error at
+          the last frame against the clip's affine truth no worse than
+          the CPU's + 0.05 px; frames/s of the call and of the tracking
+          alone (track_clip with the template), idle shares;
+       R-480. the same at 480x640, V=64, the default deformation; RF. R
+          with "flow_render" and A's FlowConfig (K2-K5, no K1: the
+          implicit-flow update); R-bench. bench --render's clip, the
+          default deformation at 1080p, which the channel (the
+          reference's too: tools/torch_render_reach.py) does not follow:
+          two card runs with equal hashes, the card against the CPU
+          within R_BENCH_BAR px with alive and track_id identical;
+       R-S. R streamed (track_mesh(streaming=True)): R bit for bit;
+       R-mesh. the strain of R's trajectories (mesh_strain_sequence and
+          the remeshing mesh_strain_sequence_dynamic) on the card against
+          the CPU: the same remesh events, < 1e-5 (max_shear past a
+          shear of 10: < SHEAR_ULPS * eps_f32 * shear^2);
+       P14. utils.profiling.trace around one warm A step names the
+          port's kernels; cost() of a 1024² f32 matmul >= 2 * 1024³ *
+          0.5 FLOPs; a small A run under utils.debug.debug_checks
+          launches what it launches without them, with the same tracks,
+          and a NaN in one frame raises FloatingPointError naming the
+          stage and the frame;
      check the launch counts, the outputs against the plain functions,
      the CPU smoothers, the per-frame path and the CPU path, and report
      frames/s; H, H0, W and J again through the per-level K9/K10 launches
@@ -117,6 +144,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -656,6 +684,10 @@ def check_launches(dev, clip, clip_b, cfg, cfg_h):
                                                      f.pyr_scale),
         "K1 K=1024 from z": lambda: ekf_predict_update(*k1_args)}
     k1_args = k1_witness_case("K1 K=1024 n=6 H2", dev)
+    # the process's first profiler session has been seen to record no
+    # device event (the first call below, warmed or not): open one on a
+    # throwaway kernel first
+    device_launches(lambda: torch.ones(8, device=dev).add_(1))
     bad = []
     for name, fn in calls.items():
         # warmed and timed first, as tools/torch_level_lk_ab.py does: a
@@ -2456,7 +2488,9 @@ def per_frame_expected(cfg, h, w, t) -> dict:
     (exact warp), one K5 (fast warp under the gate), one K13
     (fi_pipeline, iterations >= 2) or `iterations` K2, and one K1 where
     `takes_k1`. measurement="photometric" computes no flow and launches
-    nothing. Lucas-Kanade: see the branches below."""
+    nothing, nor does "render" (the mesh-render channel); "flow_render"
+    takes the flow's launches and the implicit-flow update (no K1).
+    Lucas-Kanade: see the branches below."""
     from kalman_hydra_tpu_torch import kernels
     from kalman_hydra_tpu_torch.kernels.flow_level import (MAX_LEVELS, fits,
                                                            walk_fits)
@@ -2465,7 +2499,7 @@ def per_frame_expected(cfg, h, w, t) -> dict:
     from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
     e = dict.fromkeys(kernels.WRAPPERS, 0)
-    if cfg.ekf.measurement == "photometric":
+    if cfg.ekf.measurement in ("photometric", "render"):
         return e
     if f.method in ("lk_sparse", "lk_dense"):
         from kalman_hydra_tpu_torch.kernels.lk import MAX_LEVELS as LK_LEVELS
@@ -3343,7 +3377,7 @@ def path_s_fps(dev, npy, clip, cfg, name):
 def profile_path(label, fn, steps, trace_path, clip_s):
     """Device busy time, idle share and the top device consumers of one
     warm run of `fn` (a path's clip or clip batch, `steps` frame steps);
-    the Chrome trace goes to trace_path.
+    the Chrome trace goes to trace_path (none if it is None).
 
     The profiler slows the host loop, so the idle share is taken against
     the unprofiled median time `clip_s` of this process (the metric's own
@@ -3389,9 +3423,328 @@ def profile_path(label, fn, steps, trace_path, clip_s):
         log(prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=20,
                                       max_name_column_width=60))
-        prof.export_chrome_trace(trace_path)
-        log(f"  chrome trace written to {trace_path}")
-    run()
+        if trace_path:
+            prof.export_chrome_trace(trace_path)
+            log(f"  chrome trace written to {trace_path}")
+        return 1 - busy / unprof
+    return run()
+
+
+# ------------------------------------------------ mesh render (P11b), P14
+
+H_R480, W_R480 = 480, 640                  # path R-480 (fps_render_480p_v64)
+V_R, V_R480 = 256, 64                      # mesh vertices (bench --render)
+BODY = dict(stretch=(0.12, -0.08), omega=0.35,   # deforming_body_clip's
+            velocity=(0.6, 0.3))                 # defaults
+# R and RF at 1080p: the default deformation scaled by 480/1080, so that
+# the mesh moves as many px a frame as R-480's does. The default moves
+# the 1080p mesh (near the body's top: segment_body grows its region at
+# most 64 px from its seed) ~8 px a frame, past the Gauss-Newton's reach
+# (5 sweeps of <= 2 px); path R-bench runs it. The reference loses the
+# mesh there as the port does (tools/torch_render_reach.py on the CPU:
+# 33.18 px median error at frame 8 in both).
+STRETCH_R = (0.12 * 480 / 1080, -0.08 * 480 / 1080)
+TRUTH_SLACK = 0.05                         # px, card's median error vs CPU's
+# R-bench, card vs CPU once the mesh is lost: the rounding of the EKF's
+# products (cuBLAS against the CPU's) grows there. Read 7.385e-3 px on
+# the H100; the port's CPU run and the reference's part by 3.513e-2 px
+# on the same clip (tools/torch_render_reach.py). A fault moves px.
+R_BENCH_BAR = 5e-2
+# R-mesh: max_shear = lam1 / lam2 with lam2^2 = (tr - disc) / 2. tr and
+# disc carry ~lam1^2 * eps each, so lam2^2, and with it the shear, moves
+# by ~eps * shear^2 (relative) for each ulp of their difference.
+SHEAR_ULPS = 4
+
+
+def body_clip(h, w, stretch=BODY["stretch"]):
+    from kalman_hydra_tpu_torch.io.synthetic import deforming_body_clip
+    frames, _, _ = deforming_body_clip(num_frames=T, height=h, width=w,
+                                       seed=0, **dict(BODY, stretch=stretch))
+    return frames
+
+
+def mesh_truth(mesh, h, w, stretch) -> np.ndarray:
+    """(T, V, 2) true positions of the mesh's vertices under the clip's
+    forward map x(q, t) = c0 + v t + A(t) (q - c0), A(t) = diag(1 + sx
+    sin(w t), 1 + sy sin(w t)) (tests/unit/test_render.py::_mesh_truth)."""
+    sx, sy = stretch
+    om = BODY["omega"]
+    v = np.float32(BODY["velocity"])
+    c0 = np.float32([w * 0.5, h * 0.5])
+    out = np.empty((T, len(mesh.vertices), 2), np.float32)
+    for t in range(T):
+        a = np.float32([1 + sx * np.sin(om * t), 1 + sy * np.sin(om * t)])
+        out[t] = c0 + v * t + (mesh.vertices - c0) * a[None, :]
+    return out
+
+
+def tracks_hash(tr) -> str:
+    import hashlib
+    m = hashlib.sha256()
+    for a in (tr.positions, tr.alive, tr.nis, tr.track_id):
+        m.update(np.ascontiguousarray(a).tobytes())
+    return m.hexdigest()[:16]
+
+
+def mesh_config(measurement, flow=None):
+    """api.track_mesh's own default (measurement "render", q 0.5, no
+    reinit), with `measurement` and, for flow_render, A's FlowConfig."""
+    from kalman_hydra_tpu_torch.config import (EkfConfig, FlowConfig,
+                                               RunConfig, TrackConfig)
+    return RunConfig(flow=flow or FlowConfig(),
+                     ekf=EkfConfig(measurement=measurement, q=0.5),
+                     tracks=TrackConfig(reinit=False))
+
+
+def median_error(tr, truth) -> float:
+    """The median vertex error (px) at the last frame."""
+    return float(np.median(np.linalg.norm(tr.positions[-1] - truth[-1],
+                                          axis=-1)))
+
+
+def mesh_path(label, dev, clip, stretch, cfg, v, counts_by_path, name,
+              profile):
+    """api.track_mesh on the card: its launches (none of K1-K13 for
+    render; A's flow kernels and no K1 for flow_render), finite tracks,
+    two runs with equal hashes, the mesh and tracks of the same call on
+    the CPU (positions < 1e-3 px, alive and track_id identical), the
+    median vertex error against the clip's truth no worse than the CPU's
+    + TRUTH_SLACK (`stretch`: the clip's); frames/s of the API call and
+    of the tracking alone (track_clip with the template), and the device
+    idle share of one warm run of each. Returns (mesh, tracks, template)
+    or None."""
+    from kalman_hydra_tpu_torch import api, pipeline
+    from kalman_hydra_tpu_torch.models.render import make_template
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    h, w = clip.shape[1:3]
+
+    @phase(f"path {label} (api.track_mesh, {cfg.ekf.measurement}, "
+           f"{h}x{w} T={T} V={v})")
+    def run():
+        fn = lambda: api.track_mesh(clip, cfg, n_vertices=v,  # noqa: E731
+                                    device=dev)
+        mesh, tr = drive(label, fn, per_frame_expected(cfg, h, w, T),
+                         counts_by_path)
+        check_tracks(tr, T, v)
+        again = fn()[1]
+        log(f"  {label} two card runs: hashes {tracks_hash(tr)} "
+            f"{tracks_hash(again)}")
+        assert tracks_hash(tr) == tracks_hash(again)
+        t0 = time.perf_counter()
+        mesh_c, tr_c = api.track_mesh(clip, cfg, n_vertices=v, device="cpu")
+        log(f"  {label} on the CPU: {time.perf_counter() - t0:.2f} s")
+        assert np.array_equal(mesh.vertices, mesh_c.vertices)
+        assert np.array_equal(mesh.triangles, mesh_c.triangles)
+        same_tracks(tr, tr_c, f"{label} card vs CPU")
+        truth = mesh_truth(mesh, h, w, stretch)
+        e_card, e_cpu = median_error(tr, truth), median_error(tr_c, truth)
+        log(f"  {label} median vertex error at frame {T - 1} against the "
+            f"clip's truth: card {e_card:.4f} px, CPU {e_cpu:.4f} px (bar: "
+            f"the CPU's + {TRUTH_SLACK})")
+        assert e_card <= e_cpu + TRUTH_SLACK
+        gray0 = grayscale_u8(torch.from_numpy(clip[0]).to(dev))
+        tmpl = make_template(gray0, mesh, device=dev)
+        P = int(tmpl.tvals.shape[0])
+        run_cfg = cfg.replace(tracks=dataclasses.replace(
+            cfg.tracks, num_tracks=v))
+        track = lambda: pipeline.track_clip(  # noqa: E731
+            clip, run_cfg, mesh.vertices, False, tmpl, device=dev)
+        assert identical(track(), tr)
+        what = f"{h}x{w}, T={T}, V={v}, P={P}; {name}"
+        api_s = per_frame_fps(f"{label} (api.track_mesh)", fn, T - 1, what)
+        trk_s = per_frame_fps(f"{label} (track_clip, template given)",
+                              track, T - 1, what)
+        trace = (None if not profile else str(Path(profile).with_name(
+            f"{Path(profile).stem}_{label}{Path(profile).suffix}")))
+        profile_path(label, fn, T - 1, trace, api_s)
+        profile_path(f"{label} tracking", track, T - 1, None, trk_s)
+        return mesh, tr, tmpl
+    return run()
+
+
+@phase(f"path R-bench (api.track_mesh, render, 1080p T={T} V={V_R}, the "
+       "default deformation)")
+def path_r_bench(dev, clip):
+    """bench --render's clip at 1080p: the default deformation, which the
+    render channel (the reference's algorithm, op for op; the reference
+    itself loses the mesh there too) does not follow. Two card runs with
+    equal hashes; the mesh identical to the CPU's; the card's positions
+    within R_BENCH_BAR px of the CPU's, alive and track_id identical.
+    Printed: the card's and the CPU's median errors against the truth."""
+    from kalman_hydra_tpu_torch import api
+    cfg = mesh_config("render")
+    mesh, tr = api.track_mesh(clip, cfg, n_vertices=V_R, device=dev)
+    again = api.track_mesh(clip, cfg, n_vertices=V_R, device=dev)[1]
+    log(f"  R-bench two card runs: hashes {tracks_hash(tr)} "
+        f"{tracks_hash(again)}")
+    assert tracks_hash(tr) == tracks_hash(again)
+    mesh_c, tr_c = api.track_mesh(clip, cfg, n_vertices=V_R, device="cpu")
+    truth = mesh_truth(mesh, H, W, BODY["stretch"])
+    errs = np.median(np.linalg.norm(tr.positions - truth, axis=-1), axis=1)
+    gap = float(np.abs(tr.positions - tr_c.positions).max())
+    same_ids = (np.array_equal(tr.alive, tr_c.alive)
+                and np.array_equal(tr.track_id, tr_c.track_id))
+    log(f"  R-bench mesh identical to the CPU's: "
+        f"{np.array_equal(mesh.vertices, mesh_c.vertices)}; median vertex "
+        f"error a frame on the card "
+        f"{[round(float(e), 3) for e in errs]} px, at frame {T - 1} on the "
+        f"CPU {median_error(tr_c, truth):.4f} px; card vs CPU max |pos "
+        f"diff| {gap:.3e} px (bar {R_BENCH_BAR}), alive and track_id "
+        f"identical {same_ids}; live {int(tr.alive[-1].sum())}/{V_R}")
+    assert np.array_equal(mesh.vertices, mesh_c.vertices)
+    assert np.array_equal(mesh.triangles, mesh_c.triangles)
+    assert gap < R_BENCH_BAR and same_ids
+
+
+@phase(f"path R-S (api.track_mesh(streaming=True), render, 1080p T={T} "
+       f"V={V_R})")
+def path_r_s(dev, clip, r_tracks, counts_by_path, name):
+    """R streamed (frame 0 apart, frames 1.. one at a time): no kernel
+    launch, and R's array run bit for bit (positions, alive, nis,
+    track_id), as S is to A."""
+    from kalman_hydra_tpu_torch import api
+    cfg = mesh_config("render")
+    fn = lambda: api.track_mesh(clip, cfg, n_vertices=V_R,  # noqa: E731
+                                streaming=True, device=dev)
+    _, tr = drive("R-S", fn, per_frame_expected(cfg, H, W, T),
+                  counts_by_path)
+    same = identical(tr, r_tracks)
+    log(f"  R-S bit-identical to R's array run: {same} (hash "
+        f"{tracks_hash(tr)})")
+    assert same
+    s = per_frame_fps("R-S (api.track_mesh, streaming)", fn, T - 1,
+                      f"1080p, T={T}, V={V_R}; {name}")
+    profile_path("R-S", fn, T - 1, None, s)
+
+
+@phase("path R-mesh (models.mesh strain of R's trajectories on the card)")
+def path_r_mesh(dev, mesh, tr):
+    """mesh_strain_sequence and mesh_strain_sequence_dynamic (at the
+    default threshold 1.5 and at 1.05, where it remeshes) over R's
+    trajectories on the card against the CPU: the same remesh events;
+    F, area_ratio and the dynamic run's shear and quality < 1e-5
+    (relative, or absolute below 1); max_shear < 1e-5 on the triangles
+    whose shear is below 10, and above it < SHEAR_ULPS * eps_f32 *
+    shear^2: there the reference's formula loses digits (lam2^2 = (tr -
+    disc) / 2 cancels; 0.35% at a shear of a few hundred, seen on the
+    card)."""
+    from kalman_hydra_tpu_torch.models import mesh as M
+
+    def rel(x, y):
+        return float((np.abs(x - y) / np.maximum(np.abs(y), 1.0)).max())
+    a = M.mesh_strain_sequence(mesh, tr.positions, device=dev)
+    b = M.mesh_strain_sequence(mesh, tr.positions, device="cpu")
+    for k in a:
+        i = np.unravel_index(np.argmax(np.abs(a[k] - b[k])), a[k].shape)
+        log(f"  R-mesh {k}: max |card - CPU| {np.abs(a[k] - b[k]).max():.3e}"
+            f" at {tuple(int(j) for j in i)} (card {a[k][i]:.6e}, CPU "
+            f"{b[k][i]:.6e})")
+    ok = b["max_shear"] < 10.0
+    err = max(rel(a["F"], b["F"]), rel(a["area_ratio"], b["area_ratio"]),
+              rel(a["max_shear"][ok], b["max_shear"][ok]))
+    s_hi = b["max_shear"][~ok].astype(np.float64)
+    d_hi = np.abs(a["max_shear"][~ok] - b["max_shear"][~ok]) / s_hi
+    ulps = d_hi / (np.finfo(np.float32).eps * s_hi ** 2)
+    worst = float(ulps.max()) if ulps.size else 0.0
+    exx = float(np.median(a["F"][-1, :, 0, 0] - 1.0))
+    sx = STRETCH_R[0] * np.sin(BODY["omega"] * (T - 1))
+    log(f"  R-mesh strain card vs CPU: max relative diff {err:.3e} (bar "
+        f"1e-5); max_shear of the {int((~ok).sum())} triangle-frames of "
+        f"{ok.size} with a shear past 10: largest relative diff "
+        f"{float(d_hi.max()) if d_hi.size else 0.0:.3e}, at most "
+        f"{worst:.3e} x eps_f32 x shear^2 (bar {SHEAR_ULPS}); median e_xx "
+        f"at frame {T - 1} {exx:+.4f} (clip's {sx:+.4f})")
+    assert err < 1e-5 and worst < SHEAR_ULPS
+    for thr in (1.5, 1.05):
+        t0 = time.perf_counter()
+        a = M.mesh_strain_sequence_dynamic(mesh, tr.positions,
+                                           shear_threshold=thr, device=dev)
+        card_s = time.perf_counter() - t0
+        b = M.mesh_strain_sequence_dynamic(mesh, tr.positions,
+                                           shear_threshold=thr, device="cpu")
+        err = max(rel(a[k], b[k])
+                  for k in ("max_shear_p95", "quality_min", "quality_mean"))
+        log(f"  R-mesh dynamic (threshold {thr}): events card {a['events']} "
+            f"CPU {b['events']}; max relative diff {err:.3e}; {card_s:.3f} s on "
+            "the card")
+        assert a["events"] == b["events"] and err < 1e-5
+
+
+PORT_KERNELS = ("ekf_kernel", "flow_walk_kernel", "level_polyexp_kernel",
+                "polyexp_tiled_kernel", "pairs_tile_kernel",
+                "flow_iters_pipe_kernel", "lk_kernel", "pyr_levels_kernel",
+                "scharr_levels_kernel")       # csrc's __global__ names
+
+
+@phase("P14 trace (utils.profiling.trace around one warm A step)")
+def check_p14_trace(dev, clip, cfg):
+    """trace() around one warm frame step of A writes a Chrome trace that
+    names the port's kernels."""
+    from kalman_hydra_tpu_torch import pipeline
+    from kalman_hydra_tpu_torch.utils import profiling
+    d = stream_dir() / "p14_trace"
+    shutil.rmtree(d, ignore_errors=True)
+    carry = pipeline.init_from_frame(torch.from_numpy(clip[0]).to(dev), cfg)
+    step = pipeline.make_step(cfg, dev)
+    carry, _ = step(carry, torch.from_numpy(clip[1]).to(dev))
+    frame = torch.from_numpy(clip[2]).to(dev)
+    torch.cuda.synchronize()
+    with profiling.trace(str(d)):
+        step(carry, frame)
+    files = list(d.iterdir())
+    events = json.loads(files[0].read_text()).get("traceEvents", [])
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    ours = sorted({k for n in names for k in PORT_KERNELS
+                   if re.search(rf"(^|[\s:]){k}([<(]|$)", n)})
+    log(f"  trace of one warm A step: {files[0].name}, {len(events)} "
+        f"events, {len(names)} distinct device kernels; the port's: {ours}")
+    assert ours
+
+
+@phase("P14 cost (utils.profiling.cost of a 1024² f32 matmul)")
+def check_p14_cost(dev):
+    """cost() of a 1024² f32 matmul on the card counts >= 2 * 1024³ *
+    0.5 FLOPs and reports the card's peak allocation."""
+    from kalman_hydra_tpu_torch.utils import profiling
+    a = torch.randn(1024, 1024, device=dev)
+    c = profiling.cost(torch.mm, a, a)
+    log(f"  cost of a 1024² f32 matmul: {c}")
+    assert c["cost"]["flops"] >= 2 * 1024 ** 3 * 0.5
+
+
+@phase("P14 debug_checks (a small A run, 270x480 T=5)")
+def check_p14_debug(dev):
+    """debug_checks() on a small A run (A's config, 270x480, T=5)
+    launches what the run launches without it and gives the same
+    tracks; a NaN in frame 2 of its float copy raises FloatingPointError
+    naming the stage and the frame, before any kernel sees it."""
+    from kalman_hydra_tpu_torch import api, pipeline
+    from kalman_hydra_tpu_torch.utils import debug
+    small = blob_clip(5, 270, 480)
+    small_cfg = pipeline.main_path_config(256)
+    expect = per_frame_expected(small_cfg, 270, 480, 5)
+    runs = {}
+    for on in (False, True):
+        ctx = debug.debug_checks() if on else contextlib.nullcontext()
+        with ctx:
+            runs[on] = drive(f"small A, debug_checks {'on' if on else 'off'}",
+                             lambda: api.track_video(small, small_cfg,
+                                                     device=dev),
+                             expect, {})
+    log(f"  small A launches a step: {sum(expect.values()) / 4:.2f} with "
+        f"debug_checks off and on; tracks identical: "
+        f"{identical(runs[False], runs[True])}")
+    assert identical(runs[False], runs[True])
+    bad = small.astype(np.float32)
+    bad[2, 100, 200, 1] = np.nan
+    try:
+        with debug.debug_checks():
+            api.track_video(bad, small_cfg, device=dev)
+    except FloatingPointError as e:
+        log(f"  NaN in frame 2: FloatingPointError: {e}")
+        assert "frame 2" in str(e) and "grayscale" in str(e)
+    else:
+        raise AssertionError("debug_checks let a NaN frame through")
 
 
 _KERNELS = {   # wrapper: (CUDA source, TPU entry point it replaces, in
@@ -3492,7 +3845,8 @@ def main() -> int:
     ap.add_argument("--profile", metavar="TRACE_JSON", default=None,
                     help="also profile one warm run of paths A-D, H, AP, "
                          "BX and S and write each Chrome trace beside this "
-                         "name (_A ... _D, _H, _AP, _BX, _S)")
+                         "name (_A ... _D, _H, _AP, _BX, _S; R and RF, "
+                         "profiled in every run, add _R and _RF)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this check "
@@ -3598,6 +3952,23 @@ def main() -> int:
     path_s_cli(dev, clip, cfg)
     check_decoders(clip)
     walls["S"] = path_s_fps(dev, npy, clip, cfg, name)
+    clip_r = body_clip(H, W, STRETCH_R)
+    r = mesh_path("R", dev, clip_r, STRETCH_R, mesh_config("render"), V_R,
+                  counts_by_path, name, args.profile)
+    mesh_path("R-480", dev, body_clip(H_R480, W_R480), BODY["stretch"],
+              mesh_config("render"), V_R480, counts_by_path, name, None)
+    mesh_path("RF", dev, clip_r, STRETCH_R,
+              mesh_config("flow_render", cfg.flow), V_R, counts_by_path,
+              name, args.profile)
+    path_r_bench(dev, body_clip(H, W))
+    if r is not None:
+        path_r_s(dev, clip_r, r[1], counts_by_path, name)
+        path_r_mesh(dev, r[0], r[1])
+    else:
+        FAILURES.append("paths R-S and R-mesh (R failed)")
+    check_p14_trace(dev, clip, cfg)
+    check_p14_cost(dev)
+    check_p14_debug(dev)
     if args.profile:
         from kalman_hydra_tpu_torch import api
         runs = {"A": (lambda: api.track_video(clip, cfg, device=dev), T - 1),

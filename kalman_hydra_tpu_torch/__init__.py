@@ -4,8 +4,9 @@ The JAX package (`kalman_hydra_tpu`) is the reference; this package mirrors
 its layout (`ops/`, `models/`, `kernels/`, `io/`, `utils/`, `pipeline.py`,
 `api.py`, `cli.py`) and runs the Farneback and Lucas-Kanade (sparse and
 dense) + EKF tracking paths (per-frame, pair-batched, multi-clip, and
-streamed from video files with checkpoint/resume) on an NVIDIA Hopper
-card. Each Pallas kernel on those paths has a hand-written
+streamed from video files with checkpoint/resume), the mesh-render
+channels (`api.track_mesh`) and the debug and profiling hooks on an
+NVIDIA Hopper card. Each Pallas kernel on those paths has a hand-written
 CUDA C++ counterpart in `csrc/`, built with nvcc at first use
 (`kernels/_build.py`) and paired with a plain PyTorch version that runs on
 CPU tensors.
@@ -39,4 +40,13 @@ def cuda_device(index: int = 0) -> torch.device:
     return dev
 
 
-__all__ = ["cuda_device"]
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; a card is set up (`cuda_device`)
+    before any work, and asking for one without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return cuda_device(device.index or 0)
+    return device
+
+
+__all__ = ["cuda_device", "resolve_device"]

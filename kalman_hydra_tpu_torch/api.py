@@ -4,10 +4,11 @@ With no config every entry point runs the reference's default, as the
 reference does: `RunConfig()` (exact warp, f32 planes, 4-state CV
 filter, 256 tracks, a fresh corner pool every frame), or `FlowConfig()`
 for `flow`. Lucas-Kanade configs (`FlowConfig.method` "lk_sparse" or
-"lk_dense") and every measurement channel but the mesh render
-(`EkfConfig.measurement`, `filter_type`, `adaptive_q`) run through the
-same entry points; `pipeline.track_precomputed_flow` tracks over
-supplied flows. `track_video` and `smooth` take an in-memory clip or a
+"lk_dense") and the measurement channels (`EkfConfig.measurement`,
+`filter_type`, `adaptive_q`) run through the same entry points;
+`track_mesh` tracks the vertices of a body mesh with the mesh-render
+channels; `pipeline.track_precomputed_flow` tracks over supplied
+flows. `track_video` and `smooth` take an in-memory clip or a
 video path, and with streaming=True track frame by frame with O(1) card
 memory (`pipeline.track_stream`). Every entry point runs on the card
 unless the caller passes device="cpu"; without a card it raises.
@@ -15,16 +16,20 @@ unless the caller passes device="cpu"; without a card it raises.
 
 from __future__ import annotations
 
-from typing import List, Optional, Union
+import dataclasses
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
 from . import pipeline as _pipeline
-from .config import FlowConfig, RunConfig
+from .config import EkfConfig, FlowConfig, RunConfig, TrackConfig
 from .io import FrameStream, PrefetchStream, Trajectories, save as save_tracks
+from .models.mesh import BodyMesh, mesh_from_mask
+from .models.render import make_template
 from .ops.color import grayscale_u8
 from .ops.farneback import farneback
 from .ops.lk import lk_dense
+from .ops.segment import segment_body
 
 
 def flow(a: np.ndarray, b: np.ndarray, cfg: Optional[FlowConfig] = None,
@@ -91,6 +96,54 @@ def track_video(source: Union[str, np.ndarray],
     return tracks
 
 
+def track_mesh(frames: np.ndarray, cfg: Optional[RunConfig] = None,
+               mesh: Optional[BodyMesh] = None, n_vertices: int = 64,
+               seed: int = 0, streaming: bool = False, *,
+               device="cuda") -> Tuple[BodyMesh, Trajectories]:
+    """Track a deformable body mesh through a (T, H, W[, 3]) uint8 clip
+    with the mesh-render channel, on `device`: segment the body in frame
+    0 (`ops.segment.segment_body`), mesh it (`models.mesh`), then track
+    every vertex with the deformed-mesh appearance measurement
+    (`models.render`). Pass `mesh` (a BodyMesh) to skip the segmentation.
+    Returns (mesh, Trajectories); `models.mesh.mesh_strain_sequence` of
+    the positions gives the strain.
+
+    With no config: EkfConfig(measurement="render", q=0.5) (process noise
+    sized for vertices that a deformation accelerates) and reinit=False.
+    cfg.ekf.measurement "flow_render" puts dense flow first and the
+    render update second; any other measurement becomes "render".
+    tracks.num_tracks is the mesh's vertex count and reinit is off (the
+    vertices are fixed). With streaming, frames 1.. go through
+    `pipeline.track_stream` after frame 0."""
+    if cfg is None:
+        cfg = RunConfig(ekf=EkfConfig(measurement="render", q=0.5),
+                        tracks=TrackConfig(reinit=False))
+    frames = np.asarray(frames)
+    gray0 = grayscale_u8(_pipeline.upload(frames[0], device))
+    if mesh is None:
+        mask = segment_body(gray0).cpu().numpy()
+        mesh = mesh_from_mask(mask, n_points=n_vertices, seed=seed)
+    tmpl = make_template(gray0, mesh, device=gray0.device)
+    meas = (cfg.ekf.measurement
+            if cfg.ekf.measurement in ("render", "flow_render")
+            else "render")
+    # one replace: ekf and tracks together, so the measurement/reinit
+    # validation never sees a half-updated config
+    cfg = cfg.replace(
+        ekf=dataclasses.replace(cfg.ekf, measurement=meas),
+        tracks=dataclasses.replace(cfg.tracks,
+                                   num_tracks=mesh.vertices.shape[0],
+                                   reinit=False))
+    if streaming:
+        tracks = _pipeline.track_stream(iter(frames[1:]), cfg,
+                                        frame0=frames[0], render_tmpl=tmpl,
+                                        seeds=mesh.vertices, device=device)
+    else:
+        tracks = _pipeline.track_clip(frames, cfg, seeds=mesh.vertices,
+                                      render_tmpl=tmpl, device=device)
+    return mesh, tracks
+
+
 def flow_sequence(frames: np.ndarray, cfg: Optional[RunConfig] = None,
                   smooth: bool = False, *, device="cuda") -> np.ndarray:
     """Dense flow for each consecutive pair of a (T, H, W[, 3]) uint8
@@ -111,6 +164,17 @@ def smooth(frames_or_tracks: Union[str, np.ndarray],
     if not cfg.smooth.enabled:
         cfg = cfg.replace(smooth=cfg.smooth.__class__(enabled=True))
     return track_video(frames_or_tracks, cfg, device=device)
+
+
+def flow_sharded(a: np.ndarray, b: np.ndarray,
+                 cfg: Optional[FlowConfig] = None, method: str = "farneback",
+                 impl: str = "xla", interpret: bool = False, *,
+                 device="cuda") -> np.ndarray:
+    """Dense flow with the frame rows sharded over several cards: not
+    ported yet (ROADMAP P13, with K2's band mode); raises
+    NotImplementedError. `api.flow` computes the same flow on one card."""
+    raise NotImplementedError("flow_sharded: frame rows over several cards "
+                              "is outside the ported slice (ROADMAP P13)")
 
 
 def track_videos(clips: np.ndarray, cfg: Optional[RunConfig] = None,

@@ -5,16 +5,18 @@ parse args, open the video, track, export, report.
   python -m kalman_hydra_tpu_torch track clip.npz --stream --checkpoint ck.npz
   python -m kalman_hydra_tpu_torch flow a.npy b.npy --out flow.npz
   python -m kalman_hydra_tpu_torch synth --out clip.npz --frames 32
+  python -m kalman_hydra_tpu_torch mesh clip.npz --out mesh_tracks.npz
+  python -m kalman_hydra_tpu_torch track clip.npz --profile prof/
 
-`track` and `flow` run on the card unless given `--device cpu`. The
-reference's `mesh` subcommand and `--profile` flag, and its `bench`
-harness, are not ported yet: they raise NotImplementedError naming their
-ROADMAP item.
+`track`, `flow` and `mesh` run on the card unless given `--device cpu`.
+The reference's `bench` harness is not ported yet: it raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -83,8 +85,8 @@ def _parser() -> argparse.ArgumentParser:
     t.add_argument("--temporal", action="store_true",
                    help="warm-start each pair's flow from the previous "
                         "pair (Farneback)")
-    t.add_argument("--profile", help="write a profiler trace here "
-                   "(not ported yet: ROADMAP P14)")
+    t.add_argument("--profile", help="write a torch.profiler Chrome "
+                   "trace into this directory")
     t.add_argument("--device", **device)
 
     f = sub.add_parser("flow", help="dense flow between two frames")
@@ -107,16 +109,22 @@ def _parser() -> argparse.ArgumentParser:
     b.add_argument("--config", type=int, default=0)
     b.add_argument("--quick", action="store_true")
 
-    m = sub.add_parser("mesh", help="segment -> mesh -> track vertices "
-                       "(not ported yet: ROADMAP P11b)")
+    m = sub.add_parser(
+        "mesh", help="segment -> mesh -> track vertices (render channel) "
+        "-> per-triangle strain")
     m.add_argument("video")
     m.add_argument("--out", default="mesh_tracks.npz")
-    m.add_argument("--config")
-    m.add_argument("--vertices", type=int, default=64)
+    m.add_argument("--config", help="RunConfig JSON (ekf.measurement "
+                   "render/flow_render; defaults supplied otherwise)")
+    m.add_argument("--vertices", type=int, default=64,
+                   help="mesh vertex count (Lloyd-sampled in the body)")
     m.add_argument("--seed", type=int, default=0)
-    m.add_argument("--measurement", choices=["render", "flow_render"])
+    m.add_argument("--measurement", choices=["render", "flow_render"],
+                   help="override the observation channel")
     m.add_argument("--max-frames", type=int)
-    m.add_argument("--stream", action="store_true")
+    m.add_argument("--stream", action="store_true",
+                   help="O(1)-memory streaming driver")
+    m.add_argument("--device", **device)
     return ap
 
 
@@ -125,28 +133,27 @@ def _track(ap, args) -> int:
     from . import pipeline as pl
     from .io.export import save
     from .io.video import FrameStream, PrefetchStream
+    from .utils.profiling import trace
     from .utils.report import run_report
-    if args.profile:
-        raise NotImplementedError("track --profile: the profiler trace is "
-                                  "not ported yet (ROADMAP P14)")
     cfg = _load_cfg(args)
     if (args.checkpoint or args.resume) and not args.stream:
         ap.error("--checkpoint/--resume require --stream "
                  "(clip mode has no incremental state to save)")
-    if args.stream:
-        src = FrameStream(args.video)
-        if args.max_frames:
-            src = itertools.islice(iter(src), args.max_frames)
-        tracks = pl.track_stream(
-            PrefetchStream(src, depth=4), cfg,
-            checkpoint_path=args.checkpoint,
-            checkpoint_every=args.checkpoint_every, resume=args.resume,
-            device=args.device)
-        save(tracks, args.out)
-    else:
-        tracks = api.track_video(args.video, cfg, out_path=args.out,
-                                 max_frames=args.max_frames,
-                                 device=args.device)
+    with trace(args.profile) if args.profile else contextlib.nullcontext():
+        if args.stream:
+            src = FrameStream(args.video)
+            if args.max_frames:
+                src = itertools.islice(iter(src), args.max_frames)
+            tracks = pl.track_stream(
+                PrefetchStream(src, depth=4), cfg,
+                checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every, resume=args.resume,
+                device=args.device)
+            save(tracks, args.out)
+        else:
+            tracks = api.track_video(args.video, cfg, out_path=args.out,
+                                     max_frames=args.max_frames,
+                                     device=args.device)
     rep = run_report(tracks, gate_chi2=cfg.ekf.gate_chi2)
     logger.info("run report: %s", json.dumps(rep, sort_keys=True))
     report_path = args.out.rsplit(".", 1)[0] + ".report.json"
@@ -190,6 +197,47 @@ def _synth(args) -> int:
     return 0
 
 
+def _mesh(args) -> int:
+    from . import api
+    from .config import RunConfig
+    from .io.video import FrameStream
+    from .models.mesh import mesh_strain_sequence, triangle_quality
+    cfg = None
+    if args.config:
+        with open(args.config) as f:
+            cfg = RunConfig.from_json(f.read())
+    if args.measurement:
+        base = cfg or RunConfig(
+            ekf=dataclasses.replace(RunConfig().ekf, q=0.5),
+            tracks=dataclasses.replace(RunConfig().tracks, reinit=False))
+        cfg = base.replace(ekf=dataclasses.replace(
+            base.ekf, measurement=args.measurement))
+    stream = FrameStream(args.video)
+    try:
+        frames = stream.read_all(limit=args.max_frames)
+    finally:
+        stream.close()
+    mesh, tracks = api.track_mesh(frames, cfg=cfg, n_vertices=args.vertices,
+                                  seed=args.seed, streaming=args.stream,
+                                  device=args.device)
+    strain = mesh_strain_sequence(mesh, tracks.positions, device=args.device)
+    exx = strain["F"][:, :, 0, 0] - 1.0
+    eyy = strain["F"][:, :, 1, 1] - 1.0
+    np.savez_compressed(
+        args.out, vertices=mesh.vertices, triangles=mesh.triangles,
+        positions=tracks.positions, alive=tracks.alive, nis=tracks.nis,
+        track_id=tracks.track_id, exx=exx, eyy=eyy,
+        max_shear=strain["max_shear"], area_ratio=strain["area_ratio"])
+    q = triangle_quality(tracks.positions[-1], mesh.triangles)
+    print(f"meshed {len(mesh.vertices)} vertices / "
+          f"{len(mesh.triangles)} triangles; tracked "
+          f"{tracks.num_frames} frames (live "
+          f"{tracks.alive[-1].mean():.0%}); final strain exx "
+          f"{np.median(exx[-1]):+.4f} eyy {np.median(eyy[-1]):+.4f}, "
+          f"quality floor {q.min():.2f} -> {args.out}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
@@ -204,8 +252,7 @@ def main(argv=None) -> int:
     if args.cmd == "synth":
         return _synth(args)
     if args.cmd == "mesh":
-        raise NotImplementedError("mesh: the mesh-render channels are not "
-                                  "ported yet (ROADMAP P11b)")
+        return _mesh(args)
     raise NotImplementedError("bench: the port has no benchmark harness "
                               "yet (ROADMAP P6)")
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .models.ekf import TrackState
+from .models.render import RenderTemplate, template_from_arrays
 from .pipeline import Carry
 
 _TRACK_FIELDS = ("x", "P", "alive", "misses", "track_id")
@@ -71,6 +72,14 @@ def tracks_to_numpy(tracks: TrackState) -> dict:
     out["q_scale"] = (None if tracks.q_scale is None
                       else tensor_to_numpy(tracks.q_scale))
     return out
+
+
+def template_to_torch(tmpl, device) -> RenderTemplate:
+    """The reference's RenderTemplate (tri, bary, tvals, rest, pix;
+    NumPy-convertible) -> the port's, on `device`."""
+    return template_from_arrays(*(np.asarray(getattr(tmpl, f)) for f in
+                                  ("tri", "bary", "tvals", "rest", "pix")),
+                                device=device)
 
 
 def carry_to_torch(carry, device) -> Carry:

@@ -1,7 +1,7 @@
 """Synthetic clips with analytic ground truth (a copy of
 kalman_hydra_tpu/io/synthetic.py: `moving_blob_clip`, `translating_pair`,
-`rotating_pair`, `sinusoidal_warp_clip` and `circling_blob_clip`; the
-mesh-render clip, `deforming_body_clip`, waits for ROADMAP P11b).
+`rotating_pair`, `sinusoidal_warp_clip`, `deforming_body_clip` and
+`circling_blob_clip`).
 
 Host-side NumPy, seeded and deterministic: the same arguments give the
 same frames and truth, byte for byte, as the reference's generators.
@@ -188,6 +188,67 @@ def sinusoidal_warp_clip(num_frames: int = 10, height: int = 128,
         frames8 = np.repeat(frames8[..., None], 3, axis=-1)
     vel = np.zeros((num_frames, 2), dtype=np.float32)
     return frames8, SyntheticTruth(positions=positions, velocity=vel), flows
+
+
+def deforming_body_clip(num_frames: int = 12, height: int = 160,
+                        width: int = 192, stretch: tuple = (0.12, -0.08),
+                        omega: float = 0.35, velocity: tuple = (0.6, 0.3),
+                        body_radius: float = 0.32, num_points: int = 16,
+                        seed: int = 0, color: bool = True):
+    """A textured elliptical body deforming by a time-varying affine
+    stretch about its centre while drifting over a darker background, the
+    clip of the mesh-render channels (segmentation -> mesh -> tracking ->
+    strain).
+
+    Forward map of material point q at frame t:
+        x(q, t) = c(t) + A(t) (q - c0),
+        A(t) = diag(1 + sx sin(w t), 1 + sy sin(w t)),  c(t) = c0 + v t.
+    A is diagonal, so the inverse map is exact, and the per-frame
+    engineering strain is A(t) - I = (sx sin(w t), sy sin(w t)).
+
+    Returns (frames, truth, strain_true), strain_true (T, 2) the analytic
+    (e_xx, e_yy) per frame."""
+    rng = np.random.default_rng(seed)
+    bg = _textured_background(height, width, rng) * 0.45    # dark bg
+    body_tex = _textured_background(height, width, rng)
+
+    c0 = np.array([width * 0.5, height * 0.5], dtype=np.float32)
+    v = np.array(velocity, dtype=np.float32)
+    r_body = body_radius * min(height, width)
+    sx, sy = stretch
+
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+
+    # tracked points: material coordinates inside 0.8 of the body radius
+    ang = rng.uniform(0, 2 * np.pi, size=num_points)
+    rad = np.sqrt(rng.uniform(0.05, 0.8, size=num_points)) * r_body
+    qpts = c0[None, :] + np.stack([rad * np.cos(ang), rad * np.sin(ang)],
+                                  axis=-1).astype(np.float32)
+
+    frames = np.empty((num_frames, height, width), dtype=np.float32)
+    positions = np.empty((num_frames, num_points, 2), dtype=np.float32)
+    strain_true = np.empty((num_frames, 2), dtype=np.float32)
+    vel_t = np.broadcast_to(v, (num_frames, 2)).astype(np.float32).copy()
+    for t in range(num_frames):
+        axx = 1.0 + sx * np.sin(omega * t)
+        ayy = 1.0 + sy * np.sin(omega * t)
+        c = c0 + v * t
+        strain_true[t] = (axx - 1.0, ayy - 1.0)
+        # inverse map: q = c0 + A^-1 (p - c)
+        qx = c0[0] + (xx - c[0]) / axx
+        qy = c0[1] + (yy - c[1]) / ayy
+        tex = _bilinear(body_tex, qx, qy)
+        d = np.sqrt((qx - c0[0]) ** 2 + (qy - c0[1]) ** 2)   # material
+        mask = _sigmoid((d - r_body) / 2.0)
+        fg = 0.55 + 0.45 * tex
+        frames[t] = bg * (1 - mask) + fg * mask
+        positions[t] = c[None, :] + (qpts - c0[None, :]) \
+            * np.array([axx, ayy], dtype=np.float32)[None, :]
+    frames8 = np.clip(frames * 255.0, 0, 255).astype(np.uint8)
+    if color:
+        frames8 = np.repeat(frames8[..., None], 3, axis=-1)
+    return frames8, SyntheticTruth(positions=positions, velocity=vel_t), \
+        strain_true
 
 
 def circling_blob_clip(num_frames: int = 24, height: int = 192,

@@ -21,16 +21,21 @@ def otsu_threshold(gray: torch.Tensor) -> torch.Tensor:
     """Otsu's threshold of an (H, W) image with values in [0, 255], as a
     0-d f32 tensor; pixels > t are foreground. The histogram's bins are
     jnp.histogram's over range (0, 256): bin floor(v), 256 itself in the
-    last bin, values outside the range dropped."""
-    inside = ((gray >= 0) & (gray <= 256)).to(torch.float32)
+    last bin, values outside the range dropped. The class counts and
+    intensity sums are cumulated in int64, exactly, then rounded to f32
+    once: below 2^24 that is the reference's f32 cumsum, and above it
+    (a 1080p frame's intensity sum) the same threshold on every device,
+    where an f32 cumsum rounds by its scan order."""
+    inside = (gray >= 0) & (gray <= 256)
     idx = torch.clamp(torch.floor(gray), 0, 255).to(torch.int64)
-    hist = torch.bincount(idx.reshape(-1), weights=inside.reshape(-1),
-                          minlength=256).to(torch.float32)
-    total = torch.sum(hist)
-    bin_vals = torch.arange(256, dtype=torch.float32, device=gray.device)
-    w0 = torch.cumsum(hist, 0)
-    sum0 = torch.cumsum(hist * bin_vals, 0)
-    w1 = total - w0
+    idx = torch.where(inside, idx, torch.full_like(idx, 256))
+    hist = torch.bincount(idx.reshape(-1), minlength=257)[:256]
+    bins = torch.arange(256, dtype=torch.int64, device=gray.device)
+    w0_i = torch.cumsum(hist, 0)
+    sum0_i = torch.cumsum(hist * bins, 0)
+    w0 = w0_i.to(torch.float32)
+    sum0 = sum0_i.to(torch.float32)
+    w1 = w0_i[-1].to(torch.float32) - w0
     mu0 = sum0 / torch.clamp(w0, min=1.0)
     mu1 = (sum0[-1] - sum0) / torch.clamp(w1, min=1.0)
     between = w0 * w1 * (mu0 - mu1) ** 2

@@ -15,13 +15,24 @@ from __future__ import annotations
 import torch
 
 
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """clamp(x, lo, hi). Under autograd a point on a bound passes half
+    of its gradient, as jnp.clip's does under jax.grad (torch.clamp
+    passes all of it): torch.maximum/minimum split a tie's gradient."""
+    if not x.requires_grad:
+        return torch.clamp(x, lo, hi)
+    def bound(v):
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, bound(lo)), bound(hi))
+
+
 def bilinear_sample(img: torch.Tensor, x: torch.Tensor,
                     y: torch.Tensor) -> torch.Tensor:
     """Sample (..., H, W) images at float coords x, y of one query shape;
     returns (..., *query_shape). Border: clamp."""
     h, w = img.shape[-2], img.shape[-1]
-    x = torch.clamp(x, 0.0, w - 1.0)
-    y = torch.clamp(y, 0.0, h - 1.0)
+    x = _clip(x, 0.0, w - 1.0)
+    y = _clip(y, 0.0, h - 1.0)
     x0 = torch.clamp(torch.floor(x), 0, w - 2).to(torch.int64)
     y0 = torch.clamp(torch.floor(y), 0, h - 2).to(torch.int64)
     fx = x - x0.to(torch.float32)

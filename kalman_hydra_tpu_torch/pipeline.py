@@ -1,5 +1,5 @@
 """Tracking pipeline (port of kalman_hydra_tpu/pipeline.py: the flow,
-sparse-LK and photometric measurement paths).
+sparse-LK, photometric and mesh-render measurement paths).
 
 Per-frame path (`track_arrays`): grayscale -> polyexp pyramid (K4 coarse
 levels and K3 full res; or K11 level images then K3 on every level at
@@ -16,6 +16,12 @@ frames (within the segmented body with `seed_in_body`).
 `init_velocity` primes the seeds' velocities from a cold frame 0 -> 1
 flow. measurement="photometric" computes no flow: Gauss-Newton on the
 frames themselves (models/photometric.py) is the measurement.
+measurement="render" computes no flow either: the track slots are the
+vertices of a body mesh, and the lumped Gauss-Newton of the frame pulled
+back through the deformed mesh onto its rest template
+(models/render.py, `render_tmpl`) is the measurement; "flow_render"
+follows the flow channel's (implicit-flow) update with that render
+update. `api.track_mesh` builds the mesh and the template.
 
 Pair-batched path (`RunConfig.pair_batch`, `track_arrays_pairflow`): the
 polyexp pyramids of every frame (K7b, K7a) and the flow of every frame
@@ -48,10 +54,14 @@ frame crosses to the card once (`io.video.device_prefetch`), each step's
 row crosses back, and the state can be checkpointed and resumed
 (`utils/checkpoint.py`).
 
-Only the ported slices run: `check_slice` raises NotImplementedError,
-naming the ROADMAP item, for any other setting (the mesh-render
-channels). TPU-only knobs that do not change results (impl,
-pallas_interpret, fi_tile_h, fi_shift_skip, pe_tile_h) are ignored.
+Inside `utils.debug.debug_checks()` each frame step checks that the
+outputs of its stages are finite and raises FloatingPointError naming
+the stage and the frame; outside it the step adds nothing.
+
+`check_slice` raises NotImplementedError, naming the ROADMAP item, for
+a setting that the card cannot run yet (poly_n > POLY_N_MAX). TPU-only
+knobs that do not change results (impl, pallas_interpret, fi_tile_h,
+fi_shift_skip, pe_tile_h) are ignored.
 """
 
 from __future__ import annotations
@@ -64,7 +74,7 @@ from typing import Iterator, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from . import cuda_device
+from . import resolve_device as _device
 from .config import EkfConfig, FlowConfig, RunConfig, TrackConfig
 from .io import Trajectories
 from .io.video import device_prefetch
@@ -74,6 +84,7 @@ from .models import dynamics, lifecycle
 from .models.ekf import (TrackState, commit_update, ekf_step, init_tracks,
                          measurement_noise, predict, update)
 from .models.photometric import photometric_refine, photometric_step
+from .models.render import RenderTemplate, render_refine, render_step
 from .models.pixel_ekf import PixelEkfParams, smooth_flow_sequence
 from .models.rts import (fixed_lag_smooth, rts_smooth, rts_smooth_chunked,
                          segment_breaks)
@@ -85,6 +96,7 @@ from .ops.features import corner_pool
 from .ops.lk import lk_dense, lk_pyramid, lk_sparse
 from .ops.segment import segment_body
 from .ops.warp import sample_flow
+from .utils import debug
 from .utils.checkpoint import load_state, save_state
 
 _ROWS = ("pos", "alive", "nis", "track_id")
@@ -97,7 +109,7 @@ class Carry(NamedTuple):
     prev_rpyr: Tuple = ()       # cached pyramid of prev_gray: polyexp
     #                             levels (farneback), (pyr, grads) of
     #                             lk_pyramid (lk_sparse), () (lk_dense,
-    #                             and measurement="photometric")
+    #                             and measurement="photometric"/"render")
     corner_cache: Tuple = ()    # (pts, score) pool reused between refreshes
     frame_idx: int = 0          # filter steps taken (reinit_every cadence)
     lag_buf: Tuple = ()         # (xf, Pf, xp, Pp, tid, alive) windows,
@@ -152,14 +164,9 @@ def pair_path_config(num_tracks: int = 1024) -> RunConfig:
 
 
 def check_slice(cfg: RunConfig, flow_only: bool = False) -> None:
-    """Raise NotImplementedError for any setting outside the ported slice
-    (with flow_only, for the settings that the flow of `flow_sequence`
-    reads)."""
-    m = cfg.ekf.measurement
-    if not flow_only and m in ("render", "flow_render"):
-        raise NotImplementedError(
-            f"ekf.measurement={m!r}, the mesh-render channel (ROADMAP "
-            "P11b), is outside the ported slice of kalman_hydra_tpu")
+    """Raise NotImplementedError for any setting that the port cannot run
+    on the card (with flow_only, among the settings that the flow of
+    `flow_sequence` reads)."""
     f = cfg.flow
     if f.method == "farneback" and f.poly_n > POLY_N_MAX:
         raise NotImplementedError(
@@ -168,16 +175,17 @@ def check_slice(cfg: RunConfig, flow_only: bool = False) -> None:
             "F4's remaining limit)")
 
 
-def _photometric(cfg: RunConfig) -> bool:
-    """measurement="photometric": no flow at all, no flow pyramids."""
-    return cfg.ekf.measurement == "photometric"
+def _no_flow(cfg: RunConfig) -> bool:
+    """measurement "photometric" or "render": no flow at all, no flow
+    pyramids ("flow_render" has both)."""
+    return cfg.ekf.measurement in ("photometric", "render")
 
 
 def _flow_pyramid(gray: torch.Tensor, cfg: RunConfig) -> Tuple:
     """What the step caches of a frame for the next: its polyexp pyramid
     (farneback), its lk_pyramid (lk_sparse), nothing (lk_dense, or
-    measurement="photometric")."""
-    if _photometric(cfg):
+    measurement "photometric" or "render")."""
+    if _no_flow(cfg):
         return ()
     if cfg.flow.method == "farneback":
         return polyexp_pyramid(gray, cfg.flow)
@@ -225,10 +233,10 @@ def init_from_frame(frame0: torch.Tensor, cfg: RunConfig) -> Carry:
         corner_cache = corner_pool(gray0, cfg.tracks, mask=mask)
     lag_buf = _lag_buf_init(state, _lag(cfg)) if _lag(cfg) else ()
     # pair 0 -> 1 is a cold start (zeros == cv2 USE_INITIAL_FLOW with a
-    # zero field); the photometric channel computes no flow
+    # zero field); the photometric and render channels compute no flow
     prev_flow = (torch.zeros(gray0.shape + (2,), dtype=torch.float32,
                              device=gray0.device)
-                 if cfg.flow.temporal_init and not _photometric(cfg)
+                 if cfg.flow.temporal_init and not _no_flow(cfg)
                  else None)
     return Carry(tracks=state, prev_gray=gray0,
                  prev_rpyr=_flow_pyramid(gray0, cfg),
@@ -309,18 +317,44 @@ def make_flow_scan_step(cfg: RunConfig, device):
     return step
 
 
-def make_step(cfg: RunConfig, device):
-    """Per-frame step function (carry, frame) -> (carry, out)."""
+def _check_template(cfg: RunConfig, render_tmpl) -> None:
+    """A RenderTemplate is required iff the measurement is "render" or
+    "flow_render", and its vertices are the track pool."""
+    if cfg.ekf.measurement in ("render", "flow_render") \
+            and render_tmpl is None:
+        raise ValueError(
+            f"ekf.measurement={cfg.ekf.measurement!r} needs a "
+            "RenderTemplate (models.render.make_template) passed as "
+            "render_tmpl — see api.track_mesh")
+    if (render_tmpl is not None
+            and render_tmpl.rest.shape[0] != cfg.tracks.num_tracks):
+        raise ValueError(
+            f"render template has {render_tmpl.rest.shape[0]} vertices but "
+            f"tracks.num_tracks={cfg.tracks.num_tracks}; the track pool IS "
+            "the vertex set (seed with mesh.vertices)")
+
+
+def make_step(cfg: RunConfig, device, render_tmpl: RenderTemplate = None):
+    """Per-frame step function (carry, frame) -> (carry, out).
+    `render_tmpl`: the mesh-render channels' template (on `device`),
+    required iff cfg.ekf.measurement is "render" or "flow_render"."""
+    _check_template(cfg, render_tmpl)
     F, Q, tail = _filter_model(cfg, device)
     H = torch.as_tensor(dynamics.position_H(cfg.ekf), device=device)
     R = measurement_noise(cfg.ekf, device)
     method = cfg.flow.method
+    meas = cfg.ekf.measurement
 
     def step(carry: Carry, frame: torch.Tensor):
-        gray = grayscale_u8(frame)
-        rpyr = _flow_pyramid(gray, cfg)
-        corner_cache = carry.corner_cache
         frame_idx = carry.frame_idx + 1
+        checks = debug.enabled()
+        gray = grayscale_u8(frame)
+        if checks:
+            debug.check_finite("grayscale", frame_idx, gray)
+        rpyr = _flow_pyramid(gray, cfg)
+        if checks:
+            debug.check_finite("flow pyramid", frame_idx, rpyr)
+        corner_cache = carry.corner_cache
         pool = None
         if cfg.tracks.reinit:
             if cfg.tracks.reinit_every <= 1 or not corner_cache:
@@ -330,7 +364,11 @@ def make_step(cfg: RunConfig, device):
                     corner_cache = _fresh_corner_pool(gray, cfg)
                 pool = corner_cache
         flow = None
-        if _photometric(cfg):
+        if meas == "render":
+            # the deformed-mesh appearance alone: no flow
+            state, aux = render_step(carry.tracks, gray, cfg.ekf, F, Q,
+                                     render_tmpl)
+        elif meas == "photometric":
             # the appearance channel alone: Gauss-Newton on the frames
             state, aux = photometric_step(carry.tracks, carry.prev_gray,
                                           gray, cfg.ekf, F, Q)
@@ -353,14 +391,26 @@ def make_step(cfg: RunConfig, device):
                                             flow0=carry.prev_flow)
                     if method == "farneback"
                     else _flow_field(carry.prev_gray, gray, cfg))
+            if checks:
+                debug.check_finite("flow", frame_idx, flow)
             state, aux = ekf_step(carry.tracks, flow, cfg.ekf, F, Q)
-        if cfg.ekf.measurement == "flow_photometric":
+        if meas == "flow_photometric":
             # the second, photometric update of the flow-updated state
             state, aux = photometric_refine(state, aux, carry.prev_gray,
                                             gray, carry.tracks.x[:, 0:2],
                                             cfg.ekf)
+        elif meas == "flow_render":
+            # the second, render update of the flow-updated state
+            state, aux = render_refine(state, aux, gray, cfg.ekf,
+                                       render_tmpl)
+        if checks:
+            debug.check_finite("measurement update", frame_idx, state.x,
+                               state.P, aux["nis"])
         state, lag_buf, out = tail(state, aux, carry.lag_buf, pool,
                                    gray.shape[0], gray.shape[1])
+        if checks:
+            debug.check_finite("lifecycle", frame_idx, state.x, state.P,
+                               out.get("smoothed_lag"))
         # temporal warm start: this pair's flow seeds the next pair's
         # coarsest level
         prev_flow = None if carry.prev_flow is None else flow
@@ -417,11 +467,13 @@ def _finalize_track_outputs(state0: TrackState, final_lag_buf: Tuple,
 
 def track_arrays(frames: torch.Tensor, cfg: RunConfig,
                  with_history: bool = False,
-                 seeds: Optional[torch.Tensor] = None) -> dict:
+                 seeds: Optional[torch.Tensor] = None,
+                 render_tmpl: RenderTemplate = None) -> dict:
     """(T, H, W[, 3]) frame tensor -> {"pos", "alive", "nis", "track_id"
     [, "smoothed"]} stacked over T (row 0 is the seeded state, nis 0);
     with_history adds the filter history (x_filt, P_filt, x_pred, P_pred).
-    `seeds` (K, 2) replaces the corner-pool seeding."""
+    `seeds` (K, 2) replaces the corner-pool seeding; `render_tmpl` is the
+    mesh-render channels' template, on the frames' device."""
     check_slice(cfg)
     if cfg.pair_batch:
         return track_arrays_pairflow(frames, cfg, with_history, seeds)
@@ -434,7 +486,7 @@ def track_arrays(frames: torch.Tensor, cfg: RunConfig,
         # re-prime the window from the replaced seed state
         carry = carry._replace(lag_buf=_lag_buf_init(carry.tracks, _lag(cfg)))
     s0 = carry.tracks
-    step = make_step(cfg, frames.device)
+    step = make_step(cfg, frames.device, render_tmpl)
     rows = []
     for t in range(1, frames.shape[0]):
         carry, out = step(carry, frames[t])
@@ -563,15 +615,6 @@ def flow_sequence(frames: torch.Tensor, cfg: RunConfig,
     return flows
 
 
-def _device(device) -> torch.device:
-    """`device` as a torch.device; a card is set up (TF32 off) before any
-    work, and asking for one without a card raises."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        return cuda_device(device.index or 0)
-    return device
-
-
 def upload(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(_device(device))
 
@@ -637,23 +680,23 @@ def track_clip(frames: np.ndarray, cfg: RunConfig,
     the filter history is moved to host memory and smoothed a chunk at a
     time (the long-horizon memory plan). The reference's parameters, in
     its order: `with_history` has no effect there either (Trajectories
-    carries no filter history); `render_tmpl`, the mesh-render channels'
-    template, is not ported yet."""
-    if render_tmpl is not None:
-        raise NotImplementedError("track_clip(render_tmpl=...): the "
-                                  "mesh-render channels are outside the "
-                                  "ported slice (ROADMAP P11b)")
+    carries no filter history); `render_tmpl` is the mesh-render
+    channels' template (models.render.make_template), moved to `device`
+    if it is elsewhere."""
     frames_d = upload(frames, device)
     seeds_d = _seeds(seeds, device)
+    tmpl = None if render_tmpl is None else render_tmpl.to(frames_d.device)
     if cfg.smooth.enabled and cfg.smooth.chunk > 0 and cfg.smooth.lag == 0:
         filt = cfg.replace(smooth=dataclasses.replace(cfg.smooth,
                                                       enabled=False))
         outs = {k: v.cpu() for k, v in track_arrays(
-            frames_d, filt, with_history=True, seeds=seeds_d).items()}
+            frames_d, filt, with_history=True, seeds=seeds_d,
+            render_tmpl=tmpl).items()}
         outs["smoothed"] = _smooth_history_chunked(
             outs, cfg, frames_d.device)[..., 0:2]
         return _trajectories({k: outs[k] for k in _ROWS + ("smoothed",)})
-    return _trajectories(track_arrays(frames_d, cfg, seeds=seeds_d))
+    return _trajectories(track_arrays(frames_d, cfg, seeds=seeds_d,
+                                      render_tmpl=tmpl))
 
 
 def track_clips(clips: np.ndarray, cfg: RunConfig,
@@ -781,7 +824,7 @@ def _resume_carry(path: str, cfg: RunConfig, dev: torch.device) -> Carry:
                    if lbuf is not None and lbuf[0].shape[0] == lag + 1
                    else _lag_buf_init(tracks, lag))
     prev_flow = None
-    if cfg.flow.temporal_init and not _photometric(cfg):
+    if cfg.flow.temporal_init and not _no_flow(cfg):
         prev_flow = (upload(np.asarray(pflow, np.float32), dev)
                      if pflow is not None
                      else torch.zeros(prev_gray.shape + (2,),
@@ -810,14 +853,12 @@ def track_stream(frame_iter: Iterator[np.ndarray], cfg: RunConfig,
     positions (ignored on resume: the checkpoint carries the tracks).
     Smoothing: with `lag` the fixed-lag rows and one RTS over the final
     window; otherwise the filter history is kept in host memory and
-    smoothed a chunk at a time. `render_tmpl`, the mesh-render channels'
-    template, is not ported yet."""
-    if render_tmpl is not None:
-        raise NotImplementedError("track_stream(render_tmpl=...): the "
-                                  "mesh-render channels are outside the "
-                                  "ported slice (ROADMAP P11b)")
+    smoothed a chunk at a time. `render_tmpl` is the mesh-render
+    channels' template (moved to `device` if it is elsewhere)."""
     check_slice(cfg)
     dev = _device(device)
+    if render_tmpl is not None:
+        render_tmpl = render_tmpl.to(dev)
     fetch_keys = _ROWS
     use_lag = bool(_lag(cfg))
     if use_lag:
@@ -858,7 +899,7 @@ def track_stream(frame_iter: Iterator[np.ndarray], cfg: RunConfig,
                                                          _lag(cfg)))
         rows.append(_state_row(carry, cfg, fetch_keys))
 
-    step = make_step(cfg, dev)
+    step = make_step(cfg, dev, render_tmpl)
     fetch = _RowFetch(fetch_keys, dev)
     for frame in device_prefetch(it, depth=2, device=dev):
         carry, out = step(carry, frame)

@@ -1,4 +1,5 @@
-"""Utilities of the port: checkpoint/resume and run reports."""
-from . import checkpoint, report
+"""Utilities of the port: checkpoint/resume, run reports, numeric
+sanitizers and profiling."""
+from . import checkpoint, debug, profiling, report
 
-__all__ = ["checkpoint", "report"]
+__all__ = ["checkpoint", "debug", "profiling", "report"]

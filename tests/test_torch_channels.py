@@ -208,6 +208,34 @@ def test_segment_body_matches_reference(invert):
             np.asarray(jseg.mask_scores(jnp.asarray(img), jnp.asarray(jm))))
 
 
+def _frame_1080p(name):
+    """Frame 0 of a 1080 x 1920 clip: deforming_body_clip's default (the
+    mesh paths' clip) or chip_smoke.py's path A clip (moving_blob_clip)."""
+    from kalman_hydra_tpu.io.synthetic import deforming_body_clip
+    if name == "body":
+        return deforming_body_clip(num_frames=1, height=1080, width=1920,
+                                   seed=0)[0][0]
+    return moving_blob_clip(num_frames=1, height=1080, width=1920,
+                            num_points=16, blob_sigma=1920 / 18.0,
+                            velocity=(2.1, -1.4), seed=0)[0][0]
+
+
+@pytest.mark.parametrize("name", ["body", "blob"])
+def test_segment_body_matches_reference_at_1080p(name):
+    """At 1080p the histogram's intensity sum passes 2^24, where the
+    port's int64 cumulation and the reference's f32 cumsum may part:
+    Otsu's threshold equal and the body mask identical, bit for bit."""
+    from kalman_hydra_tpu.ops.color import grayscale_u8 as jgray
+    g = np.array(jgray(jnp.asarray(_frame_1080p(name))))
+    assert g.sum() > 2 ** 24
+    jt = jseg.otsu_threshold(jnp.asarray(g))
+    assert float(tseg.otsu_threshold(_t(g))) == float(jt)
+    jm = np.asarray(jseg.segment_body(jnp.asarray(g)))
+    tm = tseg.segment_body(_t(g)).numpy()
+    np.testing.assert_array_equal(tm, jm)
+    assert 0 < tm.sum() < tm.size
+
+
 _BASE = RunConfig(tracks=TrackConfig(num_tracks=16, reinit_every=2),
                   impl="pallas", pallas_interpret=True)
 _PATHS = {

@@ -1,7 +1,8 @@
 """The port's CLI, API file paths and run reports on the CPU: `synth`,
 `track` (clip mode, --stream, --checkpoint, --resume, the smoothing and
-config flags), `flow`, each with --device cpu; what is not ported yet
-raises NotImplementedError naming its ROADMAP item; `api.track_video`
+config flags, --profile), `flow` and `mesh`, each with --device cpu;
+`bench`, not ported yet, raises NotImplementedError naming its ROADMAP
+item; `api.track_video`
 and `api.smooth` over a path, streamed or not, against the array run;
 `api.export`; `run_report` and `write_report` against the reference's."""
 
@@ -138,19 +139,30 @@ def test_track_flags(clip_path, tmp_path, name):
 
 
 _REFUSED = {
-    "mesh": (["mesh", "clip.npz"], "P11b"),
+    "mesh": (["mesh", "{clip}", "--out", "{tmp}/m.npz", "--vertices", "8",
+              "--device", "cpu"], "P11b"),
     "bench": (["bench", "--quick"], "P6"),
-    "profile": (["track", "clip.npz", "--profile", "trace.json"], "P14"),
+    "profile": (["track", "{clip}", "--out", "{tmp}/t.npz", "--profile",
+                 "{tmp}/prof", "--device", "cpu"], "P14"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_REFUSED))
-def test_not_ported_yet_raises(name):
-    """mesh, bench and track --profile raise NotImplementedError naming
-    their ROADMAP item; the port never runs the JAX bench.py."""
+def test_not_ported_yet_raises(name, clip_path, tmp_path):
+    """bench, which is not ported yet, raises NotImplementedError naming
+    ROADMAP P6 (the port never runs the JAX bench.py); mesh and track
+    --profile, which raised naming P11b and P14 until those were ported,
+    now run on the CPU and write their outputs."""
     argv, item = _REFUSED[name]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        main(argv + (["--device", "cpu"] if argv[0] == "track" else []))
+    argv = [a.format(clip=clip_path[0], tmp=tmp_path) for a in argv]
+    if name == "bench":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            main(argv)
+        return
+    assert main(argv) == 0
+    assert (tmp_path / ("m.npz" if name == "mesh" else "t.npz")).exists()
+    if name == "profile":
+        assert list((tmp_path / "prof").iterdir())
 
 
 def test_checkpoint_needs_stream(clip_path):

@@ -34,12 +34,15 @@ def _run(args, cwd):
                           capture_output=True, text=True, timeout=300)
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     """Importing every module of the port, tracking clips on the CPU
     through all three paths, with sparse and dense LK, the pair-batched
     exact warp, fi_pipeline and the measurement channels, calling every
     entry point with its default config (track_video, smooth, flow,
-    flow_sequence) and track_precomputed_flow leaves jax, jaxlib and
+    flow_sequence), track_precomputed_flow, track_mesh streamed with
+    flow_render (the render update after the flow's) under debug_checks,
+    the mesh strain and the profiler's trace and cost leaves jax, jaxlib
+    and
     every module of the JAX package out of sys.modules."""
     code = (
         "import sys, pkgutil, importlib, numpy as np\n"
@@ -88,10 +91,24 @@ def test_port_never_imports_jax():
         "tr = pipeline.track_precomputed_flow(fl, np.ones((4, 2)),\n"
         "                                     RunConfig(), device='cpu')\n"
         "assert tr.positions.shape == (3, 4, 2)\n"
+        "from kalman_hydra_tpu_torch.io.synthetic import deforming_body_clip\n"
+        "from kalman_hydra_tpu_torch.models import mesh as M\n"
+        "from kalman_hydra_tpu_torch.utils import debug, profiling\n"
+        "import torch\n"
+        "body, _, _ = deforming_body_clip(num_frames=3, height=64, width=80)\n"
+        "c = RunConfig(flow=f2, ekf=EkfConfig(measurement='flow_render'),\n"
+        "              tracks=TrackConfig(reinit=False))\n"
+        "with debug.debug_checks():\n"
+        "    mesh, tr = api.track_mesh(body, c, n_vertices=8,\n"
+        "                              streaming=True, device='cpu')\n"
+        "assert tr.positions.shape == (3, 8, 2)\n"
+        "M.mesh_strain_sequence_dynamic(mesh, tr.positions, device='cpu')\n"
+        "with profiling.trace(sys.argv[1]):\n"
+        "    profiling.cost(torch.mm, torch.ones(4, 4), torch.ones(4, 4))\n"
         "ref = [m for m in sys.modules if m.split('.')[0]\n"
         "       in ('jax', 'jaxlib', 'kalman_hydra_tpu')]\n"
         "print(ref)\n")
-    res = _run(["-c", code], REPO)
+    res = _run(["-c", code, str(tmp_path / "prof")], REPO)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
 
@@ -226,6 +243,8 @@ _ENTRY_POINTS = {
             tconfig.RunConfig(), **dev),
     "pipeline.track_stream": lambda clip, dev: pipeline.track_stream(
         iter(clip), pipeline.main_path_config(8), **dev),
+    "api.track_mesh": lambda clip, dev: api.track_mesh(clip, None, None, 8,
+                                                       **dev),
 }
 
 
@@ -267,6 +286,8 @@ _REFERENCE_FORM = {
     "pipeline.track_stream": lambda clip, tmp: pipeline.track_stream(
         iter(clip), _SMALL, None, None, 0, False, None, None,
         device="cpu"),
+    "api.track_mesh": lambda clip, tmp: api.track_mesh(
+        clip, None, None, 8, 0, False, device="cpu")[1],
 }
 
 
@@ -335,31 +356,73 @@ def test_chip_smoke_fails_without_card(alone, tmp_path):
 
 _BASE = pipeline.main_path_config(16)
 _RENDER = dict(tracks=tconfig.TrackConfig(num_tracks=16, reinit=False))
+
+
+def _wrong_template():
+    from kalman_hydra_tpu_torch.models.mesh import build_mesh
+    from kalman_hydra_tpu_torch.models.render import make_template
+    pts = np.float32([[10, 10], [40, 10], [10, 30], [40, 30]])
+    return make_template(np.zeros((48, 64), np.float32), build_mesh(pts),
+                         device="cpu")
+
+
+# name: (call, the exception it raises, what its message names)
 _OUTSIDE = {
-    "render": lambda: pipeline.check_slice(_BASE.replace(
-        ekf=tconfig.EkfConfig(measurement="render"), **_RENDER)),
-    "flow_render": lambda: pipeline.check_slice(_BASE.replace(
-        ekf=tconfig.EkfConfig(measurement="flow_render"), **_RENDER)),
-    "track_video_streaming": lambda: api.track_video(
+    "render": (lambda: pipeline.make_step(_BASE.replace(
+        ekf=tconfig.EkfConfig(measurement="render"), **_RENDER), "cpu"),
+        ValueError, "RenderTemplate"),
+    "flow_render": (lambda: pipeline.make_step(_BASE.replace(
+        ekf=tconfig.EkfConfig(measurement="flow_render"), **_RENDER), "cpu"),
+        ValueError, "RenderTemplate"),
+    "track_video_streaming": (lambda: api.track_video(
         np.zeros((2, 48, 64), np.uint8), _BASE.replace(
             ekf=tconfig.EkfConfig(measurement="render"), **_RENDER),
-        streaming=True, device="cpu"),
-    "track_videos_sharded": lambda: api.track_videos(
+        streaming=True, device="cpu"), ValueError, "RenderTemplate"),
+    "track_videos_sharded": (lambda: api.track_videos(
         np.zeros((1, 2, 48, 64), np.uint8), sharded=True, device="cpu"),
-    "track_clip_render_tmpl": lambda: pipeline.track_clip(
+        NotImplementedError, "ROADMAP P13"),
+    "flow_sharded": (lambda: api.flow_sharded(
+        np.zeros((48, 64), np.uint8), np.zeros((48, 64), np.uint8),
+        device="cpu"), NotImplementedError, "ROADMAP P13"),
+    "cli_bench": (lambda: __import__(
+        "kalman_hydra_tpu_torch.cli", fromlist=["main"]).main(
+        ["bench", "--quick"]), NotImplementedError, "ROADMAP P6"),
+    "track_clip_render_tmpl": (lambda: pipeline.track_clip(
         np.zeros((2, 48, 64), np.uint8), tconfig.RunConfig(), None, False,
-        object(), device="cpu"),
+        _wrong_template(), device="cpu"), ValueError, "vertices"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_OUTSIDE))
 def test_outside_the_slice_raises(name):
-    """What stays outside the ported slices raises NotImplementedError
-    naming its ROADMAP item: the mesh-render channels (P11b, also as
-    track_clip's render_tmpl, and streamed), clips sharded over cards
-    (P13)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _OUTSIDE[name]()
+    """What the port cannot run raises: clips or frame rows over several
+    cards (NotImplementedError naming ROADMAP P13) and the benchmark
+    harness (P6); the mesh-render channels, ported since P11b, without
+    their template or with a template that is not the track pool
+    (ValueError, as the reference's make_step)."""
+    call, exc, match = _OUTSIDE[name]
+    with pytest.raises(exc, match=match):
+        call()
+
+
+def test_not_implemented_only_for_p13_p6_and_f4():
+    """Every NotImplementedError that the port raises names ROADMAP P13
+    (several cards), P6 (the benchmark) or F4's poly_n limit; the
+    mesh-render channels, the CLI's mesh and track --profile run, and
+    the render configurations pass check_slice."""
+    import re
+    pkg = REPO / "kalman_hydra_tpu_torch"
+    raised = []
+    for f in pkg.rglob("*.py"):
+        text = f.read_text()
+        for m in re.finditer(r"raise NotImplementedError\(", text):
+            raised.append(text[m.end():m.end() + 300])
+    assert len(raised) == 4
+    for msg in raised:
+        assert re.search(r"ROADMAP (P13|P6)|F4", msg), msg
+    for meas in ("render", "flow_render"):
+        pipeline.check_slice(_BASE.replace(
+            ekf=tconfig.EkfConfig(measurement=meas), **_RENDER))
 
 
 _SETTINGS_CONFIGS = {

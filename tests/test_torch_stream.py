@@ -4,7 +4,8 @@ clip (the default config with re-seeding from a corner pool; init_velocity
 with reinit_every 3, temporal_init and fixed-lag smoothing; lk_sparse with
 lag-0 (chunked) smoothing, seeds and frame0), each stream against the
 port's own `track_clip`, and what the stream leaves to the per-frame step
-(pair_batch) or refuses (render_tmpl, the mesh-render channels)."""
+(pair_batch) or refuses (the mesh-render channels without their
+template)."""
 
 import dataclasses
 
@@ -108,16 +109,23 @@ def test_stream_runs_the_per_frame_step(clip):
 
 
 def test_stream_refuses_the_render_channels(clip):
-    """render_tmpl and the mesh-render measurement raise
-    NotImplementedError naming ROADMAP P11b."""
+    """The mesh-render measurement without a template, and a template
+    whose vertices are not the track pool, raise ValueError, as the
+    reference's make_step does (the channels themselves run since ROADMAP
+    P11b: tests/test_torch_track_mesh.py)."""
+    from kalman_hydra_tpu_torch.models.mesh import build_mesh
+    from kalman_hydra_tpu_torch.models.render import make_template
     frames, _ = clip
     cfg = _ported(CASES["default"])
-    with pytest.raises(NotImplementedError, match="P11b"):
-        tp.track_stream(iter(frames), cfg, render_tmpl=object(),
-                        device="cpu")
     render = cfg.replace(ekf=dataclasses.replace(cfg.ekf,
                                                  measurement="render"),
                          tracks=dataclasses.replace(cfg.tracks,
                                                     reinit=False))
-    with pytest.raises(NotImplementedError, match="P11b"):
+    with pytest.raises(ValueError, match="RenderTemplate"):
         tp.track_stream(iter(frames), render, device="cpu")
+    pts = np.float32([[20, 20], [50, 20], [20, 40], [50, 40]])
+    tmpl = make_template(frames[0, ..., 0].astype(np.float32),
+                         build_mesh(pts), device="cpu")
+    with pytest.raises(ValueError, match="vertices"):
+        tp.track_stream(iter(frames), render, render_tmpl=tmpl,
+                        device="cpu")
