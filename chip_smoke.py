@@ -129,6 +129,28 @@ prints no result line):
           launches what it launches without them, with the same tracks,
           and a NaN in one frame raises FloatingPointError naming the
           stage and the frame;
+       K2-band. K2's band mode on 1080x1920 planes cut into 4 bands in
+          the reference's slab layout (band rows +- RPAD), at winsize
+          15, 81 and 101 (the three tile routes): against its plain
+          band version (< 1e-4) and each band's interior against the
+          full-frame K2 launch (< 1e-5), one launch a band; timed;
+       SF. parallel.spatial.farneback_sharded on A's FlowConfig over a
+          1080x1920 translating_pair on meshes of 4 and 8 shards of the
+          one card (and at f32 planes on 4) against api.flow (rows >= 8
+          px from the border < 0.05 px, all < 0.15; f32 5e-3, 0.1; rows
+          48 ... 1031, the band interiors, < 1e-5) and against its plain
+          route on the card (mean EPE < 1e-3 px, max < 1e-3 px);
+       SL. lk_dense_sharded (levels 3, 2 shards) against api.flow at
+          method "lk_dense" (< 1e-3 inside, < 0.1);
+       DP, DP-C, DP-R. parallel.track_clips_sharded: C's 4 clips at
+          main_path_config() on 4 shards with reduce_metrics, at
+          pair_path_config() on 2 shards of 2 clips, and R-480's clip 4
+          times with its template on 4 shards, against
+          track_clips_batch (< 1e-5 px, < 5e-4 px for render; alive and
+          track_id identical); DP's metrics against NumPy's means;
+       DP-D. api.track_videos(sharded=True) with no config on the
+          default mesh, bit for bit sharded=False; then
+          api.flow_sharded on the default mesh against api.flow;
      check the launch counts, the outputs against the plain functions,
      the CPU smoothers, the per-frame path and the CPU path, and report
      frames/s; H, H0, W and J again through the per-level K9/K10 launches
@@ -2687,32 +2709,35 @@ def path_a(dev, clip, cfg, counts_by_path):
     check_tracks(tr, T, K)
 
 
-def plain_flow(g0, g1, f):
-    """Frame-pair flow (H, W, 2) composed from the kernels' plain versions
-    only, as ops.farneback composes the kernels."""
-    from kalman_hydra_tpu_torch.kernels.flow_iter import flow_iter_plain
-    from kalman_hydra_tpu_torch.kernels.flow_update import flow_update_plain
+def plain_pyramid(g, f):
+    """A frame's polyexp pyramid, coarsest first, composed from the
+    kernels' plain versions only, as ops.farneback.polyexp_pyramid
+    composes the kernels."""
     from kalman_hydra_tpu_torch.kernels.level_image import (
         coarse_level_images_plain, coarse_polyexp_fused_plain)
     from kalman_hydra_tpu_torch.kernels.polyexp import \
         poly_expansion_planar_plain
-    from kalman_hydra_tpu_torch.ops.pyramid import (gaussian_blur_level,
-                                                    resize_linear)
+    from kalman_hydra_tpu_torch.ops.pyramid import gaussian_blur_level
     dt = torch.bfloat16 if f.bf16_poly else torch.float32
     n, s = f.poly_n, f.poly_sigma
+    img0 = gaussian_blur_level(g, f, k=0)
+    if not f.pe_fused:
+        return [poly_expansion_planar_plain(i, n, s, dt) for i in
+                coarse_level_images_plain(g, f.levels, f.pyr_scale)
+                + [img0]]
+    return (coarse_polyexp_fused_plain(g, f.levels, f.pyr_scale, n, s, dt)
+            + [poly_expansion_planar_plain(img0, n, s, dt)])
 
-    def pyramid(g):
-        img0 = gaussian_blur_level(g, f, k=0)
-        if not f.pe_fused:
-            return [poly_expansion_planar_plain(i, n, s, dt) for i in
-                    coarse_level_images_plain(g, f.levels, f.pyr_scale)
-                    + [img0]]
-        return (coarse_polyexp_fused_plain(g, f.levels, f.pyr_scale, n, s,
-                                           dt)
-                + [poly_expansion_planar_plain(img0, n, s, dt)])
 
+def plain_levels(Rs_a, Rs_b, f):
+    """Flow (h, w, 2) from two pyramids through the kernels' plain
+    versions only, as ops.farneback.farneback_from_pyramids composes the
+    kernels."""
+    from kalman_hydra_tpu_torch.kernels.flow_iter import flow_iter_plain
+    from kalman_hydra_tpu_torch.kernels.flow_update import flow_update_plain
+    from kalman_hydra_tpu_torch.ops.pyramid import resize_linear
     flow = None
-    for R0, R1 in zip(pyramid(g0), pyramid(g1)):
+    for R0, R1 in zip(Rs_a, Rs_b):
         lh, lw = R0.shape[1:]
         flow = (torch.zeros((2, lh, lw), device=R0.device) if flow is None
                 else resize_linear(flow, lh, lw) * (1.0 / f.pyr_scale))
@@ -2724,6 +2749,12 @@ def plain_flow(g0, g1, f):
                 flow = flow_iter_plain(R0, R1, flow, f.winsize, f.fast_warp,
                                        f.gaussian_win)
     return flow.movedim(0, -1)
+
+
+def plain_flow(g0, g1, f):
+    """Frame-pair flow (H, W, 2) composed from the kernels' plain versions
+    only, as ops.farneback composes the kernels."""
+    return plain_levels(plain_pyramid(g0, f), plain_pyramid(g1, f), f)
 
 
 @phase("flow pair vs plain functions on the card")
@@ -3747,6 +3778,404 @@ def check_p14_debug(dev):
         raise AssertionError("debug_checks let a NaN frame through")
 
 
+# ------------------------------------------------ parallel paths (P13)
+
+N_BANDS = 4                                # K2-band: 1080p in 4 bands
+BAND_WINSIZES = (15, 81, 101)              # 32 x 64 tile, 16 x 32, M in
+#                                            device memory (tile_plan)
+SF_SHARDS = (4, 8)                         # path SF's one-card meshes
+# SF against its plain route, max EPE: 10x K2's 1e-4 a launch, for the
+# coarse levels and 3 band iterations compounding (3.6e-4 px on an H100)
+SF_PLAIN_MAX = 1e-3
+
+
+def band_slabs(xs, n, rpad, h):
+    """farneback_sharded's slab layout of (c, h, w) tensors: band i's rows
+    i h / n - rpad ... (i + 1) h / n + rpad - 1, the rows past the image
+    replicating its edge rows; each slab contiguous."""
+    hb = h // n
+    out = []
+    for i in range(n):
+        idx = torch.arange(i * hb - rpad, (i + 1) * hb + rpad,
+                           device=xs[0].device).clamp(0, h - 1)
+        out.append(tuple(x.index_select(1, idx) for x in xs))
+    return out
+
+
+@phase("K2-band flow_iter with row0 (K2's band mode, 1080p in 4 bands)")
+def check_k2_band(dev, cfg, results):
+    """K2's band mode on 1080x1920 planes cut into 4 bands in the
+    reference's slab layout (band rows +- RPAD, RPAD = winsize // 2 +
+    fast_warp + 1), at winsize 15, 81 and 101 (one per tile route), f32
+    and bf16 planes, a Gaussian window at 15, a random +-10 px prior:
+    (a) each band launch against its plain band version (< 1e-4, K2's
+    bar), (b) each band's interior against the full-frame K2 launch's rows
+    (< 1e-5; 0 expected: the same values at the same image pixels), (c)
+    one launch a band a call. Timed (random +-3 px prior, bf16, winsize
+    15) per call and on the device: one interior band, the 4 bands, and
+    one full-frame K2, in turns."""
+    from kalman_hydra_tpu_torch import kernels
+    from kalman_hydra_tpu_torch.kernels.flow_iter import (
+        flow_iter, flow_iter_plain, tile_plan)
+    f = cfg.flow
+    D = f.fast_warp
+    hb = H // N_BANDS
+    g = torch.Generator().manual_seed(5)
+    R0 = torch.randn(5, H, W, generator=g).to(dev)
+    R1 = torch.randn(5, H, W, generator=g).to(dev)
+    fl = (torch.rand(2, H, W, generator=g) * 20 - 10).to(dev)
+    worst_plain = worst_full = 0.0
+    for ws in BAND_WINSIZES:
+        rpad = ws // 2 + D + 1
+        plan = tile_plan(hb + 2 * rpad, W, ws)
+        for dt, gw in ((torch.float32, False), (torch.bfloat16, False)) + (
+                ((torch.float32, True),) if ws == f.winsize else ()):
+            a, b = R0.to(dt), R1.to(dt)
+            full = flow_iter(a, b, fl, ws, D, gw)
+            e_plain = e_full = 0.0
+            for i, (sa, sb, sf) in enumerate(band_slabs((a, b, fl), N_BANDS,
+                                                        rpad, H)):
+                row0 = i * hb - rpad
+                out = flow_iter(sa, sb, sf, ws, D, gw, row0, H)
+                e_plain = max(e_plain, max_err(out, flow_iter_plain(
+                    sa, sb, sf, ws, D, gw, row0, H)))
+                e_full = max(e_full, max_err(out[:, rpad:rpad + hb],
+                                             full[:, i * hb:(i + 1) * hb]))
+            worst_plain = max(worst_plain, e_plain)
+            worst_full = max(worst_full, e_full)
+            log(f"  K2-band winsize {ws} (tile shape {plan.shape}: "
+                f"{plan.th}x{plan.tw}), {str(dt)[6:]}{'/g' if gw else ''}: "
+                f"vs plain {e_plain:.1e}, interior vs full-frame K2 "
+                f"{e_full:.1e}")
+    log(f"  K2-band max_abs_err vs plain {worst_plain:.3e} (bar 1e-4); "
+        f"band interiors vs full-frame K2 {worst_full:.3e} (bar 1e-5)")
+    assert worst_plain < 1e-4 and worst_full < 1e-5
+    rpad = f.winsize // 2 + D + 1
+    a, b = R0.to(torch.bfloat16), R1.to(torch.bfloat16)
+    fl3 = (torch.rand(2, H, W, generator=g) * 6 - 3).to(dev)
+    slabs = band_slabs((a, b, fl3), N_BANDS, rpad, H)
+
+    def bands():
+        return [flow_iter(*s, f.winsize, D, False, i * hb - rpad, H)
+                for i, s in enumerate(slabs)]
+    expect = dict.fromkeys(kernels.WRAPPERS, 0)
+    expect["flow_iter_band"] = N_BANDS
+    drive("K2-band (one call of the 4 bands)", bands, expect, {})
+    one = slabs[1]
+    ms = time_turns({
+        "plain": lambda: flow_iter_plain(*one, f.winsize, D, False,
+                                         hb - rpad, H),
+        "kernel": lambda: flow_iter(*one, f.winsize, D, False, hb - rpad,
+                                    H),
+        "bands": bands,
+        "full": lambda: flow_iter(a, b, fl3, f.winsize, D)})
+    rows = hb + 2 * rpad
+    log(f"  K2-band time ({rows}x{W} slab of a {H}x{W} image, bf16, "
+        f"winsize {f.winsize}): one band {ms['kernel']:.4f} ms per call, "
+        f"{ms['kernel dev']:.4f} on the device; the {N_BANDS} bands "
+        f"{ms['bands']:.4f}, {ms['bands dev']:.4f}; full-frame K2 "
+        f"{ms['full']:.4f}, {ms['full dev']:.4f}")
+    taps = 2 * (f.winsize // 2) + 1
+    record(results, "flow_iter_band", worst_plain, ms["kernel"],
+           ms["plain"], rows * W * (10 * 2 + 8 + 8),
+           rows * W * fi_flops(taps), dev=ms)
+    results["flow_iter_band"].update(
+        interior_vs_full=worst_full, bands_ms=ms["bands"],
+        bands_device_ms=ms["bands dev"], full_ms=ms["full"],
+        full_device_ms=ms["full dev"])
+
+
+def sharded_flow_expected(f, h, w, n) -> dict:
+    """Launches of one farneback_sharded call on an n-shard one-card
+    mesh: the coarse levels of both frames once (K4 or K11 and K3 on each,
+    and the coarse levels' flow: K5, K13 or K2, as per_frame_expected
+    counts them for one frame pair); K3 on each shard's two slabs; and
+    `iterations` band launches a shard (the fine level, which at this
+    size never passes K5's gate)."""
+    from kalman_hydra_tpu_torch.config import RunConfig
+    from kalman_hydra_tpu_torch.kernels.flow_level import fits
+    from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
+    _k, lh, lw, _s, _ks = farneback_levels(h, w, f.levels,
+                                           f.pyr_scale)[-1]
+    assert not fits(lh, lw, 2 if f.bf16_poly else 4)
+    e = per_frame_expected(RunConfig(flow=f), h, w, 2)
+    e["ekf_fused_step"] = 0
+    if f.fi_pipeline and f.iterations >= 2:
+        e["flow_iters_pipelined"] -= 1
+    else:
+        e["flow_iter"] -= f.iterations
+    e["poly_expansion_planar"] += 2 * (n - 1)
+    e["flow_iter_band"] = n * f.iterations
+    return e
+
+
+@contextlib.contextmanager
+def plain_sf_route():
+    """farneback_sharded through the plain versions of its kernels on the
+    card, patched into parallel.spatial (the coarse pyramids and levels,
+    K3 on the slabs, K2's band mode): the plain route SF is held
+    against."""
+    from kalman_hydra_tpu_torch.kernels.flow_iter import flow_iter_plain
+    from kalman_hydra_tpu_torch.kernels.polyexp import \
+        poly_expansion_planar_plain
+    from kalman_hydra_tpu_torch.parallel import spatial
+    names = ("polyexp_pyramid", "farneback_from_pyramids",
+             "poly_expansion_planar", "flow_iter")
+    saved = [getattr(spatial, k) for k in names]
+    spatial.polyexp_pyramid = lambda img, f, fine=True: tuple(
+        plain_pyramid(img, f)[:None if fine else -1])
+    spatial.farneback_from_pyramids = plain_levels
+    spatial.poly_expansion_planar = lambda img, n, s, out_dtype: \
+        poly_expansion_planar_plain(img, n, s, out_dtype)
+    spatial.flow_iter = flow_iter_plain
+    try:
+        yield
+    finally:
+        for k, v in zip(names, saved):
+            setattr(spatial, k, v)
+
+
+def sharded_vs_flat(label, got, ref, inner, outer, core=None):
+    """A sharded flow against the one-card flow: rows >= 8 px from the
+    border below `inner`, every row below `outer`, and with `core` rows 48
+    ... H - 49 below it (Farneback's band interiors are the full frame's
+    rows: 0 expected; the image's top and bottom edges reach ~30 rows in
+    3 iterations); maxima printed, with the row of the largest."""
+    d = np.abs(got - ref)
+    row = int(np.unravel_index(np.argmax(d), d.shape)[0])
+    mid = d[48:-48].max()
+    log(f"  {label} vs api.flow: rows >= 8 px from the border max "
+        f"{d[8:-8, 8:-8].max():.3e} px (bar {inner}), all rows "
+        f"{d.max():.3e} px (bar {outer}) at row {row}; rows 48 ... "
+        f"{d.shape[0] - 49} {mid:.3e} px (bar {core})")
+    assert np.isfinite(got).all() and got.shape == ref.shape
+    assert d[8:-8, 8:-8].max() < inner and d.max() < outer
+    assert core is None or mid < core
+
+
+def sf_pair():
+    from kalman_hydra_tpu_torch.io.synthetic import translating_pair
+    return translating_pair(height=H, width=W, shift=(3.0, -2.0), seed=0)
+
+
+@phase("path SF (parallel.spatial.farneback_sharded, 1080p, meshes of 4 "
+       "and 8 shards of the one card)")
+def path_sf(dev, cfg, counts_by_path, name):
+    """farneback_sharded on A's FlowConfig (5 levels, winsize 15,
+    fast_warp 8, bf16 planes) over 1080x1920 translating_pair, on meshes
+    of 4 and 8 shards of the one card, and at bf16_poly=False on 4:
+    against api.flow on the same config (bf16: rows >= 8 px from the
+    border < 0.05 px, all < 0.15; f32: 5e-3, 0.1; rows 48 ... 1031 <
+    1e-5); against its plain route on the card (mean EPE < 1e-3 px, max
+    < SF_PLAIN_MAX); the call's wall against
+    api.flow's in turns (no claim: the same work on one card)."""
+    from kalman_hydra_tpu_torch import api, kernels
+    from kalman_hydra_tpu_torch.parallel import Mesh
+    from kalman_hydra_tpu_torch.parallel.spatial import farneback_sharded
+    a, b, truth = sf_pair()
+    f = cfg.flow
+    ref = api.flow(a, b, f, device=dev)
+    got = {}
+    for n in SF_SHARDS:
+        mesh = Mesh([dev] * n, ("space",))
+        got[n] = drive(f"SF-{n}", lambda: farneback_sharded(a, b, f, mesh),
+                       sharded_flow_expected(f, H, W, n), counts_by_path)
+        sharded_vs_flat(f"SF-{n} (bf16 planes)", got[n], ref, 0.05, 0.15,
+                        1e-5)
+    epe = np.linalg.norm(got[4] - truth, axis=-1)[16:-16, 16:-16].mean()
+    log(f"  SF-4 mean EPE against the pair's true shift (16 px in): "
+        f"{epe:.4f} px")
+    f32 = dataclasses.replace(f, bf16_poly=False)
+    mesh4 = Mesh([dev] * 4, ("space",))
+    got32 = drive("SF-4 f32", lambda: farneback_sharded(a, b, f32, mesh4),
+                  sharded_flow_expected(f32, H, W, 4), counts_by_path)
+    sharded_vs_flat("SF-4 (f32 planes)", got32,
+                    api.flow(a, b, f32, device=dev), 5e-3, 0.1, 1e-5)
+    with plain_sf_route():
+        kernels.reset_launches()
+        plain = farneback_sharded(a, b, f, mesh4)
+        assert not any(kernels.launch_counts().values())
+    epe = np.linalg.norm(got[4] - plain, axis=-1)
+    log(f"  SF-4 kernels vs the plain route on the card: mean EPE "
+        f"{epe.mean():.3e} px (bar 1e-3), max {epe.max():.3e} px (bar "
+        f"{SF_PLAIN_MAX})")
+    assert epe.mean() < 1e-3 and epe.max() < SF_PLAIN_MAX
+    ts = {"SF-4": [], "api.flow": []}
+    fns = {"SF-4": lambda: farneback_sharded(a, b, f, mesh4),
+           "api.flow": lambda: api.flow(a, b, f, device=dev)}
+    for k in ("SF-4", "api.flow", "api.flow", "SF-4") * 2:
+        ts[k] += clip_seconds(fns[k], 2)
+    log("  wall per call in turns (medians of 8): " + ", ".join(
+        f"{k} {statistics.median(v) * 1e3:.2f} ms" for k, v in ts.items())
+        + f" ({name})")
+    for k, fn in fns.items():
+        profile_path(k, fn, 1, None, statistics.median(ts[k]))
+
+
+@phase("path SL (parallel.spatial.lk_dense_sharded, 1080p, 2 shards)")
+def path_sl(dev, counts_by_path):
+    """lk_dense_sharded at the reference's LK defaults (levels 3) on a
+    2-shard one-card mesh over 1080x1920 translating_pair (plain torch:
+    no kernel, as the reference's is XLA): against api.flow at
+    method="lk_dense" (K9, K10 and plain torch), rows >= 8 px from the
+    border < 1e-3, all < 0.1."""
+    from kalman_hydra_tpu_torch import api, kernels
+    from kalman_hydra_tpu_torch.config import FlowConfig
+    from kalman_hydra_tpu_torch.parallel import Mesh
+    from kalman_hydra_tpu_torch.parallel.spatial import lk_dense_sharded
+    a, b, _ = sf_pair()
+    f = FlowConfig(method="lk_dense", levels=3)
+    got = drive("SL", lambda: lk_dense_sharded(
+        a, b, f, Mesh([dev] * 2, ("space",))),
+        dict.fromkeys(kernels.WRAPPERS, 0), counts_by_path)
+    sharded_vs_flat("SL", got, api.flow(a, b, f, device=dev), 1e-3, 0.1)
+
+
+def dp_compare(label, trs, ref, bar):
+    err = max(float(np.abs(a.positions - b.positions).max())
+              for a, b in zip(trs, ref))
+    same = all(np.array_equal(a.alive, b.alive)
+               and np.array_equal(a.track_id, b.track_id)
+               for a, b in zip(trs, ref))
+    log(f"  {label} vs track_clips_batch: max |pos diff| {err:.3e} px (bar "
+        f"{bar}); alive and track_id identical: {same}")
+    assert len(trs) == len(ref) and err < bar and same
+
+
+def dp_turns(label, fns, steps, name) -> dict:
+    """frames/s of each function in turns (a, b, b, a, ...), medians of
+    4 runs each; a record, not a claim. Returns the median seconds."""
+    ts = {k: [] for k in fns}
+    order = list(fns)
+    for k in (order + order[::-1]) * 2:
+        ts[k] += clip_seconds(fns[k], 1)
+    log(f"  {label} frames/s in turns: " + ", ".join(
+        f"{k} {steps / statistics.median(v):.2f}" for k, v in ts.items())
+        + f" (medians of 4; {name})")
+    return {k: statistics.median(v) for k, v in ts.items()}
+
+
+@phase("path DP (parallel.track_clips_sharded, 4 x 1080p T=9 K=1024 on 4 "
+       "shards of the one card, reduce_metrics)")
+def path_dp(dev, clips_c, cfg, counts_by_path, name):
+    """C's 4 clips at main_path_config() over a 4-shard one-card mesh with
+    reduce_metrics, against track_clips_batch on the card (positions <
+    1e-5 px, 0 expected; alive and track_id identical); the metrics
+    against NumPy means of the returned trajectories (< 1e-6 relative);
+    frames/s of both in turns."""
+    from kalman_hydra_tpu_torch.parallel import (Mesh, track_clips_batch,
+                                                 track_clips_sharded)
+    mesh = Mesh([dev] * 4)
+    e = {k: 4 * v for k, v in per_frame_expected(cfg, H, W, T).items()}
+    trs, metrics = drive("DP", lambda: track_clips_sharded(
+        clips_c, cfg, mesh, None, True), e, counts_by_path)
+    ref = drive("DP batch", lambda: track_clips_batch(clips_c, cfg,
+                                                      device=dev), e, {})
+    for tr in trs:
+        check_tracks(tr, T, K)
+    dp_compare("DP", trs, ref, 1e-5)
+    nis = np.stack([t.nis for t in trs]).astype(np.float64)
+    alive = np.stack([t.alive for t in trs]).astype(np.float64)
+    want = {"mean_nis": nis.mean(), "live_fraction": alive.mean(axis=(0, 2))}
+    rel = {k: float(np.abs(metrics[k] - v).max() / np.abs(v).max())
+           for k, v in want.items()}
+    log(f"  DP metrics: mean_nis {float(metrics['mean_nis']):.6f}, "
+        f"live_fraction {np.round(metrics['live_fraction'], 4).tolist()}; "
+        f"relative diff vs NumPy means {rel} (bar 1e-6)")
+    assert metrics["live_fraction"].shape == (T,)
+    assert max(rel.values()) < 1e-6
+    sharded = lambda: track_clips_sharded(clips_c, cfg, mesh)  # noqa: E731
+    med = dp_turns("DP", {"sharded": sharded,
+                          "batch": lambda: track_clips_batch(
+                              clips_c, cfg, device=dev)},
+                   N_CLIPS * (T - 1), name)
+    profile_path("DP", sharded, N_CLIPS * (T - 1), None, med["sharded"])
+
+
+@phase("path DP-C (parallel.track_clips_sharded, pair_path_config(), 2 "
+       "shards of 2 clips)")
+def path_dp_c(dev, clips_c, pair_cfg, counts_by_path):
+    """C's 4 clips at pair_path_config() (each shard chains its 2 clips
+    through shared launches: K7b, K7a, K6, then K1 a step) against
+    track_clips_batch (all 4 chained), as DP."""
+    from kalman_hydra_tpu_torch.parallel import (Mesh, track_clips_batch,
+                                                 track_clips_sharded)
+    e = {k: 2 * v for k, v in pair_expected(pair_cfg, H, W, 2, T).items()}
+    trs = drive("DP-C", lambda: track_clips_sharded(
+        clips_c, pair_cfg, Mesh([dev] * 2)), e, counts_by_path)
+    ref = drive("DP-C batch", lambda: track_clips_batch(
+        clips_c, pair_cfg, device=dev),
+        pair_expected(pair_cfg, H, W, N_CLIPS, T), {})
+    dp_compare("DP-C", trs, ref, 1e-5)
+
+
+@phase("path DP-R (parallel.track_clips_sharded, render, R-480's clip and "
+       "template, 4 clips on 4 shards)")
+def path_dp_r(dev, counts_by_path):
+    """R-480's clip (480x640, T=9) 4 times with its mesh (V=64) and one
+    render template, copied to the card once, on 4 shards: against
+    track_clips_batch (< 5e-4 px, alive identical; no kernel)."""
+    from kalman_hydra_tpu_torch import pipeline
+    from kalman_hydra_tpu_torch.models.mesh import mesh_from_mask
+    from kalman_hydra_tpu_torch.models.render import make_template
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    from kalman_hydra_tpu_torch.ops.segment import segment_body
+    from kalman_hydra_tpu_torch.parallel import (Mesh, track_clips_batch,
+                                                 track_clips_sharded)
+    clip = body_clip(H_R480, W_R480)
+    gray0 = grayscale_u8(pipeline.upload(clip[0], dev))
+    mesh = mesh_from_mask(segment_body(gray0).cpu().numpy(),
+                          n_points=V_R480, seed=0)
+    tmpl = make_template(gray0, mesh, device="cpu")
+    cfg = mesh_config("render")
+    cfg = cfg.replace(tracks=dataclasses.replace(
+        cfg.tracks, num_tracks=mesh.vertices.shape[0]))
+    clips = np.stack([clip] * 4)
+    trs = drive("DP-R", lambda: track_clips_sharded(
+        clips, cfg, Mesh([dev] * 4), mesh.vertices, render_tmpl=tmpl),
+        dict.fromkeys(per_frame_expected(cfg, H_R480, W_R480, T), 0),
+        counts_by_path)
+    ref = track_clips_batch(clips, cfg, mesh.vertices, tmpl, device=dev)
+    dp_compare("DP-R", trs, ref, 5e-4)
+
+
+@phase("path DP-D (api.track_videos(sharded=True), no config, the "
+       "default mesh)")
+def path_dp_d(dev, clips_c, counts_by_path):
+    """Two of C's clips through api.track_videos(sharded=True) with no
+    config (RunConfig(): K8, K3, K4, K1) on the default mesh (every
+    card: one here) against sharded=False: bit for bit."""
+    from kalman_hydra_tpu_torch import api
+    from kalman_hydra_tpu_torch.config import RunConfig
+    e = {k: 2 * v for k, v in per_frame_expected(RunConfig(), H, W,
+                                                 T).items()}
+    trs = drive("DP-D", lambda: api.track_videos(clips_c[:2], sharded=True,
+                                                 device=dev),
+                e, counts_by_path)
+    ref = api.track_videos(clips_c[:2], device=dev)
+    same = all(identical(a, b) for a, b in zip(trs, ref))
+    log(f"  DP-D bit for bit track_videos(sharded=False): {same}")
+    assert len(trs) == 2 and same
+
+
+@phase("api.flow_sharded (Farneback, FlowConfig(fast_warp=8), the default "
+       "mesh)")
+def path_flow_sharded(dev, counts_by_path):
+    """api.flow_sharded with its default config (f32 planes) on the
+    default mesh (one shard here: the whole frame is one band) against
+    api.flow: rows >= 8 px from the border < 5e-3, all < 0.1, rows 48
+    ... 1031 < 1e-5."""
+    from kalman_hydra_tpu_torch import api
+    from kalman_hydra_tpu_torch.config import FlowConfig
+    a, b, _ = sf_pair()
+    f = FlowConfig(fast_warp=8)
+    got = drive("api.flow_sharded", lambda: api.flow_sharded(
+        a, b, device=dev), sharded_flow_expected(f, H, W, 1),
+        counts_by_path)
+    sharded_vs_flat("api.flow_sharded", got, api.flow(a, b, f, device=dev),
+                    5e-3, 0.1, 1e-5)
+
+
 _KERNELS = {   # wrapper: (CUDA source, TPU entry point it replaces, in
     #           kalman_hydra_tpu/kernels/ unless a path is given)
     "ekf_fused_step": ("ekf.cu", "ekf_pallas.py:171"),
@@ -3769,6 +4198,8 @@ _KERNELS = {   # wrapper: (CUDA source, TPU entry point it replaces, in
     # reference's vmapped plain-XLA exact-warp pair update
     "flow_update_pairs": ("flow_update.cu",
                           "kalman_hydra_tpu/ops/farneback.py:633"),
+    # K2's band mode (row0/img_h), the same CUDA kernel as K2
+    "flow_iter_band": ("flow_iter.cu", "flow_iter_pallas.py:802"),
 }
 
 
@@ -3969,6 +4400,14 @@ def main() -> int:
     check_p14_trace(dev, clip, cfg)
     check_p14_cost(dev)
     check_p14_debug(dev)
+    check_k2_band(dev, cfg, results)
+    path_sf(dev, cfg, counts_by_path, name)
+    path_sl(dev, counts_by_path)
+    path_dp(dev, clips_c, cfg, counts_by_path, name)
+    path_dp_c(dev, clips_c, pair_cfg, counts_by_path)
+    path_dp_r(dev, counts_by_path)
+    path_dp_d(dev, clips_c, counts_by_path)
+    path_flow_sharded(dev, counts_by_path)
     if args.profile:
         from kalman_hydra_tpu_torch import api
         runs = {"A": (lambda: api.track_video(clip, cfg, device=dev), T - 1),

@@ -1,12 +1,14 @@
 """kalman_hydra_tpu_torch — PyTorch/CUDA port of the kalman_hydra_tpu tracker.
 
 The JAX package (`kalman_hydra_tpu`) is the reference; this package mirrors
-its layout (`ops/`, `models/`, `kernels/`, `io/`, `utils/`, `pipeline.py`,
-`api.py`, `cli.py`) and runs the Farneback and Lucas-Kanade (sparse and
-dense) + EKF tracking paths (per-frame, pair-batched, multi-clip, and
-streamed from video files with checkpoint/resume), the mesh-render
-channels (`api.track_mesh`) and the debug and profiling hooks on an
-NVIDIA Hopper card. Each Pallas kernel on those paths has a hand-written
+its layout (`ops/`, `models/`, `kernels/`, `io/`, `utils/`, `parallel/`,
+`pipeline.py`, `api.py`, `cli.py`) and runs the Farneback and
+Lucas-Kanade (sparse and dense) + EKF tracking paths (per-frame,
+pair-batched, multi-clip, and streamed from video files with
+checkpoint/resume), the mesh-render channels (`api.track_mesh`), the
+debug and profiling hooks, and clip data parallelism and row-band spatial
+sharding over a device mesh (`parallel/`) on NVIDIA Hopper cards. Each
+Pallas kernel on those paths has a hand-written
 CUDA C++ counterpart in `csrc/`, built with nvcc at first use
 (`kernels/_build.py`) and paired with a plain PyTorch version that runs on
 CPU tensors.

@@ -8,7 +8,8 @@ for `flow`. Lucas-Kanade configs (`FlowConfig.method` "lk_sparse" or
 `filter_type`, `adaptive_q`) run through the same entry points;
 `track_mesh` tracks the vertices of a body mesh with the mesh-render
 channels; `pipeline.track_precomputed_flow` tracks over supplied
-flows. `track_video` and `smooth` take an in-memory clip or a
+flows; `track_videos(sharded=True)` and `flow_sharded` split clips or
+frame rows over a device mesh (`parallel/`). `track_video` and `smooth` take an in-memory clip or a
 video path, and with streaming=True track frame by frame with O(1) card
 memory (`pipeline.track_stream`). Every entry point runs on the card
 unless the caller passes device="cpu"; without a card it raises.
@@ -170,27 +171,41 @@ def flow_sharded(a: np.ndarray, b: np.ndarray,
                  cfg: Optional[FlowConfig] = None, method: str = "farneback",
                  impl: str = "xla", interpret: bool = False, *,
                  device="cuda") -> np.ndarray:
-    """Dense flow with the frame rows sharded over several cards: not
-    ported yet (ROADMAP P13, with K2's band mode); raises
-    NotImplementedError. `api.flow` computes the same flow on one card."""
-    raise NotImplementedError("flow_sharded: frame rows over several cards "
-                              "is outside the ported slice (ROADMAP P13)")
+    """Dense flow of two (H, W) gray frames with the frame rows split
+    over the device mesh (`parallel.make_mesh(device=device)`: every card,
+    or the CPU), (H, W, 2) on the host. method="farneback" requires
+    cfg.fast_warp > 0 (the warp's clamp bounds the halo) and runs K2's
+    band mode on each shard's rows (`parallel.spatial.farneback_sharded`);
+    "lk_dense" is `lk_dense_sharded`. `impl` and `interpret` are the
+    reference's and are ignored, as the port ignores FlowConfig.impl."""
+    cfg = cfg or FlowConfig(fast_warp=8)
+    from .parallel import make_mesh
+    from .parallel.spatial import farneback_sharded, lk_dense_sharded
+    if method not in ("farneback", "lk_dense"):
+        raise ValueError(f"unknown sharded method {method!r}")
+    mesh = make_mesh(device=device)
+    if method == "farneback":
+        return farneback_sharded(a, b, cfg, mesh, impl=impl,
+                                 interpret=interpret)
+    return lk_dense_sharded(a, b, cfg, mesh)
 
 
 def track_videos(clips: np.ndarray, cfg: Optional[RunConfig] = None,
                  sharded: bool = False, *,
                  device="cuda") -> List[Trajectories]:
-    """Track a (B, T, H, W[, 3]) uint8 clip batch on one device
-    (BASELINE.json:10's multi-clip batch); returns B Trajectories.
+    """Track a (B, T, H, W[, 3]) uint8 clip batch (BASELINE.json:10's
+    multi-clip batch); returns B Trajectories.
 
     With cfg.pair_batch every clip's frame pairs share each flow launch
     (`pipeline.track_clips_pairflow`); otherwise the clips run one after
-    another."""
-    if sharded:
-        raise NotImplementedError("track_videos(sharded=True): clips over "
-                                  "several cards is outside the ported "
-                                  "slice (ROADMAP P13)")
+    another. sharded=True splits the clips over the device mesh
+    (`parallel.track_clips_sharded` on `parallel.make_mesh(device=
+    device)`: every card, each taking B / n of them; B must divide);
+    otherwise they run on `device`."""
     cfg = cfg or RunConfig()
+    if sharded:
+        from .parallel import make_mesh, track_clips_sharded
+        return track_clips_sharded(clips, cfg, make_mesh(device=device))
     return _pipeline.track_clips(clips, cfg, device=device)
 
 

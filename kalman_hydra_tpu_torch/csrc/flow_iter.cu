@@ -38,7 +38,10 @@
 #include "flow_tile.cuh"
 
 // Pair b (b < pairs) reads R0 + p * 5hw and R1 + p * 5hw (p as above;
-// K2 passes pairs = 1, ppc = 0, K6 passes R1 = R0 + 5hw). Planes bf16
+// K2 passes pairs = 1, ppc = 0, K6 passes R1 = R0 + 5hw; row0 and img_h
+// K2's band mode, the planes and flow a row slab whose row 0 is row row0
+// of an image img_h rows tall (flow_tile.cuh::SelectSumM; a full frame
+// passes row0 = 0, img_h = h). Planes bf16
 // [bf16 = 1] or f32; flow (pairs, 2, h, w) f32; wts (taps,) f32 in HOST
 // memory (copied into the launch's parameters) and, past 61 taps, in
 // device memory too (wts_dev, else null); shape, the tile of
@@ -48,15 +51,18 @@
 // computes them; out (pairs, 2, h, w) f32.
 KH_API int kh_flow_iter(const void* R0, const void* R1, int bf16, int pairs,
                         int ppc, const void* flow, int h, int w, int D,
-                        const void* wts, const void* wts_dev, int taps,
-                        float post_scale, int shape, int smem, void* scratch,
-                        void* out, void* stream) {
+                        int row0, int img_h, const void* wts,
+                        const void* wts_dev, int taps, float post_scale,
+                        int shape, int smem, void* scratch, void* out,
+                        void* stream) {
+  // the slab must hold at least one of the image's rows
   if (h <= 0 || w <= 0 || !kh::fi::window_ok(taps, wts_dev) || D < 0 ||
-      pairs <= 0 || ppc < 0 || pairs > 65535)
+      pairs <= 0 || ppc < 0 || pairs > 65535 || img_h <= 0 ||
+      row0 >= img_h || row0 + h <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return kh::fi::run_pairs(
       R0, R1, bf16, pairs, ppc, flow, h, w,
-      kh::fi::SelectSumM{static_cast<float>(D)},
+      kh::fi::SelectSumM{static_cast<float>(D), row0, img_h},
       kh::fi::make_window(wts, taps, post_scale, wts_dev), shape, smem,
       scratch, out, static_cast<cudaStream_t>(stream));
 }

@@ -12,7 +12,8 @@
 //      - the exact bilinear gather (K8, K8-pairs): R1 sampled at (r + dy,
 //        c + dx), clamped to the image, with no displacement clamp;
 //   2. averaged-matrix normal equations, damped by OpenCV's 5-px border
-//      taper (separable), M = (G11, G12, G22, h1, h2);
+//      taper (separable), M = (G11, G12, G22, h1, h2); in K2's band mode
+//      (a row slab of a taller image) the taper reads the image's rows;
 //   3. winsize window (box or Gaussian taps) over M with a replicate
 //      border — M outside the image is its edge row / column;
 //   4. 2x2 solve, idet = 1 / (g11 g22 - g12^2 + 1e-3).
@@ -74,11 +75,14 @@ __device__ __forceinline__ void vlerp(const PT* __restrict__ R1,
 // Step 2 at (r, c), given the warped R1 planes q[5] there: the
 // averaged-matrix normal equations, damped, into m[5]. Shared by the
 // select-sum warp (warp_m) and the exact warp without rounding (exact_m).
+// The taper reads row r + row0 of an image img_h rows tall: a slab's rows
+// in K2's band mode, else (row0 = 0, img_h = h) the plane's own rows.
 template <typename PT>
 __device__ __forceinline__ void normal_eqs(const PT* __restrict__ R0,
                                            const float q[5], float dx,
                                            float dy, int h, int w, int r,
-                                           int c, float m[5]) {
+                                           int c, float m[5], int row0,
+                                           int img_h) {
   const long plane = (long)h * w;
   const long o = (long)r * w + c;
   float a_xx = (load(R0 + 2 * plane + o) + q[2]) * 0.5f;
@@ -86,7 +90,7 @@ __device__ __forceinline__ void normal_eqs(const PT* __restrict__ R0,
   float axy = (load(R0 + 4 * plane + o) + q[4]) * 0.25f;
   float db_x = (load(R0 + o) - q[0]) * 0.5f + a_xx * dx + axy * dy;
   float db_y = (load(R0 + plane + o) - q[1]) * 0.5f + axy * dx + a_yy * dy;
-  const float damp = damp1(r, h) * damp1(c, w);
+  const float damp = damp1(r + row0, img_h) * damp1(c, w);
   a_xx *= damp;
   a_yy *= damp;
   axy *= damp;
@@ -190,7 +194,7 @@ __device__ __forceinline__ void exact_m(const PT* __restrict__ R0,
   float q[5];
   exact_warp(R1, dx, dy, h, w, r, c, q);
   if (!round_m) {
-    normal_eqs(R0, q, dx, dy, h, w, r, c, m);
+    normal_eqs(R0, q, dx, dy, h, w, r, c, m, 0, h);
     return;
   }
   normal_eqs_exact(R0, q, dx, dy, h, w, r, c, m);
@@ -200,12 +204,14 @@ __device__ __forceinline__ void exact_m(const PT* __restrict__ R0,
 }
 
 // Phase 1 at (r, c): warp R1 by the prior flow `fl` (PlaneFlow or
-// another accessor with dx(r, c) and dy(r, c)), M's five values into m[5].
+// another accessor with dx(r, c) and dy(r, c)), M's five values into m[5];
+// row0 and img_h as in normal_eqs.
 template <typename PT, typename Flow>
 __device__ __forceinline__ void warp_m(const PT* __restrict__ R0,
                                        const PT* __restrict__ R1,
                                        const Flow& fl, int h, int w,
-                                       float D, int r, int c, float m[5]) {
+                                       float D, int r, int c, float m[5],
+                                       int row0, int img_h) {
   const float dx = fl.dx(r, c), dy = fl.dy(r, c);
   const float dxc = fminf(fmaxf(dx, -D), D);
   const float xf = floorf(dxc);
@@ -218,7 +224,7 @@ __device__ __forceinline__ void warp_m(const PT* __restrict__ R0,
 #pragma unroll
   for (int p = 0; p < 5; ++p)
     q[p] = (1.f - ax) * va[p] + ax * vb[p];   // warped R1 plane p
-  normal_eqs(R0, q, dx, dy, h, w, r, c, m);
+  normal_eqs(R0, q, dx, dy, h, w, r, c, m, row0, img_h);
 }
 
 // One window tap: acc += wk * x, one fused multiply-add in every kernel.

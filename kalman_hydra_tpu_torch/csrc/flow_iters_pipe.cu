@@ -100,8 +100,9 @@ flow_iters_pipe_kernel(const PT* __restrict__ R0, const PT* __restrict__ R1,
   const long plane = (long)h * w;
   const float* src = j == 0 ? flow_in : inter + (long)(j - 1) * 2 * plane;
   float* dst = j == n_iters - 1 ? out : inter + (long)j * 2 * plane;
-  kh::fi::tile_body<TH, TW, TAPS>(R0, R1, src, h, w, kh::fi::SelectSumM{D},
-                                  win, b * TH, t * TW, dst, sm, s_w);
+  kh::fi::tile_body<TH, TW, TAPS>(R0, R1, src, h, w,
+                                  kh::fi::SelectSumM{D, 0, h}, win, b * TH,
+                                  t * TW, dst, sm, s_w);
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();

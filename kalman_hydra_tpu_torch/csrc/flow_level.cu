@@ -154,10 +154,10 @@ struct WalkM {
                                              int w, int r, int c,
                                              float m[5]) const {
     if (resized)
-      kh::fi::warp_m(R0, R1, rf, h, w, D, r, c, m);
+      kh::fi::warp_m(R0, R1, rf, h, w, D, r, c, m, 0, h);
     else
       kh::fi::warp_m(R0, R1, kh::fi::PlaneFlow{flow, w, (long)h * w}, h, w,
-                     D, r, c, m);
+                     D, r, c, m, 0, h);
   }
 };
 

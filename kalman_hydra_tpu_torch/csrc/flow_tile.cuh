@@ -101,16 +101,31 @@ inline bool window_ok(int taps, const void* wts_dev) {
 
 // Phase 1's source of M at one pixel (r, c), into m[5]: the select-sum
 // warp clamped to +-D (K2, K6, K13) ...
+//
+// K2's band mode: the planes and the flow are rows of an image img_h rows
+// tall, their row 0 the image's row row0 (negative where the slab starts
+// above the image). The taper then reads the image's rows, and M at a slab
+// row outside the image is M at the image's edge row within the slab,
+// rows [max(0, -row0), min(h - 1, img_h - 1 - row0)] (the reference's
+// row_fix at image rows). The tile body asks for M at rows clamped to
+// [0, h - 1] and the device-memory route at the slab's rows; clamping
+// those again to the image's rows gives M's replicate border at the
+// image's edges, on every route. A full frame (row0 = 0, img_h = h: K2,
+// K6, K13) leaves both as they were: the slab is the image.
 struct SelectSumM {
   static constexpr bool kPreferL1 = false;    // see launch_pairs
   float D;
+  int row0;
+  int img_h;
   template <typename PT>
   __device__ __forceinline__ void operator()(const PT* __restrict__ R0,
                                              const PT* __restrict__ R1,
                                              const float* flow, int h,
                                              int w, int r, int c,
                                              float m[5]) const {
-    warp_m(R0, R1, PlaneFlow{flow, w, (long)h * w}, h, w, D, r, c, m);
+    r = clampi(r, max(0, -row0), min(h - 1, img_h - 1 - row0));
+    warp_m(R0, R1, PlaneFlow{flow, w, (long)h * w}, h, w, D, r, c, m, row0,
+           img_h);
   }
 };
 

@@ -4,6 +4,7 @@
 |---|---|---|
 | ekf.ekf_fused_step (K1) | csrc/ekf.cu | ekf_pallas.py::ekf_fused_step |
 | flow_iter.flow_iter (K2) | csrc/flow_iter.cu | flow_iter_pallas.py::flow_iter |
+| flow_iter.flow_iter with row0 (K2's band mode; counts in flow_iter.band) | csrc/flow_iter.cu | flow_iter_pallas.py::flow_iter with row0/img_h |
 | polyexp.poly_expansion_planar (K3) | csrc/polyexp.cu | polyexp_pallas.py::poly_expansion_planar |
 | level_image.coarse_polyexp_fused (K4) | csrc/level_image.cu | level_image_pallas.py::coarse_polyexp_fused |
 | flow_level.flow_levels (K5) | csrc/flow_level.cu | flow_level_pallas.py::flow_level (once per gated level) and the resize between the gated levels (ops/farneback.py) |
@@ -21,7 +22,8 @@
 Each wrapper dispatches by device: a CPU tensor takes the plain PyTorch
 version beside it, a CUDA tensor launches the kernel or raises. Each
 carries a plain-int `launches` counter, bumped once per call that launched
-its kernel. `pyramid.pyr_down`, `scharr.scharr_gradients`, `lk.lk_level` and
+its kernel (K2's band mode bumps `flow_iter.band.launches` instead).
+`pyramid.pyr_down`, `scharr.scharr_gradients`, `lk.lk_level` and
 `flow_level.flow_level` are the one-level calls of K9's, K10's, K12's
 and K5's wrappers and count there.
 """
@@ -55,6 +57,7 @@ WRAPPERS = {
     "lk_sparse_levels": lk_sparse_levels,
     "flow_iters_pipelined": flow_iters_pipelined,
     "flow_update_pairs": flow_update_pairs,
+    "flow_iter_band": flow_iter.band,
 }
 
 

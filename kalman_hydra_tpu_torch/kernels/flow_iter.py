@@ -10,6 +10,13 @@ OpenCV border taper, winsize window with a replicate border on M, 2x2
 solve. Follows the TPU kernel's precision (flow and M in f32), not the
 XLA twin's bf16 rounding of both.
 
+K2's band mode (`flow_iter` with row0/img_h; the reference's flow_iter
+band mode, run by parallel/spatial.py's
+farneback_sharded): the planes and the flow are a row slab whose row 0
+is row `row0` of an image `img_h` rows tall. The taper then reads the
+image's rows, and M's replicate border sits at the image's edge rows
+(`band_rows`), so a band's interior is the full image's rows.
+
 K6 replaces flow_iter_pallas.py::flow_iter_pairs: Rall (N, 5, h, w),
 flow_b (B, 2, h, w) -> (B, 2, h, w); pair b reads frames p and p + 1 of
 Rall (`pair_frames`). Both wrappers launch the same CUDA kernel, so K6
@@ -24,13 +31,15 @@ from winsize 101, M in device memory: three launches an iteration; K13
 then runs n_iters of them), `pipe_items` / `pipe_waits` K13's work order
 and wait set.
 
-CPU tensors take `flow_iter_plain` / `flow_iter_pairs_plain` /
+CPU tensors take `flow_iter_plain` (with row0/img_h in band mode) /
+`flow_iter_pairs_plain` /
 `flow_iters_pipelined_plain`; CUDA tensors launch the kernel, or raise.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -63,44 +72,73 @@ def window_weights(winsize: int, gaussian: bool):
     return np.full(n, np.float32(1.0 / n), np.float32), 1.0
 
 
-def border_damp(h: int, w: int, device) -> torch.Tensor:
-    """(h, w) f32 multiplicative taper of the normal equations."""
-    def axis(n):
-        i = np.arange(n)
+def band_rows(h: int, row0: int, img_h: int):
+    """(lo, hi): the rows of an h-row slab, its row 0 at image row row0,
+    that lie in an image of img_h rows (K2's band mode); ValueError for a
+    slab with none, or without img_h."""
+    if img_h <= 0:
+        raise ValueError("band mode (row0 given) requires img_h, the "
+                         "image's height")
+    lo, hi = max(0, -row0), min(h - 1, img_h - 1 - row0)
+    if lo > hi:
+        raise ValueError(f"band mode: slab rows {row0}..{row0 + h - 1} "
+                         f"miss an image of {img_h} rows")
+    return lo, hi
+
+
+def border_damp(h: int, w: int, device, row0: int = 0,
+                img_h: int = 0) -> torch.Tensor:
+    """(h, w) f32 multiplicative taper of the normal equations; with
+    img_h, at image rows row0 ... row0 + h - 1 (clamped to the image)."""
+    def axis(i, n):     # positions i along an axis of n
         d = np.minimum(i, n - 1 - i)
         s = np.where(d < len(_BORDER_SCALE),
                      _BORDER_SCALE[np.minimum(d, len(_BORDER_SCALE) - 1)],
                      np.float32(1.0)).astype(np.float32)
         return torch.as_tensor(s, device=device)
-    return axis(h)[:, None] * axis(w)[None, :]
+    rows = (axis(np.clip(np.arange(h) + row0, 0, img_h - 1), img_h)
+            if img_h else axis(np.arange(h), h))
+    return rows[:, None] * axis(np.arange(w), w)[None, :]
 
 
 def flow_iter_plain(R0, R1, flow, winsize: int, max_disp: int,
-                    gaussian: bool = False) -> torch.Tensor:
+                    gaussian: bool = False, row0=None,
+                    img_h: int = 0) -> torch.Tensor:
+    """K2's plain version; with row0, its band mode (see solve_warped)."""
     R1w = warp_selectsum(R1.to(torch.float32), flow[0], flow[1], max_disp)
     return solve_warped(R0.to(torch.float32), R1w, flow,
-                        *window_weights(winsize, bool(gaussian)))
+                        *window_weights(winsize, bool(gaussian)),
+                        row0=row0, img_h=img_h)
 
 
-def solve_warped(R0, R1w, flow, wts, post: float,
-                 round_m: bool = False) -> torch.Tensor:
+def solve_warped(R0, R1w, flow, wts, post: float, round_m: bool = False,
+                 row0=None, img_h: int = 0) -> torch.Tensor:
     """Steps 2-4 of an iteration, given R1 already warped: the damped
     normal equations (rounded to bf16 with round_m, K8-pairs' bf16
     store), the window `wts` (then `post`) over M with a replicate
-    border, the 2x2 solve. The plain arithmetic of K2 and K8."""
+    border, the 2x2 solve. The plain arithmetic of K2 and K8. With row0
+    (K2's band mode) the taper reads image rows row0 ..., and M's rows
+    outside the image (`band_rows`) are replaced by its edge row before
+    the slab's replicate border."""
     _, h, w = R0.shape
+    band = row0 is not None
+    if band:
+        lo, hi = band_rows(h, int(row0), img_h)
     dx, dy = flow[0], flow[1]
     a_xx = (R0[2] + R1w[2]) * 0.5
     a_yy = (R0[3] + R1w[3]) * 0.5
     axy = (R0[4] + R1w[4]) * 0.25
     db_x = (R0[0] - R1w[0]) * 0.5 + a_xx * dx + axy * dy
     db_y = (R0[1] - R1w[1]) * 0.5 + axy * dx + a_yy * dy
-    damp = border_damp(h, w, R0.device)
+    damp = (border_damp(h, w, R0.device, int(row0), img_h) if band
+            else border_damp(h, w, R0.device))
     a_xx, a_yy, axy, db_x, db_y = (t * damp
                                    for t in (a_xx, a_yy, axy, db_x, db_y))
     M = torch.stack([a_xx * a_xx + axy * axy, (a_xx + a_yy) * axy,
                      a_yy * a_yy + axy * axy, a_xx * db_x + axy * db_y,
                      axy * db_x + a_yy * db_y])
+    if band and (lo > 0 or hi < h - 1):
+        M = M.index_select(1, torch.arange(h, device=M.device).clamp(lo, hi))
     if round_m:
         M = M.to(torch.bfloat16).to(torch.float32)
     bw = len(wts) // 2
@@ -279,44 +317,65 @@ def mem_scratch(plan: TilePlan, pairs: int, h: int, w: int, device):
 
 
 def _launch(R0, R1, flow_b, ppc: int, winsize: int, max_disp: int,
-            gaussian: bool) -> torch.Tensor:
+            gaussian: bool, row0: int, img_h: int) -> torch.Tensor:
     """kh_flow_iter over the pairs of flow_b (B, 2, h, w); pair b reads
-    R0 and R1 offset by its first frame (see csrc/flow_iter.cu)."""
+    R0 and R1 offset by its first frame (see csrc/flow_iter.cu); the
+    planes are rows row0 ... of an image img_h rows tall (0 and h for a
+    full frame; K2's band mode)."""
     B, _, h, w = flow_b.shape
     plan = tile_plan(h, w, winsize)
     wts, wts_dev, taps, post = _host_window(winsize, gaussian, R0.device)
     out = torch.empty((B, 2, h, w), dtype=torch.float32, device=R0.device)
     scratch = mem_scratch(plan, B, h, w, R0.device)
     P, I = _build.P, _build.I
-    fn = _build.function("kh_flow_iter", P, P, I, I, I, P, I, I, I, P, P, I,
-                         _build.F, I, I, P, P, P)
+    fn = _build.function("kh_flow_iter", P, P, I, I, I, P, I, I, I, I, I, P,
+                         P, I, _build.F, I, I, P, P, P)
     rc = fn(R0.data_ptr(), R1.data_ptr(), int(R0.dtype == torch.bfloat16),
-            B, ppc, flow_b.data_ptr(), h, w, int(max_disp), wts, wts_dev,
-            taps, post, plan.shape, plan.smem,
+            B, ppc, flow_b.data_ptr(), h, w, int(max_disp), int(row0),
+            int(img_h), wts, wts_dev, taps, post,
+            plan.shape, plan.smem,
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             _build.stream(R0))
     _build.check(rc, "kh_flow_iter")
     return out
 
 
-def flow_iter(R0, R1, flow, winsize: int, max_disp: int,
-              gaussian: bool = False) -> torch.Tensor:
-    """One fused Farneback iteration: (5,h,w) x2 + (2,h,w) -> (2,h,w)."""
-    if R0.device.type == "cpu":
-        return flow_iter_plain(R0, R1, flow, winsize, max_disp, gaussian)
+def _require_pair(R0, R1, flow, name: str) -> None:
     _build.require(R0, "R0", PLANE_DTYPES, 3)
     _build.require(R1, "R1", (R0.dtype,), 3)
     _build.require(flow, "flow", (torch.float32,), 3)
     _, h, w = R0.shape
     if R0.shape[0] != 5 or R1.shape != R0.shape or flow.shape != (2, h, w):
-        raise ValueError(f"flow_iter: R0 {tuple(R0.shape)}, R1 "
+        raise ValueError(f"{name}: R0 {tuple(R0.shape)}, R1 "
                          f"{tuple(R1.shape)}, flow {tuple(flow.shape)}")
-    out = _launch(R0, R1, flow[None], 0, winsize, max_disp, gaussian)[0]
-    flow_iter.launches += 1
+
+
+def flow_iter(R0, R1, flow, winsize: int, max_disp: int,
+              gaussian: bool = False, row0=None,
+              img_h: int = 0) -> torch.Tensor:
+    """One fused Farneback iteration: (5,h,w) x2 + (2,h,w) -> (2,h,w).
+
+    With row0, K2's band mode: the planes and the flow are a row slab
+    whose row 0 is row `row0` (negative above the image) of an image
+    img_h rows tall; the slab rows whose window and warp stay in the slab
+    are the full image's rows. The same kernel on every tile route; its
+    launches count apart, in `flow_iter.band`."""
+    band = row0 is not None
+    if band:
+        band_rows(R0.shape[-2], int(row0), img_h)
+    if R0.device.type == "cpu":
+        return flow_iter_plain(R0, R1, flow, winsize, max_disp, gaussian,
+                               row0, img_h)
+    _require_pair(R0, R1, flow, "flow_iter")
+    out = _launch(R0, R1, flow[None], 0, winsize, max_disp, gaussian,
+                  int(row0) if band else 0,
+                  int(img_h) if band else R0.shape[-2])[0]
+    (flow_iter.band if band else flow_iter).launches += 1
     return out
 
 
 flow_iter.launches = 0
+flow_iter.band = SimpleNamespace(launches=0)
 
 
 def flow_iter_pairs(Rall, flow_b, winsize: int, max_disp: int,
@@ -335,7 +394,7 @@ def flow_iter_pairs(Rall, flow_b, winsize: int, max_disp: int,
                          f"flow_b {tuple(flow_b.shape)}")
     check_pairs(N, flow_b.shape[0], clip_len)
     out = _launch(Rall, Rall[1], flow_b, max(clip_len - 1, 0), winsize,
-                  max_disp, gaussian)
+                  max_disp, gaussian, 0, h)
     flow_iter_pairs.launches += 1
     return out
 
@@ -390,7 +449,7 @@ def _pipe_route(R0, R1, flow, winsize: int, max_disp: int, n_iters: int,
                             gaussian)
     for _ in range(n_iters):
         flow = _launch(R0, R1, flow[None], 0, winsize, max_disp,
-                       gaussian)[0]
+                       gaussian, 0, h)[0]
     return flow
 
 

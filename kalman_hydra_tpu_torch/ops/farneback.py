@@ -55,20 +55,22 @@ def _plane_dtype(cfg: FlowConfig):
     return torch.bfloat16 if cfg.bf16_poly else torch.float32
 
 
-def polyexp_pyramid(img: torch.Tensor,
-                    cfg: FlowConfig) -> Tuple[torch.Tensor, ...]:
+def polyexp_pyramid(img: torch.Tensor, cfg: FlowConfig,
+                    fine: bool = True) -> Tuple[torch.Tensor, ...]:
     """(H, W) f32 frame -> per-level (5, lh, lw) planes, coarsest first,
-    in bf16 when cfg.bf16_poly."""
+    in bf16 when cfg.bf16_poly; with fine=False the coarse levels alone
+    (parallel/spatial.py expands the full-res level by row bands)."""
     dt = _plane_dtype(cfg)
-    img0 = gaussian_blur_level(img, cfg, k=0)
     n, s = cfg.poly_n, cfg.poly_sigma
+    fine_img = [gaussian_blur_level(img, cfg, k=0)] if fine else []
     if not cfg.pe_fused:
-        imgs = coarse_level_images(img, cfg.levels, cfg.pyr_scale) + [img0]
+        imgs = coarse_level_images(img, cfg.levels, cfg.pyr_scale) + fine_img
         return tuple(poly_expansion_planar(i, n, s, out_dtype=dt)
                      for i in imgs)
     coarse = coarse_polyexp_fused(img, cfg.levels, cfg.pyr_scale, n, s,
                                   out_dtype=dt)
-    return tuple(coarse) + (poly_expansion_planar(img0, n, s, out_dtype=dt),)
+    return tuple(coarse) + tuple(poly_expansion_planar(i, n, s, out_dtype=dt)
+                                 for i in fine_img)
 
 
 def farneback_from_pyramids(Rs_a, Rs_b, cfg: FlowConfig,

@@ -699,23 +699,48 @@ def track_clip(frames: np.ndarray, cfg: RunConfig,
                                       render_tmpl=tmpl))
 
 
-def track_clips(clips: np.ndarray, cfg: RunConfig,
-                seeds: Optional[np.ndarray] = None, *,
-                device="cuda") -> List[Trajectories]:
-    """Track a (B, T, H, W[, 3]) uint8 clip batch on `device`: through
-    `track_clips_pairflow` with cfg.pair_batch, else clip after clip
-    through `track_arrays`. `seeds` is (K, 2) or (B, K, 2)."""
-    clips_d = upload(clips, device)
-    seeds_d = _seeds(seeds, device)
-    if seeds_d is not None and seeds_d.ndim == 2:
-        seeds_d = seeds_d.expand((clips_d.shape[0],) + seeds_d.shape)
+def track_clips_arrays(clips: torch.Tensor, cfg: RunConfig,
+                       seeds: Optional[torch.Tensor] = None,
+                       render_tmpl: RenderTemplate = None) -> dict:
+    """Track a (B, T, H, W[, 3]) uint8 clip batch already on its device:
+    through `track_clips_pairflow` with cfg.pair_batch, else clip after
+    clip through `track_arrays`. `seeds` is (K, 2) or (B, K, 2) and
+    `render_tmpl` lies on the clips' device. Returns the rows stacked
+    over B."""
+    if cfg.pair_batch and render_tmpl is not None:
+        # pair_batch filters from precomputed flows and has no render
+        # channel; a stray template is refused, not ignored
+        raise ValueError("pair_batch does not support the render channel "
+                         "(render_tmpl must be None)")
+    if seeds is not None and seeds.ndim == 2:
+        seeds = seeds.expand((clips.shape[0],) + seeds.shape)
     if cfg.pair_batch:
-        outs = track_clips_pairflow(clips_d, cfg, seeds=seeds_d)
-        return [_trajectories({k: v[b] for k, v in outs.items()})
-                for b in range(clips_d.shape[0])]
-    return [_trajectories(track_arrays(
-        c, cfg, seeds=None if seeds_d is None else seeds_d[b]))
-        for b, c in enumerate(clips_d)]
+        return track_clips_pairflow(clips, cfg, seeds=seeds)
+    outs = [track_arrays(c, cfg, seeds=None if seeds is None else seeds[b],
+                         render_tmpl=render_tmpl)
+            for b, c in enumerate(clips)]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def batch_trajectories(outs: dict) -> List[Trajectories]:
+    """Rows stacked over a batch (track_clips_arrays) -> one Trajectories
+    a clip."""
+    outs = {k: v.cpu() for k, v in outs.items()}
+    return [_trajectories({k: v[b] for k, v in outs.items()})
+            for b in range(outs["pos"].shape[0])]
+
+
+def track_clips(clips: np.ndarray, cfg: RunConfig,
+                seeds: Optional[np.ndarray] = None, render_tmpl=None, *,
+                device="cuda") -> List[Trajectories]:
+    """Track a (B, T, H, W[, 3]) uint8 clip batch on `device`
+    (`track_clips_arrays`). `seeds` is (K, 2) or (B, K, 2); one
+    `render_tmpl` (models.render.make_template), moved to `device` if it
+    is elsewhere, serves every clip."""
+    clips_d = upload(clips, device)
+    tmpl = None if render_tmpl is None else render_tmpl.to(clips_d.device)
+    return batch_trajectories(track_clips_arrays(
+        clips_d, cfg, _seeds(seeds, device), tmpl))
 
 
 class _RowFetch:

@@ -59,12 +59,13 @@ def test_k2_and_k6_plan_a_wide_window(monkeypatch, winsize):
     calls = _record_calls(monkeypatch)
     h, w = 37, 53
     R = torch.zeros(4, 5, h, w)
-    fi._launch(R, R[1], torch.zeros(3, 2, h, w), 0, winsize, 8, False)
+    fi._launch(R, R[1], torch.zeros(3, 2, h, w), 0, winsize, 8, False, 0, h)
     (fname, _, args), = calls
     plan = fi.tile_plan(h, w, winsize)
-    (_, _, _, pairs, _, _, hh, ww, D, wts, dwts, taps, post, shape, smem,
-     scratch, _, _) = args
+    (_, _, _, pairs, _, _, hh, ww, D, row0, img_h, wts, dwts, taps, post,
+     shape, smem, scratch, _, _) = args
     assert fname == "kh_flow_iter" and (pairs, hh, ww, D) == (3, h, w, 8)
+    assert (row0, img_h) == (0, h)
     assert (shape, smem, taps) == (plan.shape, plan.smem, plan.taps)
     want, wpost = fi.window_weights(winsize, False)
     assert post == wpost
@@ -102,20 +103,22 @@ def test_k13_plans_a_wide_window(monkeypatch, winsize):
 
 def test_k13_runs_k2s_route_where_no_tile_holds_the_window(monkeypatch):
     """At winsize 101 no tile holds M: K13's route is n_iters iterations
-    with M in device memory (K2's launch, each from the last one's flow);
-    at 81 it is one K13 launch."""
+    with M in device memory (K2's full-frame launch, row0 = 0 and img_h =
+    h, each from the last one's flow); at 81 it is one K13 launch."""
     calls = _record_calls(monkeypatch)
     h, w = 37, 53
     R = torch.zeros(5, h, w)
     flows = [torch.full((1, 2, h, w), float(i)) for i in range(1, 4)]
     seen = []
 
-    def k2(R0, R1, flow_b, ppc, winsize, max_disp, gaussian):
-        seen.append((float(flow_b[0, 0, 0, 0]), winsize, max_disp))
+    def k2(R0, R1, flow_b, ppc, winsize, max_disp, gaussian, row0, img_h):
+        seen.append((float(flow_b[0, 0, 0, 0]), winsize, max_disp, row0,
+                     img_h))
         return flows[len(seen) - 1]
     monkeypatch.setattr(fi, "_launch", k2)
     out = fi._pipe_route(R, R, torch.zeros(2, h, w), 101, 8, 3, False)
-    assert seen == [(0.0, 101, 8), (1.0, 101, 8), (2.0, 101, 8)]
+    assert seen == [(0.0, 101, 8, 0, h), (1.0, 101, 8, 0, h),
+                    (2.0, 101, 8, 0, h)]
     assert torch.equal(out, flows[2][0]) and not calls
     fi._pipe_route(R, R, torch.zeros(2, h, w), 81, 8, 3, False)
     assert [c[0] for c in calls] == ["kh_flow_iters_pipe"]

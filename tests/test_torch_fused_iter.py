@@ -170,7 +170,7 @@ def test_the_wrappers_call_the_c_interface_as_declared(monkeypatch, name,
     R = torch.zeros(5, h, w)
     fl = torch.zeros(2, h, w)
     if name == "kh_flow_iter":
-        fi._launch(R, R, fl[None], 0, 15, 8, False)
+        fi._launch(R, R, fl[None], 0, 15, 8, False, 0, h)
     else:
         fi._launch_pipe(R, R, fl, 15, 8, 3, False)
     (fname, argtypes, args), = calls

@@ -170,5 +170,7 @@ def test_cpu_wrappers_do_not_count_launches(rng):
     kernels.flow_iters_pipelined(R, R, torch.zeros(2, 64, 80), 15, 8, 2)
     kernels.flow_update_pairs(Rs, torch.zeros(1, 2, 64, 80), 15,
                               round_m=True)
-    assert len(kernels.WRAPPERS) == 15
+    flow_iter(R[:, 8:40], R[:, 8:40], torch.zeros(2, 32, 80), 15, 8,
+              row0=8, img_h=64)
+    assert len(kernels.WRAPPERS) == 16
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)

@@ -366,6 +366,11 @@ def _wrong_template():
                          device="cpu")
 
 
+# poly_n past the polynomial expansion's tiles (F4's limit), which the
+# sharded paths refuse too
+_POLY_53 = tconfig.RunConfig(flow=tconfig.FlowConfig(
+    levels=2, fast_warp=8, poly_n=53, poly_sigma=10.0),
+    tracks=tconfig.TrackConfig(num_tracks=8))
 # name: (call, the exception it raises, what its message names)
 _OUTSIDE = {
     "render": (lambda: pipeline.make_step(_BASE.replace(
@@ -379,11 +384,11 @@ _OUTSIDE = {
             ekf=tconfig.EkfConfig(measurement="render"), **_RENDER),
         streaming=True, device="cpu"), ValueError, "RenderTemplate"),
     "track_videos_sharded": (lambda: api.track_videos(
-        np.zeros((1, 2, 48, 64), np.uint8), sharded=True, device="cpu"),
-        NotImplementedError, "ROADMAP P13"),
+        np.zeros((1, 2, 48, 64), np.uint8), _POLY_53, sharded=True,
+        device="cpu"), NotImplementedError, "F4"),
     "flow_sharded": (lambda: api.flow_sharded(
         np.zeros((48, 64), np.uint8), np.zeros((48, 64), np.uint8),
-        device="cpu"), NotImplementedError, "ROADMAP P13"),
+        _POLY_53.flow, device="cpu"), NotImplementedError, "F4"),
     "cli_bench": (lambda: __import__(
         "kalman_hydra_tpu_torch.cli", fromlist=["main"]).main(
         ["bench", "--quick"]), NotImplementedError, "ROADMAP P6"),
@@ -395,21 +400,23 @@ _OUTSIDE = {
 
 @pytest.mark.parametrize("name", sorted(_OUTSIDE))
 def test_outside_the_slice_raises(name):
-    """What the port cannot run raises: clips or frame rows over several
-    cards (NotImplementedError naming ROADMAP P13) and the benchmark
-    harness (P6); the mesh-render channels, ported since P11b, without
-    their template or with a template that is not the track pool
-    (ValueError, as the reference's make_step)."""
+    """What the port cannot run raises: the benchmark harness
+    (NotImplementedError naming ROADMAP P6) and poly_n past F4's limit,
+    on the sharded paths too (clips or frame rows over a mesh run since
+    P13); the mesh-render channels, ported since P11b, without their
+    template or with a template that is not the track pool (ValueError,
+    as the reference's make_step)."""
     call, exc, match = _OUTSIDE[name]
     with pytest.raises(exc, match=match):
         call()
 
 
-def test_not_implemented_only_for_p13_p6_and_f4():
-    """Every NotImplementedError that the port raises names ROADMAP P13
-    (several cards), P6 (the benchmark) or F4's poly_n limit; the
-    mesh-render channels, the CLI's mesh and track --profile run, and
-    the render configurations pass check_slice."""
+def test_not_implemented_only_for_p6_and_f4():
+    """The port raises NotImplementedError in two places only: the CLI's
+    bench (naming ROADMAP P6) and check_slice's poly_n limit (F4); the
+    sharded paths (P13) run at device="cpu", the mesh-render channels,
+    the CLI's mesh and track --profile run, and the render
+    configurations pass check_slice."""
     import re
     pkg = REPO / "kalman_hydra_tpu_torch"
     raised = []
@@ -417,9 +424,20 @@ def test_not_implemented_only_for_p13_p6_and_f4():
         text = f.read_text()
         for m in re.finditer(r"raise NotImplementedError\(", text):
             raised.append(text[m.end():m.end() + 300])
-    assert len(raised) == 4
+    assert len(raised) == 2
+    assert sorted(bool(re.search(r"ROADMAP P6", m)) for m in raised) == \
+        [False, True]
     for msg in raised:
-        assert re.search(r"ROADMAP (P13|P6)|F4", msg), msg
+        assert re.search(r"ROADMAP P6|F4", msg), msg
+    clip, _ = tsyn.moving_blob_clip(num_frames=2, height=48, width=64)
+    trs = api.track_videos(np.stack([clip, clip]), _SMALL, sharded=True,
+                           device="cpu")
+    assert [t.positions.shape for t in trs] == [(2, 8, 2)] * 2
+    gray = clip[..., 0]
+    for method in ("farneback", "lk_dense"):
+        assert api.flow_sharded(
+            gray[0], gray[1], dataclasses.replace(_SMALL.flow, fast_warp=8),
+            method, device="cpu").shape == (48, 64, 2)
     for meas in ("render", "flow_render"):
         pipeline.check_slice(_BASE.replace(
             ekf=tconfig.EkfConfig(measurement=meas), **_RENDER))
@@ -489,9 +507,14 @@ def test_lk_track_video_defaults_to_the_card(method):
 
 
 def test_track_videos_sharded_raises():
+    """track_videos(sharded=True) refuses what check_slice refuses (F4's
+    poly_n) and a batch that does not split over the mesh."""
+    from kalman_hydra_tpu_torch.parallel import Mesh, track_clips_sharded
     clip, _ = tsyn.moving_blob_clip(num_frames=2, height=48, width=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP P13"):
-        api.track_videos(clip[None], sharded=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="F4"):
+        api.track_videos(clip[None], _POLY_53, sharded=True, device="cpu")
+    with pytest.raises(ValueError, match="not divisible"):
+        track_clips_sharded(np.stack([clip] * 3), _SMALL, Mesh(["cpu"] * 2))
 
 
 def test_reference_default_config_is_refused_and_slice_accepted():
