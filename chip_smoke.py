@@ -38,7 +38,12 @@ prints no result line):
      api.flow or pipeline.track_clip against the plain route on the card,
      and each kernel they reach against its plain version; hold
      api.flow and pipeline.track_clip against the OpenCV oracle's
-     tests/golden/oracle_v1.npz;
+     tests/golden/oracle_v1.npz; OC: hold the card's Farneback flow
+     (both warps), sparse and dense LK and trajectories (main_path_config()
+     and RunConfig()) against the port's own OpenCV oracle
+     (kalman_hydra_tpu_torch.ref, on the host) at 1080p, and time the
+     oracle on the host at 1 cv2 thread and at its default count beside
+     path A (without cv2 on the host OC says so and runs nothing);
   4. time each kernel, its plain version and, where one PyTorch call
      computes the same function, that call, with CUDA events (warmed up,
      in turns forward and back), per call and on the device alone (the
@@ -166,6 +171,8 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
+import platform
 import re
 import shutil
 import statistics
@@ -1916,6 +1923,201 @@ def check_golden(dev):
         f"mean {d.mean():.2e} px (bar 1e-2), max {d.max():.2e}")
     assert epe.mean() < 0.05 and epe[8:-8, 8:-8].mean() < 0.01
     assert d.mean() < 1e-2
+
+
+# OC-flow's translating pairs (h, w, shift, seed): the first, held to the
+# hard bars and reused by OC-LK, and bench_epe's 256 x 256
+OC_SIZES = ((1080, 1920, (6.0, 3.0), 3), (256, 256, (3.0, -2.0), 0))
+OC_TRACKS = 1024                            # K of OC-track's seeds
+OC_GRID = 64                                # px between OC-LK's points
+CONTRACT_EPE = 0.5                          # BASELINE.json:5, px
+
+
+def cpu_model() -> str:
+    """The host CPU's model as /proc/cpuinfo names it (its first "model
+    name", else the vendor and family fields), with the architecture."""
+    fields = {}
+    with open("/proc/cpuinfo") as fh:
+        for line in fh:
+            key, _, val = line.partition(":")
+            fields.setdefault(key.strip(), val.strip())
+    name = fields.get("model name", "unknown")
+    if name == "unknown":
+        name = " ".join(f"{k} {fields[k]}" for k in
+                        ("vendor_id", "cpu family", "model")
+                        if fields.get(k)) or "no model in /proc/cpuinfo"
+    return f"{name} ({platform.machine()})"
+
+
+def oracle_track(ref, clip, cfg, seeds, threads) -> tuple:
+    """ref.pipeline.track_clip at `threads` cv2 threads: (trajectories,
+    seconds of the call, its timing dict)."""
+    import cv2
+    cv2.setNumThreads(threads)
+    timing: dict = {}
+    t0 = time.perf_counter()
+    tr = ref.pipeline.track_clip(clip, cfg, seeds, timing)
+    return tr, time.perf_counter() - t0, timing
+
+
+@phase("OC (the port on the card against its own OpenCV oracle, 1080p)")
+def check_oracle(dev, clip, cfg_a, name):
+    """The port's card paths against kalman_hydra_tpu_torch.ref (cv2 and
+    NumPy on the host). Each card call's launches are counted against
+    the kernels it must reach (the counts stay out of the kernels line).
+    OC-flow: api.flow of translating_pair, rounded to uint8 as bench_epe
+    does, at 1080x1920 (shift (6, 3), seed 3) and 256x256 (shift (3,
+    -2)), at FlowConfig() (the exact warp) and at the main path's
+    FlowConfig(fast_warp=8, bf16_poly=True), against cv2's Farneback at
+    FlowConfig(): at 1080p mean EPE < 0.05 px, and < 0.01 (exact) or
+    0.02 (fast) inside a 16-px border (test_parity_resolutions.py).
+    OC-LK, the 1080p pair: ops.lk.lk_sparse at the lk_sparse defaults on
+    a 64-px grid of interior points against ref.imgproc.lk_sparse
+    (status agreement > 0.95, max |diff| < 0.02 px where both tracked);
+    api.flow at lk_dense against ref.imgproc.lk_dense at stride 4 (mean
+    |diff| < 0.05 px, test_lk.py's bar, at the oracle's status-ok points
+    that lie as far inside the border as the coarsest level's window
+    reaches at level 0: in that band the reference's own dense LK leaves
+    cv2's per-point tracks as the port does; the mean over every point is
+    printed).
+    OC-track: pipeline.track_clip of the 1080p T=9 clip from 1024
+    good_features seeds at main_path_config() and at RunConfig(), with
+    tracks.reinit=False as the oracle keeps its seeds alive, against
+    ref.pipeline.track_clip: mean position gap < 0.5 px (the contract).
+    OC-rate: the oracle's frames/s on this host at main_path_config(),
+    at 1 cv2 thread and at cv2's default count, against path A's
+    (api.track_video, median of 3 warm runs), and their ratio (the
+    contract: >= 5x). Without cv2 on the host, OC says so and runs
+    nothing."""
+    try:
+        import cv2
+    except ImportError as exc:
+        log(f"  OC did not run: cv2 cannot be imported on this host "
+            f"({exc}); no OpenCV figure was taken")
+        return
+    from kalman_hydra_tpu_torch import api, pipeline, ref
+    from kalman_hydra_tpu_torch.config import (FlowConfig, RunConfig,
+                                               TrackConfig)
+    from kalman_hydra_tpu_torch.io.synthetic import translating_pair
+    from kalman_hydra_tpu_torch.ops import lk
+    threads = cv2.getNumThreads()
+    cpu = cpu_model()
+    log(f"  cv2 {cv2.__version__}, {threads} threads by default; host CPU "
+        f"{cpu}, {len(os.sched_getaffinity(0))} cores usable; {name}")
+
+    # OC-flow
+    flows = {"exact": FlowConfig(),
+             "fast": FlowConfig(fast_warp=8, bf16_poly=True)}
+    pairs = []
+    for h, w, shift, seed in OC_SIZES:
+        a, b, _ = translating_pair(height=h, width=w, shift=shift, seed=seed)
+        a8, b8 = (np.round(x).astype(np.uint8) for x in (a, b))
+        pairs.append((a8, b8))
+        want = ref.imgproc.farneback(a8, b8, FlowConfig())
+        for label, f in flows.items():
+            got = drive(f"OC-flow {h}x{w} {label}",
+                        lambda: api.flow(a8, b8, f, device=dev),
+                        dict(flow_expected(f, h, w), ekf_fused_step=0), {})
+            epe = np.linalg.norm(got - want, axis=-1)
+            mean, inner = epe.mean(), epe[16:-16, 16:-16].mean()
+            log(f"  OC-flow {h}x{w} {label} vs cv2: mean EPE {mean:.5f} "
+                f"px, inside the 16-px border {inner:.5f}, max "
+                f"{epe.max():.4f}; {CONTRACT_EPE - mean:.5f} px under the "
+                f"contract's {CONTRACT_EPE}")
+            if len(pairs) == 1:             # the 1080p pair
+                assert mean < 0.05, (label, mean)
+                assert inner < (0.01 if label == "exact" else 0.02), \
+                    (label, inner)
+
+    # OC-LK
+    a8, b8 = pairs[0]
+    h, w = a8.shape
+    fs = FlowConfig(method="lk_sparse")
+    gx, gy = np.meshgrid(np.arange(OC_GRID, w - OC_GRID + 1, OC_GRID),
+                         np.arange(OC_GRID, h - OC_GRID + 1, OC_GRID))
+    pts = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    ta, tb = (torch.from_numpy(x).to(dev, torch.float32) for x in (a8, b8))
+    # one step of a frame pair: both frames' pyramids, the first's Scharr
+    e = per_frame_expected(RunConfig(flow=fs), h, w, 2)
+    e["scharr_gradients_levels"] //= 2
+    got_pts, got_st = drive(
+        "OC-LK sparse", lambda: lk.lk_sparse(
+            ta, tb, torch.from_numpy(pts).to(dev), fs), e, {})
+    got_pts, got_st = got_pts.cpu().numpy(), got_st.cpu().numpy()
+    want_pts, want_st = ref.imgproc.lk_sparse(a8, b8, pts, fs)
+    want_st = want_st.astype(bool)
+    agree = (want_st == got_st).mean()
+    both = want_st & got_st
+    d = np.abs(got_pts[both] - want_pts[both])
+    log(f"  OC-LK sparse vs cv2 ({len(pts)} points, {fs.levels} levels, "
+        f"window {fs.lk_winsize}): status agreement {agree:.4f} (bar "
+        f"0.95); where both tracked ({int(both.sum())}) max |diff| "
+        f"{d.max():.5f} px (bar 0.02), mean {d.mean():.6f}")
+    assert agree > 0.95 and both.any() and d.max() < 0.02
+    fd = FlowConfig(method="lk_dense")
+    got = drive("OC-LK dense", lambda: api.flow(a8, b8, fd, device=dev),
+                dict(flow_expected(fd, h, w), ekf_fused_step=0), {})
+    want = ref.imgproc.lk_dense(a8, b8, fd, stride=4)
+    ys, xs = np.mgrid[0:h:4, 0:w:4]
+    grid = np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32)
+    ok = ref.imgproc.lk_sparse(a8, b8, grid, fd)[1].reshape(ys.shape) > 0
+    # the dense formulation's replicate border reaches as far as the
+    # coarsest level's window does at level 0: the reference's own dense
+    # LK leaves cv2's per-point tracks there as the port does
+    margin = (fd.lk_winsize // 2) << (fd.levels - 1)
+    edge = np.minimum(np.minimum(ys, h - 1 - ys), np.minimum(xs, w - 1 - xs))
+    diff = np.abs(got[::4, ::4] - want)
+    inside = ok & (edge >= margin)
+    d, d_in = diff[ok], diff[inside]
+    log(f"  OC-LK dense vs cv2 at stride 4, the oracle's status-ok grid "
+        f"points {margin} px or more inside the border ({int(inside.sum())}"
+        f" of {ok.size}): mean |diff| {d_in.mean():.5f} px (bar 0.05), max "
+        f"{d_in.max():.4f}; all {int(ok.sum())} status-ok points: mean "
+        f"{d.mean():.5f}, max {d.max():.4f}; within 16 px of the border: "
+        f"mean {diff[ok & (edge < 16)].mean():.4f}")
+    assert d_in.mean() < 0.05
+
+    # OC-track, and OC-rate at main_path_config()
+    seeds = ref.imgproc.good_features(ref.imgproc.grayscale(clip[0]),
+                                      TrackConfig(), max_corners=OC_TRACKS)
+    k, steps = len(seeds), len(clip) - 1
+    oracle_fps = {}
+    for label, c in (("main_path_config()", cfg_a),
+                     ("RunConfig()", RunConfig())):
+        c = c.replace(tracks=dataclasses.replace(c.tracks, num_tracks=k,
+                                                 reinit=False))
+        got = drive(f"OC-track {label}",
+                    lambda: pipeline.track_clip(clip, c, seeds, device=dev),
+                    per_frame_expected(c, H, W, T), {})
+        timed = label == "main_path_config()"
+        for n in ((1, threads) if timed else (threads,)):
+            want, wall, tm = oracle_track(ref, clip, c, seeds, n)
+            fps = steps / (tm["flow_s"] + tm["ekf_s"])
+            if timed:
+                oracle_fps[n] = fps
+            log(f"  OC-rate: the oracle at {label}, {n} cv2 thread(s): "
+                f"flow {tm['flow_s']:.3f} s, EKF {tm['ekf_s']:.3f} s, the "
+                f"call {wall:.3f} s for {steps} frame steps: {fps:.4f} "
+                f"frames/s (flow + EKF); Farneback alone "
+                f"{steps / tm['flow_s']:.4f} frame pairs/s")
+        gap = np.linalg.norm(got.positions - want.positions, axis=-1)
+        log(f"  OC-track {label} (K={k}, 1080p T={len(clip)}) vs the "
+            f"oracle: mean gap {gap.mean():.5f} px (bar {CONTRACT_EPE}), "
+            f"max {gap.max():.4f}; live at the end on the card "
+            f"{int(got.alive[-1].sum())}/{k} (test_pipeline.py's 96x96 "
+            f"bars, not asserted here: mean < 1e-3, max < 1e-2)")
+        assert np.isfinite(got.positions).all()
+        assert gap.mean() < CONTRACT_EPE, (label, gap.mean())
+    cv2.setNumThreads(threads)
+
+    run = lambda: api.track_video(clip, cfg_a, device=dev)  # noqa: E731
+    run()
+    fps_a = steps / statistics.median(clip_seconds(run, 3))
+    for n, fps in oracle_fps.items():
+        log(f"  OC-rate: path A {fps_a:.2f} frames/s (1080p T={T} K={K}, "
+            f"median of 3 warm runs; {name}) against the oracle's "
+            f"{fps:.4f} at {n} cv2 thread(s) on {cpu}: {fps_a / fps:.1f}x "
+            f"(contract >= 5x)")
 
 
 def lk_border_points(h, w):
@@ -4349,6 +4551,7 @@ def main() -> int:
     fault_f4(dev, clip, cfg)
     fault_f3(dev, clip, cfg)
     check_golden(dev)
+    check_oracle(dev, clip, cfg, name)
     path_a(dev, clip, cfg, counts_by_path)
     flow_vs_plain(dev, clip, {k: cfgs[k]
                               for k in ("A", "D", "D2", "E", "AP")})

@@ -1,10 +1,21 @@
 """The reference's default configuration end to end on the CPU: the
-port's track_arrays against the JAX reference's (Pallas in interpret
-mode) under RunConfig() with only the tracks shrunk, its bf16 and
-pe_fused=False variants, the warm starts (temporal_init, init_velocity)
-at both warps, explicit seeds; the default `api.track_video` and
+port's track_arrays against the JAX reference's under RunConfig() with
+only the tracks shrunk, its bf16 and pe_fused=False variants, the warm
+starts (temporal_init, init_velocity) at both warps, explicit seeds; the default `api.track_video` and
 `api.track_videos` calls against the reference's own default calls; and
-`flow_sequence`'s per-frame and pair-batched branches."""
+`flow_sequence`'s per-frame and pair-batched branches.
+
+The reference runs its plain XLA route (impl="xla"), except in
+flow_sequence's pair-batched bf16 case (its XLA route rounds the bf16
+pair path elsewhere): each kernel and route these cases reach is held in
+Pallas interpret mode by another test (the exact warp at f32 and bf16,
+cold and warm: test_torch_flow_update.py; the exact warp end to end:
+test_torch_channels.py's flow_photometric path; K1:
+test_torch_kernels.py and test_torch_ekf_route.py; K11:
+test_torch_flow_update.py's level-image test; K5's whole-level route:
+test_torch_flow_level.py; the pair path: test_torch_pairflow.py's kernel
+tests and paths B and C), and a reference jit is mostly compile time,
+about half of it at XLA."""
 
 import dataclasses
 
@@ -36,10 +47,9 @@ def _ported(cfg: RunConfig) -> TRunConfig:
 
 def _base() -> RunConfig:
     """RunConfig() with only the track pool shrunk, run by the reference
-    through its Pallas kernels in interpret mode (5 levels: the 128x160
-    plan clamps them to 3)."""
-    return RunConfig(tracks=TrackConfig(num_tracks=32), impl="pallas",
-                     pallas_interpret=True)
+    on its plain XLA route (5 levels: the 128x160 plan clamps them to
+    3)."""
+    return RunConfig(tracks=TrackConfig(num_tracks=32), impl="xla")
 
 
 def assert_rows(got: dict, ref: dict):
@@ -164,10 +174,12 @@ def test_default_track_videos_matches_reference():
 
 
 def _flow_seq_cfgs():
+    """flow_sequence's two branches: the per-frame chain on the
+    reference's XLA route, the pair-batched branch with bf16 planes in
+    interpret mode (the XLA route rounds the bf16 pair path elsewhere)."""
     return {
         "per_frame_temporal": RunConfig(
-            flow=FlowConfig(levels=3, temporal_init=True), impl="pallas",
-            pallas_interpret=True),
+            flow=FlowConfig(levels=3, temporal_init=True), impl="xla"),
         "pair_batch_fast_warp": RunConfig(
             flow=FlowConfig(levels=3, fast_warp=8, bf16_poly=True),
             impl="pallas", pallas_interpret=True, pair_batch=True),

@@ -3,7 +3,13 @@ poly_expansion_planar_batch, K7b coarse_polyexp_fused_batch, K8-pairs
 flow_update_pairs) and paths B (pair_batch, one clip), C (several clips
 chained) and BX (pair_batch at the exact warp, fast_warp=0) against the
 JAX reference (Pallas in interpret mode on the CPU; the reference's
-exact-warp pair path is plain XLA).
+exact-warp pair path is plain XLA). The kernel tests hold K6, K7a and
+K7b at f32 and bf16 in interpret mode, and paths B and C at bf16 planes
+hold the pair path's route there; path B at f32 planes and the
+exact-warp pair paths BX and CX run the reference's plain XLA route
+(impl="xla"): a reference jit is mostly compile time, about half of it
+at XLA. Cases on the same reference input share its result: path B's
+rows at bf16 are path C's first clip's, CX's first clip's are BX's.
 
 On the CPU each wrapper runs its plain version, so these tests pin the
 arithmetic that the CUDA kernels are held to on the card."""
@@ -120,15 +126,16 @@ def test_coarse_polyexp_batch_matches_pallas(shape, rng):
         assert np.abs(np.asarray(r) - g.numpy()).max() < 1e-3
 
 
-def pair_config(bf16: bool) -> RunConfig:
+def pair_config(bf16: bool, impl: str = "pallas") -> RunConfig:
     """The pair path's settings at 96x128 (3 levels), K=24, with a
     corner-pool refresh every 2 frames (the cadence the pool sequence
-    must reproduce)."""
+    must reproduce); the reference in interpret mode, or on its XLA
+    route at impl="xla"."""
     return RunConfig(
         flow=FlowConfig(levels=3, fast_warp=8, bf16_poly=bf16),
         ekf=EkfConfig(state_dim=6),
         tracks=TrackConfig(num_tracks=24, reinit_every=2),
-        impl="pallas", pallas_interpret=True, pair_batch=True)
+        impl=impl, pallas_interpret=True, pair_batch=True)
 
 
 def _clip(seed=0, t=5):
@@ -144,14 +151,32 @@ def _assert_rows(got, ref):
     assert np.abs(got["nis"] - ref["nis"]).max() < 1e-3
 
 
+@pytest.fixture(scope="module")
+def ref_path_c():
+    """The reference's rows of path C (track_clips_pairflow over _clip(0)
+    and _clip(1) at bf16 planes, Pallas in interpret mode), computed
+    once: path B at bf16 compares with its first clip."""
+    clips = np.stack([_clip(0), _clip(1)])
+    return jax.device_get(jax.jit(jp.track_clips_pairflow,
+                                  static_argnames="cfg")(
+        jnp.asarray(clips), pair_config(True)))
+
+
 @pytest.mark.parametrize("bf16", [False, True])
-def test_path_b_matches_reference(bf16):
-    """Path B: track_arrays with pair_batch on both sides; positions
-    < 1e-3 px, alive and track_id identical."""
+def test_path_b_matches_reference(bf16, ref_path_c):
+    """Path B: track_arrays with pair_batch on both sides (the reference
+    on its XLA route at f32 planes); at bf16 planes the reference's rows
+    are path C's first clip's (its multi-clip path, which the reference
+    holds to its per-clip track_arrays in its own test_pairflow.py);
+    positions < 1e-3 px, alive and track_id identical."""
     clip = _clip()
-    cfg = pair_config(bf16)
-    ref = jax.device_get(jax.jit(jp.track_arrays, static_argnames="cfg")(
-        jnp.asarray(clip), cfg))
+    cfg = pair_config(bf16, "pallas" if bf16 else "xla")
+    if bf16:
+        ref = {k: v[0] for k, v in ref_path_c.items()}
+    else:
+        ref = jax.device_get(jax.jit(jp.track_arrays,
+                                     static_argnames="cfg")(
+            jnp.asarray(clip), cfg))
     got = {k: v.numpy() for k, v in tp.track_arrays(
         torch.from_numpy(clip), TRunConfig.from_json(cfg.to_json())).items()}
     assert got["pos"].shape == (5, 24, 2)
@@ -159,21 +184,18 @@ def test_path_b_matches_reference(bf16):
     assert got["alive"][-1].any()
 
 
-def test_path_c_matches_reference():
+def test_path_c_matches_reference(ref_path_c):
     """Path C: two clips chained through shared launches (clip_len) on
     both sides; per clip, positions < 1e-3 px, alive and track_id
     identical."""
     clips = np.stack([_clip(0), _clip(1)])
     cfg = pair_config(True)
-    ref = jax.device_get(jax.jit(jp.track_clips_pairflow,
-                                 static_argnames="cfg")(
-        jnp.asarray(clips), cfg))
     got = {k: v.numpy() for k, v in tp.track_clips_pairflow(
         torch.from_numpy(clips), TRunConfig.from_json(cfg.to_json())).items()}
     assert got["pos"].shape == (2, 5, 24, 2)
     for b in range(2):
         _assert_rows({k: v[b] for k, v in got.items()},
-                     {k: v[b] for k, v in ref.items()})
+                     {k: v[b] for k, v in ref_path_c.items()})
 
 
 @pytest.mark.parametrize("T,reinit_every", [(40, 4), (67, 1)])
@@ -260,20 +282,41 @@ def test_pair_exact_warp_flow_matches_reference(clip_len, bf16):
 
 def exact_pair_config(bf16: bool) -> RunConfig:
     """Path BX: the reference's defaults (the exact warp), pair-batched,
-    at 96x128 (3 levels), K=24, a corner-pool refresh every 2 frames."""
+    at 96x128 (3 levels), K=24, a corner-pool refresh every 2 frames; the
+    reference on its XLA route."""
     return RunConfig(flow=FlowConfig(levels=3, bf16_poly=bf16),
                      tracks=TrackConfig(num_tracks=24, reinit_every=2),
-                     impl="pallas", pallas_interpret=True, pair_batch=True)
+                     impl="xla", pair_batch=True)
+
+
+@pytest.fixture(scope="module")
+def ref_bx_rows():
+    """The reference's pair-batched track_arrays rows at the exact warp
+    and f32 planes, by clip seed, each computed once on one compiled
+    graph: path BX's (seed 0) and CX's two clips."""
+    cache = {}
+
+    def rows(seed):
+        if seed not in cache:
+            cache[seed] = jax.device_get(jax.jit(
+                jp.track_arrays, static_argnames="cfg")(
+                jnp.asarray(_clip(seed)), exact_pair_config(False)))
+        return cache[seed]
+    return rows
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-def test_path_bx_matches_reference(bf16):
+def test_path_bx_matches_reference(bf16, ref_bx_rows):
     """Path BX: track_arrays (pair-batched, exact warp) on both sides;
     positions < 1e-3 px, alive and track_id identical."""
     clip = _clip()
     cfg = exact_pair_config(bf16)
-    ref = jax.device_get(jax.jit(jp.track_arrays, static_argnames="cfg")(
-        jnp.asarray(clip), cfg))
+    if bf16:
+        ref = jax.device_get(jax.jit(jp.track_arrays,
+                                     static_argnames="cfg")(
+            jnp.asarray(clip), cfg))
+    else:
+        ref = ref_bx_rows(0)
     got = {k: v.numpy() for k, v in tp.track_arrays(
         torch.from_numpy(clip), TRunConfig.from_json(cfg.to_json())).items()}
     assert got["pos"].shape == (5, 24, 2)
@@ -281,20 +324,18 @@ def test_path_bx_matches_reference(bf16):
     assert got["alive"][-1].any()
 
 
-def test_path_cx_matches_reference():
-    """Two clips chained through shared K8-pairs launches (clip_len) at
-    the exact warp on both sides: per clip, positions < 1e-3 px, alive
-    and track_id identical."""
+def test_path_cx_matches_reference(ref_bx_rows):
+    """The port's two clips chained through shared K8-pairs launches
+    (clip_len) at the exact warp against the reference's track_arrays of
+    each clip (BX's rows for the first; path C holds the reference's
+    chained path): per clip, positions < 1e-3 px, alive and track_id
+    identical."""
     clips = np.stack([_clip(0), _clip(1)])
     cfg = exact_pair_config(False)
-    ref = jax.device_get(jax.jit(jp.track_clips_pairflow,
-                                 static_argnames="cfg")(
-        jnp.asarray(clips), cfg))
     got = {k: v.numpy() for k, v in tp.track_clips_pairflow(
         torch.from_numpy(clips), TRunConfig.from_json(cfg.to_json())).items()}
     for b in range(2):
-        _assert_rows({k: v[b] for k, v in got.items()},
-                     {k: v[b] for k, v in ref.items()})
+        _assert_rows({k: v[b] for k, v in got.items()}, ref_bx_rows(b))
 
 
 def test_exact_pair_path_equals_per_frame_path():

@@ -1,6 +1,9 @@
 """K13 (flow_iters_pipelined, FlowConfig.fi_pipeline) and path AP, the
 headline graph with fi_pipeline=True, against the JAX reference (Pallas
-in interpret mode on the CPU).
+in interpret mode on the CPU; path AP at f32 planes on the reference's
+plain XLA route, since test_k13_route_flow_matches_reference holds K13's
+route in interpret mode at f32 and path AP at bf16 holds the path there:
+a reference jit is mostly compile time, about half of it at XLA).
 
 On the CPU the wrapper runs `flow_iters_pipelined_plain`, so these tests
 pin the arithmetic that the CUDA kernel is held to on the card
@@ -83,18 +86,19 @@ def test_flow_iters_pipelined_plain_is_iterated_flow_iter(rng):
         flow_iters_pipelined(R0, R1, fl, 15, 8, 1)
 
 
-def pipe_config(bf16: bool) -> RunConfig:
+def pipe_config(bf16: bool, impl: str = "pallas") -> RunConfig:
     """Path AP's settings (the headline graph with fi_pipeline) at
     fi_level_fused=False, so that K13 runs on every level: with the
     whole-level kernel on, every level of a clip this small passes K5's
     gate on both sides and K13 would never run. 128x160 (3 levels),
-    K=32."""
+    K=32; the reference in interpret mode, or on its XLA route at
+    impl="xla"."""
     return RunConfig(
         flow=FlowConfig(levels=3, fast_warp=8, bf16_poly=bf16,
                         fi_level_fused=False, fi_pipeline=True),
         ekf=EkfConfig(state_dim=6),
         tracks=TrackConfig(num_tracks=32, reinit_every=2),
-        impl="pallas", pallas_interpret=True)
+        impl=impl, pallas_interpret=True)
 
 
 @pytest.fixture(scope="module")
@@ -135,8 +139,9 @@ def test_k13_route_flow_matches_reference(clip, monkeypatch):
 @pytest.mark.parametrize("bf16", [False, True])
 def test_path_ap_matches_reference(clip, bf16):
     """Path AP: track_arrays with fi_pipeline on both sides, K13 on every
-    level; positions < 1e-3 px, alive and track_id identical."""
-    cfg = pipe_config(bf16)
+    level (the reference in interpret mode at bf16 planes, on its XLA
+    route at f32); positions < 1e-3 px, alive and track_id identical."""
+    cfg = pipe_config(bf16, "pallas" if bf16 else "xla")
     ref = jax.device_get(jax.jit(jp.track_arrays, static_argnames="cfg")(
         jnp.asarray(clip), cfg))
     got = {k: v.numpy() for k, v in tp.track_arrays(

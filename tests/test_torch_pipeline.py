@@ -1,6 +1,11 @@
 """End to end: the port's track_arrays against the JAX reference's
-track_arrays (impl="pallas" in interpret mode, fi_level_fused=False) on
-the same clip, in f32 and with bf16 polyexp planes."""
+track_arrays (fi_level_fused=False) on the same clip, in f32 and with
+bf16 polyexp planes. With bf16 planes the reference runs its Pallas
+kernels in interpret mode (its XLA route rounds elsewhere), and this
+case and test_torch_step.py's hold the unfused fast-warp route there; in
+f32 its plain XLA route (test_torch_kernels.py holds K2, K3, K4 and K1
+at f32 in interpret mode). A reference jit is mostly compile time, about
+half of it at XLA."""
 
 import numpy as np
 import jax
@@ -18,13 +23,14 @@ from kalman_hydra_tpu_torch.config import RunConfig as TRunConfig
 
 
 def slice_config(bf16: bool) -> RunConfig:
-    """The main path's settings at 128x160 (3 levels), K=32."""
+    """The main path's settings at 128x160 (3 levels), K=32; the
+    reference in interpret mode at bf16, on its XLA route at f32."""
     return RunConfig(
         flow=FlowConfig(levels=3, fast_warp=8, bf16_poly=bf16,
                         fi_level_fused=False),
         ekf=EkfConfig(state_dim=6),
         tracks=TrackConfig(num_tracks=32, reinit_every=2),
-        impl="pallas", pallas_interpret=True)
+        impl="pallas" if bf16 else "xla", pallas_interpret=True)
 
 
 @pytest.fixture(scope="module")

@@ -41,9 +41,10 @@ def test_port_never_imports_jax(tmp_path):
     entry point with its default config (track_video, smooth, flow,
     flow_sequence), track_precomputed_flow, track_mesh streamed with
     flow_render (the render update after the flow's) under debug_checks,
-    the mesh strain and the profiler's trace and cost leaves jax, jaxlib
-    and
-    every module of the JAX package out of sys.modules."""
+    the mesh strain, the profiler's trace and cost, and the port's
+    OpenCV/NumPy oracle (`ref`, imported by the walk) tracking a clip
+    leaves jax, jaxlib and every module of the JAX package out of
+    sys.modules."""
     code = (
         "import sys, pkgutil, importlib, numpy as np\n"
         "import kalman_hydra_tpu_torch as p\n"
@@ -105,10 +106,29 @@ def test_port_never_imports_jax(tmp_path):
         "M.mesh_strain_sequence_dynamic(mesh, tr.positions, device='cpu')\n"
         "with profiling.trace(sys.argv[1]):\n"
         "    profiling.cost(torch.mm, torch.ones(4, 4), torch.ones(4, 4))\n"
+        "from kalman_hydra_tpu_torch.ref import pipeline as rp\n"
+        "tr = rp.track_clip(clip, RunConfig(flow=f2,\n"
+        "                   tracks=TrackConfig(num_tracks=8)))\n"
+        "assert tr.positions.shape[0] == 3 and tr.alive.all()\n"
         "ref = [m for m in sys.modules if m.split('.')[0]\n"
         "       in ('jax', 'jaxlib', 'kalman_hydra_tpu')]\n"
         "print(ref)\n")
     res = _run(["-c", code, str(tmp_path / "prof")], REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_port_import_leaves_the_oracle_out():
+    """Importing the port, its API, pipeline, CLI and parallel paths
+    imports neither its OpenCV/NumPy oracle (`kalman_hydra_tpu_torch.ref`)
+    nor cv2: the port runs on a host without OpenCV."""
+    code = (
+        "import sys\n"
+        "import kalman_hydra_tpu_torch\n"
+        "from kalman_hydra_tpu_torch import api, cli, parallel, pipeline\n"
+        "print(sorted(m for m in sys.modules if m == 'cv2'\n"
+        "             or m.startswith('kalman_hydra_tpu_torch.ref')))\n")
+    res = _run(["-c", code], REPO)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
 

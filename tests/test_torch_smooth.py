@@ -5,7 +5,16 @@ fixed-lag, track_clip's chunked mode, the pair-batched and multi-clip
 paths with init_velocity); `api.smooth` and `api.flow_sequence(smooth=
 True)` with no config; and a reference Carry taken mid-clip under
 temporal_init and lag=2, carried across with `convert` and continued by
-the port."""
+the port.
+
+The reference runs its plain XLA route (impl="xla") at f32 planes: its
+smoothers are XLA on every route, and the flow kernels and route these
+cases reach are held in Pallas interpret mode by other tests (the exact
+warp cold and warm: test_torch_flow_update.py; end to end:
+test_torch_channels.py's flow_photometric path; K1:
+test_torch_kernels.py and test_torch_ekf_route.py). A reference jit is
+mostly compile time, about half of it at XLA. The pair paths, at bf16
+planes, run in interpret mode (the XLA route rounds them elsewhere)."""
 
 import numpy as np
 import jax
@@ -126,7 +135,7 @@ def test_pixel_ekf_matches_reference(rng):
 def _smooth_cfg(**smooth) -> RunConfig:
     return RunConfig(tracks=TrackConfig(num_tracks=32),
                      smooth=SmoothConfig(enabled=True, **smooth),
-                     impl="pallas", pallas_interpret=True)
+                     impl="xla")
 
 
 def _assert_smoothed(got: dict, ref: dict):
@@ -153,15 +162,29 @@ def port_rows(clip):
     return rows
 
 
+@pytest.fixture(scope="module")
+def ref_rows(clip):
+    """The reference's track_arrays rows, filter history included, under
+    (e) by lag, each computed once: lag 0's history is also the one (f)'s
+    chunked smoother runs on."""
+    cache = {}
+
+    def rows(lag):
+        if lag not in cache:
+            cache[lag] = jax.device_get(jax.jit(
+                jp.track_arrays, static_argnames=("cfg", "with_history"))(
+                jnp.asarray(clip), _smooth_cfg(lag=lag), True))
+        return cache[lag]
+    return rows
+
+
 @pytest.mark.parametrize("lag", [0, 2])
-def test_track_arrays_smoothing_matches_reference(clip, lag, port_rows):
+def test_track_arrays_smoothing_matches_reference(clip, lag, port_rows,
+                                                  ref_rows):
     """(e) RunConfig() with smoothing, monolithic RTS and the fixed-lag
     smoother at lag=2: `smoothed` < 1e-3 px; with_history returns the
     reference's filter history too."""
-    cfg = _smooth_cfg(lag=lag)
-    ref = jax.device_get(jax.jit(jp.track_arrays,
-                                 static_argnames=("cfg", "with_history"))(
-        jnp.asarray(clip), cfg, True))
+    ref = ref_rows(lag)
     got = port_rows(lag)
     assert set(got) == set(ref)
     _assert_smoothed(got, ref)
@@ -169,16 +192,20 @@ def test_track_arrays_smoothing_matches_reference(clip, lag, port_rows):
         assert np.abs(got[k] - ref[k]).max() < 1e-3, k
 
 
-def test_track_clip_chunked_matches_reference(clip, port_rows):
+def test_track_clip_chunked_matches_reference(clip, port_rows, ref_rows):
     """(f) track_clip with SmoothConfig(chunk=2): the history goes through
     host memory and is smoothed two frames at a time: `smoothed` < 1e-3
-    px against the reference's track_clip, < 1e-4 against the port's
-    monolithic RTS (track_clip's smoothing is track_arrays')."""
+    px against the reference's track_clip at chunk=2, which runs its
+    filter (the same history as (e)'s at lag 0, shared) and then its
+    chunked smoother (`_smooth_history_chunked`) on the host; < 1e-4
+    against the port's monolithic RTS (track_clip's smoothing is
+    track_arrays')."""
     cfg = _smooth_cfg(chunk=2)
-    ref = jp.track_clip(clip, cfg)
+    ref = ref_rows(0)
+    ref_smoothed = jp._smooth_history_chunked(ref, cfg)[..., 0:2]
     got = tp.track_clip(clip, _ported(cfg), device="cpu")
-    assert np.abs(got.positions - ref.positions).max() < 1e-3
-    assert np.abs(got.smoothed - ref.smoothed).max() < 1e-3
+    assert np.abs(got.positions - ref["pos"]).max() < 1e-3
+    assert np.abs(got.smoothed - ref_smoothed).max() < 1e-3
     assert np.abs(got.smoothed - port_rows(0)["smoothed"]).max() < 1e-4
 
 
@@ -250,7 +277,7 @@ def test_carry_round_trip_mid_clip(clip):
     cfg = RunConfig(flow=FlowConfig(levels=3, temporal_init=True),
                     tracks=TrackConfig(num_tracks=32),
                     smooth=SmoothConfig(enabled=True, lag=2),
-                    impl="pallas", pallas_interpret=True)
+                    impl="xla")
     jstep = jax.jit(jp.make_step(cfg))
     jc = jax.jit(jp.init_from_frame, static_argnames="cfg")(clip[0], cfg)
     for t in (1, 2):

@@ -1,7 +1,14 @@
 """Step level: a JAX reference Carry from init_from_frame, carried across
 with kalman_hydra_tpu_torch.convert, then stepped through both packages'
 make_step side by side — on the clean clip, and from a perturbed state
-that makes the gate, kill and reseed paths fire."""
+that makes the gate, kill and reseed paths fire.
+
+With bf16 planes the reference runs its Pallas kernels in interpret mode
+(this test and test_torch_pipeline.py's bf16 case hold the unfused
+fast-warp route there); with f32 planes its plain XLA route (its XLA
+route rounds bf16 planes elsewhere; test_torch_kernels.py holds K2, K3,
+K4 and K1 at f32 in interpret mode). A reference jit is mostly compile
+time, about half of it at XLA."""
 
 import numpy as np
 import jax
@@ -18,13 +25,14 @@ from kalman_hydra_tpu_torch.config import RunConfig as TRunConfig
 
 
 def slice_config(bf16: bool) -> RunConfig:
-    """The main path's settings at 128x160 (3 levels), K=32."""
+    """The main path's settings at 128x160 (3 levels), K=32; the
+    reference in interpret mode at bf16, on its XLA route at f32."""
     return RunConfig(
         flow=FlowConfig(levels=3, fast_warp=8, bf16_poly=bf16,
                         fi_level_fused=False),
         ekf=EkfConfig(state_dim=6),
         tracks=TrackConfig(num_tracks=32, reinit_every=2),
-        impl="pallas", pallas_interpret=True)
+        impl="pallas" if bf16 else "xla", pallas_interpret=True)
 
 
 @pytest.fixture(scope="module")
