@@ -1654,10 +1654,77 @@ def fault_f5(dev, clip, cfgs):
 POLY_N_CASES = ((9, 1.9), (11, 2.3), (13, 2.7), (53, 10.6), (101, 20.2),
                 (257, 51.4))
 MEM_ROUTE = ("polyexp_mem", "level_polyexp_mem")
+# sha256 of the device-memory route's outputs as its first design built
+# them (commit 91c9116: a thread a pixel, one kh_polyexp_mem call a
+# coarse level) on F4's own inputs (polyexp_mem_witness_inputs), over
+# each output in order: K3 f32 and K7a bf16 (N = 2) at n = 53, 101, 257,
+# K4 f32 and K7b bf16 (N = 2) at n = 101. Computed by
+# tools/torch_polyexp_mem_ab.py on that commit, on an NVIDIA H100 80GB
+# HBM3.
+POLYEXP_MEM_WITNESS = {
+    "K3 f32 n=53":
+        "1f45a884e8d37dd32b00c7152ae19bb7f7d3bbfec9096c7eceb1db5e63c70dc5",
+    "K3 f32 n=101":
+        "a9d0b62330894a2082fa0b6926d528abfcca3153d1f06a57f29aa9fb80f78b73",
+    "K3 f32 n=257":
+        "207f4c2b41f1e9c48ac7f3d6d86ccdb991d43f204e64cec04e56d5c7f6983350",
+    "K7a bf16 n=53":
+        "af4fcb152078fd55fea4cd3148bfeea79620678754148cf2339c6f20e37cfecd",
+    "K7a bf16 n=101":
+        "8f38d738d008842f6cc250530b4802dd8f2d1995bf86c1c3f8b8dcd4b3fc6652",
+    "K7a bf16 n=257":
+        "590b5f2f3ca4f718dc256b173d152fa1a067c49e4a5acd5c8d1d12cf87150249",
+    "K4 f32 n=101":
+        "5f68026edd4c54f7421b7040d39669cb2f29a11d8e2fca39ce44f44bcfc445b2",
+    "K7b bf16 n=101":
+        "9df00095839aa9a67e64881c34c32c9d44f70d67e2f8fb5ebaf8f40d279e4f02",
+}
+MEM_WITNESS_N = (53, 101, 257)
+
+
+def polyexp_mem_witness_keys() -> list:
+    return ([f"K3 f32 n={n}" for n in MEM_WITNESS_N]
+            + [f"K7a bf16 n={n}" for n in MEM_WITNESS_N]
+            + ["K4 f32 n=101", "K7b bf16 n=101"])
+
+
+def polyexp_mem_witness_inputs(dev):
+    """F4's inputs: the gray frames 0 and 1 of path A's clip, (2, H, W)
+    f32 on dev, and path A's FlowConfig (its levels and pyr_scale)."""
+    from kalman_hydra_tpu_torch import pipeline
+    from kalman_hydra_tpu_torch.ops.color import grayscale_u8
+    clip = blob_clip(T, H, W)
+    return (grayscale_u8(torch.from_numpy(clip[:2]).to(dev)),
+            path_configs(pipeline)["A"].flow)
+
+
+def polyexp_mem_witness_hash(key, grays, f) -> str:
+    """The hash of a POLYEXP_MEM_WITNESS key, "<K3|K7a|K4|K7b> <f32|bf16>
+    n=<poly_n>", at F4's poly_sigma for that n: K3/K4 on frame 0, K7a/K7b
+    on both frames."""
+    from kalman_hydra_tpu_torch.kernels.level_image import (
+        coarse_polyexp_fused, coarse_polyexp_fused_batch)
+    from kalman_hydra_tpu_torch.kernels.polyexp import (
+        poly_expansion_planar, poly_expansion_planar_batch)
+    kind, dts, ns = key.split()
+    n = int(ns[2:])
+    sg = dict(POLY_N_CASES)[n]
+    dt = torch.float32 if dts == "f32" else torch.bfloat16
+    args = (f.levels, f.pyr_scale, n, sg)
+    if kind == "K3":
+        outs = [poly_expansion_planar(grays[0], n, sg, dt)]
+    elif kind == "K7a":
+        outs = [poly_expansion_planar_batch(grays, n, sg, dt)]
+    elif kind == "K4":
+        outs = coarse_polyexp_fused(grays[0], *args, out_dtype=dt)
+    else:
+        outs = coarse_polyexp_fused_batch(grays, *args, out_dtype=dt)
+    return tensors_hash(outs)
 
 
 @phase("F4: poly_n 9, 11, 13, 53, 101, 257 through api.flow (K4, K3; K11 "
-       "at pe_fused=False; the device-memory route past POLY_N_MAX) and "
+       "at pe_fused=False; the device-memory route past POLY_N_MAX, held "
+       "to its first design's bytes) and "
        "the batched kernels (K7b, K7a)")
 def fault_f4(dev, clip, cfg, results, counts_by_path):
     """The generic-n builds of K3/K7a and K4/K7b and, past POLY_N_MAX,
@@ -1665,7 +1732,8 @@ def fault_f4(dev, clip, cfg, results, counts_by_path):
     plain versions; K11 + K3 at pe_fused=False), each route's time per
     call, then the main path's flow through api.flow at each n against
     the plain route, with each call's launches (the device-memory
-    route's kept for the kernels line); the route's numbers at n = 101
+    route's kept for the kernels line); the route's outputs against its
+    first design's bytes (POLYEXP_MEM_WITNESS); its numbers at n = 101
     go to the kernels line."""
     from kalman_hydra_tpu_torch.kernels.level_image import (
         coarse_polyexp_fused, coarse_polyexp_fused_batch,
@@ -1712,13 +1780,24 @@ def fault_f4(dev, clip, cfg, results, counts_by_path):
         if n > POLY_N_MAX:
             counts_by_path[f"F4 poly_n {n}"] = {k: counts.get(k, 0)
                                                 for k in MEM_ROUTE}
+    # the route's bytes against its first design's (bit for bit)
+    bad = []
+    for key in polyexp_mem_witness_keys():
+        same = polyexp_mem_witness_hash(key, grays, cfg.flow) == \
+            POLYEXP_MEM_WITNESS.get(key)
+        log(f"  {key}: {'same bytes' if same else 'DIFFERENT bytes'} as "
+            f"the first design")
+        if not same:
+            bad.append(key)
+    assert not bad, f"the device-memory route differs from its first " \
+        f"design on {bad}"
     for n, sg in ((11, 2.3), (101, 20.2)):
         f = dataclasses.replace(cfg.flow, poly_n=n, poly_sigma=sg,
                                 pe_fused=False)
         flow_pair(dev, clip, f, flow_expected(f, H, W),
                   f"poly_n {n} at pe_fused=False (K11, K3)")
     # the route's kernels line at n = 101 (f32 K3: kh_polyexp_mem alone;
-    # K4: K11's level images, then kh_polyexp_mem a coarse level)
+    # K4: K11's level images, then kh_polyexp_mem over the levels)
     n, sg = 101, 20.2
     f = dataclasses.replace(cfg.flow, poly_n=n, poly_sigma=sg)
     args = (f.levels, f.pyr_scale, n, sg)
@@ -2764,13 +2843,14 @@ def per_frame_expected(cfg, h, w, t) -> dict:
     Lucas-Kanade: see the branches below. Past POLY_N_MAX the polyexp
     takes its device-memory route: K3's launches count as polyexp_mem,
     and K4's as level_polyexp_mem, one for each run of K11's level images
-    and one for each coarse level's kh_polyexp_mem."""
+    and one kh_polyexp_mem call for each MEM_MAX_LEVELS coarse levels."""
     from kalman_hydra_tpu_torch import kernels
     from kalman_hydra_tpu_torch.kernels.flow_level import (MAX_LEVELS, fits,
                                                            walk_fits)
     from kalman_hydra_tpu_torch.kernels.level_image import (
         MAX_LEVELS as LEVEL_IMAGE_LEVELS)
-    from kalman_hydra_tpu_torch.kernels.polyexp import POLY_N_MAX
+    from kalman_hydra_tpu_torch.kernels.polyexp import (MEM_MAX_LEVELS,
+                                                        POLY_N_MAX)
     from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
     e = dict.fromkeys(kernels.WRAPPERS, 0)
@@ -2816,9 +2896,9 @@ def per_frame_expected(cfg, h, w, t) -> dict:
     k3 = "polyexp_mem" if mem else "poly_expansion_planar"
     if not f.pe_fused:
         e.update({k3: t * len(plan)}, coarse_level_images=coarse * t)
-    elif mem:    # K11's level images, then kh_polyexp_mem a coarse level
-        e.update(polyexp_mem=t,
-                 level_polyexp_mem=(coarse + len(plan) - 1) * t)
+    elif mem:    # K11's level images, then kh_polyexp_mem over them
+        e.update(polyexp_mem=t, level_polyexp_mem=(
+            coarse + -(-(len(plan) - 1) // MEM_MAX_LEVELS)) * t)
     else:
         e.update(poly_expansion_planar=t, coarse_polyexp_fused=coarse * t)
     e["ekf_fused_step"] = (t - 1) * takes_k1(cfg)
@@ -2833,7 +2913,8 @@ def pair_expected(cfg, h, w, clips, t) -> dict:
     alone)."""
     from kalman_hydra_tpu_torch import kernels
     from kalman_hydra_tpu_torch.kernels.level_image import MAX_LEVELS
-    from kalman_hydra_tpu_torch.kernels.polyexp import POLY_N_MAX
+    from kalman_hydra_tpu_torch.kernels.polyexp import (MEM_MAX_LEVELS,
+                                                        POLY_N_MAX)
     from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
     e = dict.fromkeys(kernels.WRAPPERS, 0)
@@ -2842,7 +2923,8 @@ def pair_expected(cfg, h, w, clips, t) -> dict:
     levels = len(farneback_levels(h, w, f.levels, f.pyr_scale))
     if f.poly_n > POLY_N_MAX:   # the device-memory route (per_frame_expected)
         e.update(polyexp_mem=1, level_polyexp_mem=(
-            -(-(levels - 1) // MAX_LEVELS) + levels - 1))
+            -(-(levels - 1) // MAX_LEVELS)
+            + -(-(levels - 1) // MEM_MAX_LEVELS)))
     else:
         e.update(poly_expansion_planar_batch=1, coarse_polyexp_fused_batch=1)
     e.update({flow_kernel: levels * f.iterations,

@@ -382,120 +382,313 @@ int run(const float* src, int frames, int h, int w, const PolyTaps& t,
 // The device-memory route, for an odd n past the shared-memory plans
 // (kernels/polyexp.py::polyexp_route: n > POLY_N_MAX, where K4/K7b's
 // level tile no longer fits half a block; the reference takes any odd
-// n). Two passes, one thread an output pixel, the taps read from device
-// memory (the same address across a warp: one broadcast load):
+// n), for one image stack (K3/K7a) or for every coarse level of one
+// (K4/K7b, after K11's level images), each level's blocks found in a
+// table through blockIdx.x as K4's fused launch finds them. Two passes:
 //   1. vertical: the three moment planes of every pixel, g, xg and xxg
-//      over rows r - n ... r + n clamped to the image (the replicate
-//      border), into a (frames, 3, h, w) f32 scratch in device memory
-//      that the wrapper allocates per call on the image's device;
+//      over rows r - n ... r + n, into a (frames, w, pitch) scratch of
+//      float4 {g, xg, xxg, 0} sums (pitch = h rounded up to kMemR):
+//      transposed and interleaved, so that the horizontal pass walks its
+//      taps down contiguous memory, one 16-byte load a tap;
 //   2. horizontal: the six moments over columns c - n ... c + n of those
-//      planes, clamped the same way, then the five planes, rounded once
-//      to the output type at the store.
-// A clamped index is the plain version's replicate pad, at every index,
-// also where 2n + 1 exceeds the image (a coarse level narrower than the
-// taps). Each sum runs its taps in order, one multiply-add each, and the
-// planes are formed as polyexp_tile forms them. Consecutive lanes take
-// consecutive columns, so every tap's loads are coalesced; the cost is
-// each input read 2n + 1 times from L1/L2 and the scratch's round trip
-// (12 bytes a pixel each way). Right first, not fast.
-constexpr int kMemTX = 32, kMemTY = 8;       // a block: 32 columns x 8 rows
+//      planes, then the five planes, rounded once to the output type at
+//      the store.
+// Bound on Hopper: the operations (18 (2n + 1) + 7 FLOPs a pixel; 7.6 GFLOP a
+// 1080p frame at n = 101, 0.113 ms at 67 TFLOP/s f32); the scratch's round
+// trip is 32 bytes a pixel (~20 us a 1080p frame). The first design (commit
+// 91c9116: one thread a pixel) loaded a datum and its taps beside every 3
+// (vertical) or 6 (horizontal) multiply-adds, bound by load issue near a
+// quarter of the multiply-add rate. Here each thread takes kMemR consecutive
+// outputs of one column (vertical) or one row (horizontal) and keeps the last
+// kMemR source values in a register window that moves one row (column) a tap,
+// its slots renamed at compile time over a run of kMemR taps: a tap costs one
+// new load and one 16-byte broadcast of {g, xg, xxg} from shared memory for 3
+// kMemR (6 kMemR) multiply-adds, and offsets are 32-bit (a clamped index, a
+// multiply, an address; a 64-bit index costs a 64-bit multiply a load). The
+// source is read through L1, not staged: a warp's 32 lanes take 32 consecutive
+// columns (vertical) or rows (horizontal, in the transposed scratch), and the
+// block's warps, kMemR outputs apart, read the same lines within ~64 taps of
+// each other (a few KB of L1), whatever n; staging would take 2n + 64 rows of
+// shared memory. The taps go to shared memory kMemTapChunk at a time, so no n
+// is too large for a block. On an H100 it runs at about half the
+// multiply-add rate at a 1080p frame (tools/torch_polyexp_mem_ab.py,
+// PERF.md). A clamped index is the plain version's replicate pad at every
+// index, also where 2n + 1 exceeds a level. Each output sums its taps k = 0
+// ... 2n in order, one multiply-add each, and forms the planes as the first
+// design did, so the bytes are that design's.
+constexpr int kMemR = 8;              // outputs a thread
+constexpr int kMemWarps = 8;          // warps a block
+constexpr int kMemSpan = kMemR * kMemWarps;   // rows (1.) or columns (2.)
+constexpr int kMemThreads = 32 * kMemWarps;
+constexpr int kMemMaxLevels = 16;     // levels a launch
+constexpr int kMemTapChunk = 512;     // taps in shared memory at a time
+static_assert(kMemR == kRH, "put8 stores kMemR outputs");
+static_assert(kMemTapChunk % kMemR == 0, "whole runs of taps a chunk");
 
-__global__ void __launch_bounds__(kMemTX * kMemTY)
-polyexp_mem_v_kernel(const float* __restrict__ src, int h, int w, int n,
-                     const float* __restrict__ taps, float* __restrict__ vs) {
-  const int c = blockIdx.x * kMemTX + threadIdx.x;
-  const int r = blockIdx.y * kMemTY + threadIdx.y;
-  if (c >= w || r >= h) return;
-  const long plane = (long)h * w;
-  src += blockIdx.z * plane + c;
-  vs += blockIdx.z * 3 * plane;
-  const int t = 2 * n + 1;
-  float v0 = 0.f, v1 = 0.f, v2 = 0.f;
-  for (int k = 0; k < t; ++k) {
-    const float s = __ldg(src + (long)clampi(r + k - n, 0, h - 1) * w);
-    v0 = __fmaf_rn(__ldg(taps + k), s, v0);
-    v1 = __fmaf_rn(__ldg(taps + t + k), s, v1);
-    v2 = __fmaf_rn(__ldg(taps + 2 * t + k), s, v2);
-  }
-  const long o = (long)r * w + c;
-  vs[o] = v0;
-  vs[plane + o] = v1;
-  vs[2 * plane + o] = v2;
+struct MemLevel {
+  const float* src;   // (frames, h, w) f32
+  float4* vs;         // (frames, w, pitch) {g, xg, xxg, 0} sums
+  void* out;          // (frames, 5, h, w) f32 or bf16
+  int h, w, pitch;
+  int v_block0, h_block0;   // the level's first block in each pass
+};
+
+struct MemPlan {
+  MemLevel lv[kMemMaxLevels];
+  const float4* taps;       // (2n + 1) x {g, xg, xxg, 0}
+  float ig11, ig03, ig33, ig55;
+  int n, levels;
+};
+
+__device__ __forceinline__ int mem_level(const MemPlan& p, int block,
+                                         bool vertical) {
+  int li = 0;
+  while (li + 1 < p.levels &&
+         block >= (vertical ? p.lv[li + 1].v_block0
+                            : p.lv[li + 1].h_block0))
+    ++li;
+  return li;
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(kMemTX * kMemTY)
-polyexp_mem_h_kernel(const float* __restrict__ vs, int h, int w,
-                     const PolyTaps t, const float* __restrict__ taps,
-                     OutT* __restrict__ out) {
-  const int c = blockIdx.x * kMemTX + threadIdx.x;
-  const int r = blockIdx.y * kMemTY + threadIdx.y;
-  if (c >= w || r >= h) return;
-  const long plane = (long)h * w;
-  const float* ra = vs + blockIdx.z * 3 * plane + (long)r * w;
-  out += blockIdx.z * 5 * plane;
-  const int n = t.n, nt = 2 * n + 1;
-  float m00 = 0.f, m10 = 0.f, m20 = 0.f, m01 = 0.f, m11 = 0.f, m02 = 0.f;
-  for (int k = 0; k < nt; ++k) {
-    const int x = clampi(c + k - n, 0, w - 1);
-    const float a = ra[x], b = ra[plane + x], d = ra[2 * plane + x];
-    const float g = __ldg(taps + k), xg = __ldg(taps + nt + k);
-    m00 = __fmaf_rn(g, a, m00);
-    m10 = __fmaf_rn(xg, a, m10);
-    m20 = __fmaf_rn(__ldg(taps + 2 * nt + k), a, m20);
-    m01 = __fmaf_rn(g, b, m01);
-    m11 = __fmaf_rn(xg, b, m11);
-    m02 = __fmaf_rn(g, d, m02);
-  }
-  const long o = (long)r * w + c;
-  kh::store(out + o, m10 * t.ig11);
-  kh::store(out + plane + o, m01 * t.ig11);
-  kh::store(out + 2 * plane + o, m00 * t.ig03 + m20 * t.ig33);
-  kh::store(out + 3 * plane + o, m00 * t.ig03 + m02 * t.ig33);
-  kh::store(out + 4 * plane + o, m11 * t.ig55);
+// Taps k0 ... k0 + kMemTapChunk - 1 (fewer at the end) into st; returns
+// the end of the chunk. Every thread of the block calls it.
+__device__ __forceinline__ int stage_taps(const float4* __restrict__ taps,
+                                          int k0, int T, float4* st) {
+  const int kn = min(T, k0 + kMemTapChunk);
+  __syncthreads();                    // the last chunk's readers are done
+  for (int k = k0 + threadIdx.x; k < kn; k += kMemThreads)
+    st[k - k0] = __ldg(taps + k);
+  __syncthreads();
+  return kn;
 }
 
+// Pass 1: a block covers 32 columns x kMemSpan rows; lane = column, warp
+// = kMemR consecutive rows. A thread past the level's edge runs the taps
+// on its clamped column and rows (it meets stage_taps' barriers) and
+// stores nothing.
+__global__ void __launch_bounds__(kMemThreads, 2)
+polyexp_mem_v_kernel(const MemPlan p) {
+  __shared__ float4 st[kMemTapChunk];
+  const MemLevel& L = p.lv[mem_level(p, blockIdx.x, true)];
+  const int h = L.h, w = L.w, frame = blockIdx.y;
+  const int b = blockIdx.x - L.v_block0, bx_n = (w + 31) / 32;
+  const int by = b / bx_n, bx = b - by * bx_n;
+  const int c = bx * 32 + (threadIdx.x & 31);
+  const int rb = by * kMemSpan + (threadIdx.x >> 5) * kMemR;
+  const float* col = L.src + (long)frame * h * w + min(c, w - 1);
+  const int T = 2 * p.n + 1, top = rb - p.n, hm = h - 1;  // tap 0's row
+  auto ld = [&](int r) { return __ldg(col + clampi(r, 0, hm) * w); };
+  float a0[kMemR], a1[kMemR], a2[kMemR], win[kMemR];
+#pragma unroll
+  for (int j = 0; j < kMemR; ++j) a0[j] = a1[j] = a2[j] = 0.f;
+  // win[s] holds row top + k + s at the start of a run of taps k ...
+  // k + kMemR - 1 (s < kMemR - 1); before tap k + i, the slot of row
+  // top + k + i - 1, dead since, takes row top + k + i + kMemR - 1
+#pragma unroll
+  for (int s = 0; s < kMemR - 1; ++s) win[s] = ld(top + s);
+  for (int k0 = 0; k0 < T; k0 += kMemTapChunk) {
+    const int kn = stage_taps(p.taps, k0, T, st);
+    int k = k0;
+    for (; k + kMemR <= kn; k += kMemR) {
+#pragma unroll
+      for (int i = 0; i < kMemR; ++i) {
+        win[(i + kMemR - 1) % kMemR] = ld(top + k + i + kMemR - 1);
+        const float4 t = st[k - k0 + i];
+#pragma unroll
+        for (int j = 0; j < kMemR; ++j) {
+          const float s = win[(i + j) % kMemR];   // row top + k + i + j
+          a0[j] = __fmaf_rn(t.x, s, a0[j]);
+          a1[j] = __fmaf_rn(t.y, s, a1[j]);
+          a2[j] = __fmaf_rn(t.z, s, a2[j]);
+        }
+      }
+    }
+    for (; k < kn; ++k) {                 // the last T % kMemR taps
+      const float4 t = st[k - k0];
+#pragma unroll
+      for (int j = 0; j < kMemR; ++j) {
+        const float s = ld(top + k + j);
+        a0[j] = __fmaf_rn(t.x, s, a0[j]);
+        a1[j] = __fmaf_rn(t.y, s, a1[j]);
+        a2[j] = __fmaf_rn(t.z, s, a2[j]);
+      }
+    }
+  }
+  if (c >= w || rb >= h) return;
+  // rows rb ... rb + kMemR - 1 < pitch of column c
+  float4* o = L.vs + ((long)frame * w + c) * L.pitch + rb;
+#pragma unroll
+  for (int j = 0; j < kMemR; ++j) o[j] = make_float4(a0[j], a1[j], a2[j], 0.f);
+}
+
+// kMemR outputs of a row, `valid` of them inside it: one 16-byte (bf16)
+// or two (f32) stores where `vec`, else element by element.
 template <typename OutT>
-int run_mem(const float* src, int frames, int h, int w, const PolyTaps& t,
-            const float* taps_dev, float* scratch, OutT* out,
-            cudaStream_t s) {
-  const dim3 block(kMemTX, kMemTY);
-  const dim3 grid(kh::cdiv(w, kMemTX), kh::cdiv(h, kMemTY), frames);
-  polyexp_mem_v_kernel<<<grid, block, 0, s>>>(src, h, w, t.n, taps_dev,
-                                              scratch);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  polyexp_mem_h_kernel<OutT><<<grid, block, 0, s>>>(scratch, h, w, t,
-                                                    taps_dev, out);
-  return static_cast<int>(cudaGetLastError());
+__device__ __forceinline__ void mem_store(OutT* d, const float (&v)[kMemR],
+                                          bool vec, int valid) {
+  if (vec) {
+    put8(v, d);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kMemR; ++j)
+    if (j < valid) kh::store(d + j, v[j]);
+}
+
+// Pass 2: a block covers 32 rows x kMemSpan columns; lane = row, warp =
+// kMemR consecutive columns; a thread past the edge as in pass 1.
+template <typename OutT>
+__global__ void __launch_bounds__(kMemThreads, 2)
+polyexp_mem_h_kernel(const MemPlan p) {
+  __shared__ float4 st[kMemTapChunk];
+  const MemLevel& L = p.lv[mem_level(p, blockIdx.x, false)];
+  const int h = L.h, w = L.w, frame = blockIdx.y;
+  const int b = blockIdx.x - L.h_block0;
+  const int bx_n = (w + kMemSpan - 1) / kMemSpan;
+  const int by = b / bx_n, bx = b - by * bx_n;
+  const int r = by * 32 + (threadIdx.x & 31);
+  const int cb = bx * kMemSpan + (threadIdx.x >> 5) * kMemR;
+  const float4* base = L.vs + (long)frame * w * L.pitch + min(r, h - 1);
+  const int T = 2 * p.n + 1, left = cb - p.n, wm = w - 1, pitch = L.pitch;
+  float wa[kMemR], wb[kMemR], wd[kMemR];
+  auto ld = [&](int x, int s) {
+    const float4 v = __ldg(base + clampi(x, 0, wm) * pitch);
+    wa[s] = v.x;
+    wb[s] = v.y;
+    wd[s] = v.z;
+  };
+  float m00[kMemR], m10[kMemR], m20[kMemR], m01[kMemR], m11[kMemR],
+      m02[kMemR];
+#pragma unroll
+  for (int j = 0; j < kMemR; ++j)
+    m00[j] = m10[j] = m20[j] = m01[j] = m11[j] = m02[j] = 0.f;
+  // the window of pass 1, over columns, for the three planes at once
+#pragma unroll
+  for (int s = 0; s < kMemR - 1; ++s) ld(left + s, s);
+  for (int k0 = 0; k0 < T; k0 += kMemTapChunk) {
+    const int kn = stage_taps(p.taps, k0, T, st);
+    int k = k0;
+    for (; k + kMemR <= kn; k += kMemR) {
+#pragma unroll
+      for (int i = 0; i < kMemR; ++i) {
+        ld(left + k + i + kMemR - 1, (i + kMemR - 1) % kMemR);
+        const float4 t = st[k - k0 + i];
+#pragma unroll
+        for (int j = 0; j < kMemR; ++j) {
+          const int s = (i + j) % kMemR;        // column left + k + i + j
+          m00[j] = __fmaf_rn(t.x, wa[s], m00[j]);
+          m10[j] = __fmaf_rn(t.y, wa[s], m10[j]);
+          m20[j] = __fmaf_rn(t.z, wa[s], m20[j]);
+          m01[j] = __fmaf_rn(t.x, wb[s], m01[j]);
+          m11[j] = __fmaf_rn(t.y, wb[s], m11[j]);
+          m02[j] = __fmaf_rn(t.x, wd[s], m02[j]);
+        }
+      }
+    }
+    for (; k < kn; ++k) {                 // the last T % kMemR taps
+      const float4 t = st[k - k0];
+#pragma unroll
+      for (int j = 0; j < kMemR; ++j) {
+        const float4 v = __ldg(base + clampi(left + k + j, 0, wm) * pitch);
+        m00[j] = __fmaf_rn(t.x, v.x, m00[j]);
+        m10[j] = __fmaf_rn(t.y, v.x, m10[j]);
+        m20[j] = __fmaf_rn(t.z, v.x, m20[j]);
+        m01[j] = __fmaf_rn(t.x, v.y, m01[j]);
+        m11[j] = __fmaf_rn(t.y, v.y, m11[j]);
+        m02[j] = __fmaf_rn(t.x, v.z, m02[j]);
+      }
+    }
+  }
+  if (r >= h || cb >= w) return;
+  // the five planes, formed as the first design formed them; 16-byte
+  // stores where the row allows (w a multiple of the vector, all kMemR
+  // inside)
+  const long plane = (long)h * w;
+  OutT* o = static_cast<OutT*>(L.out) + frame * 5 * plane + r * w + cb;
+  const int valid = min(kMemR, w - cb);
+  const bool vec = w % (16 / sizeof(OutT)) == 0 && valid == kMemR;
+  float v[kMemR];
+#pragma unroll
+  for (int j = 0; j < kMemR; ++j) v[j] = m10[j] * p.ig11;
+  mem_store(o, v, vec, valid);
+#pragma unroll
+  for (int j = 0; j < kMemR; ++j) v[j] = m01[j] * p.ig11;
+  mem_store(o + plane, v, vec, valid);
+#pragma unroll
+  for (int j = 0; j < kMemR; ++j) v[j] = m00[j] * p.ig03 + m20[j] * p.ig33;
+  mem_store(o + 2 * plane, v, vec, valid);
+#pragma unroll
+  for (int j = 0; j < kMemR; ++j) v[j] = m00[j] * p.ig03 + m02[j] * p.ig33;
+  mem_store(o + 3 * plane, v, vec, valid);
+#pragma unroll
+  for (int j = 0; j < kMemR; ++j) v[j] = m11[j] * p.ig55;
+  mem_store(o + 4 * plane, v, vec, valid);
 }
 
 }  // namespace
 
-// The device-memory route (see run_mem): img (frames, h, w) f32 -> out
-// (frames, 5, h, w), replicate border, at any odd n; taps_host and
-// taps_dev as kh_polyexp's (taps_dev required); scratch a (frames, 3, h,
-// w) f32 buffer on the image's device, scratch_floats its size (refused
-// when smaller). Two kernel launches, in stream order.
-KH_API int kh_polyexp_mem(const void* img, int frames, int h, int w,
-                          const void* taps_host, const void* taps_dev, int n,
-                          int out_bf16, void* scratch,
-                          long long scratch_floats, void* out,
-                          void* stream) {
-  if (n < 1 || n % 2 == 0 || h <= 0 || w <= 0 || frames <= 0 ||
-      frames > 65535 || !taps_dev || !scratch ||
-      kh::cdiv(h, kMemTY) > 65535 ||
-      scratch_floats < 3LL * frames * h * w)
+// The device-memory route (see polyexp_mem_v_kernel): `levels` image
+// stacks, each (frames, h, w) f32 -> (frames, 5, h, w), replicate border,
+// at any odd n, in one launch a pass. Per level i, ptrs[2 i ..] = img,
+// out and dims[2 i ..] = h, w (K3/K7a: one level; K4/K7b: the coarse
+// levels of kernels/level_image.py::_launch_mem, at most kMemMaxLevels);
+// taps_host = [g, xg, xxg (2n+1 each), ig11, ig03, ig33, ig55] f32 in
+// host memory, taps4_dev the (2n + 1) x {g, xg, xxg, 0} f32 table in
+// device memory (kernels/polyexp.py::poly_taps4); scratch f32 on the
+// images' device, each level's (frames, w, pitch, 4) block after the
+// last, scratch_floats its size (refused when smaller than
+// kernels/polyexp.py::mem_scratch_floats); a level's frame must index in
+// 32 bits (h w and 4 w pitch below 2^31). Two kernel launches, in stream
+// order.
+KH_API int kh_polyexp_mem(int frames, int levels,
+                          const unsigned long long* ptrs, const int* dims,
+                          const void* taps_host, const void* taps4_dev,
+                          int n, int out_bf16, void* scratch,
+                          long long scratch_floats, void* stream) {
+  if (n < 1 || n % 2 == 0 || frames <= 0 || frames > 65535 ||
+      levels < 1 || levels > kMemMaxLevels || !taps4_dev || !scratch)
     return static_cast<int>(cudaErrorInvalidValue);
-  const PolyTaps t = kh::poly_taps(static_cast<const float*>(taps_host), n);
-  const float* src = static_cast<const float*>(img);
-  const float* td = static_cast<const float*>(taps_dev);
+  const float* th = static_cast<const float*>(taps_host);
+  const int T = 2 * n + 1;
+  MemPlan p{};
+  p.taps = static_cast<const float4*>(taps4_dev);
+  p.ig11 = th[3 * T];
+  p.ig03 = th[3 * T + 1];
+  p.ig33 = th[3 * T + 2];
+  p.ig55 = th[3 * T + 3];
+  p.n = n;
+  p.levels = levels;
   float* vs = static_cast<float*>(scratch);
+  long long used = 0, vblocks = 0, hblocks = 0;
+  for (int i = 0; i < levels; ++i) {
+    MemLevel& L = p.lv[i];
+    L.src = reinterpret_cast<const float*>(ptrs[2 * i]);
+    L.out = reinterpret_cast<void*>(ptrs[2 * i + 1]);
+    L.h = dims[2 * i];
+    L.w = dims[2 * i + 1];
+    L.pitch = (L.h + kMemR - 1) / kMemR * kMemR;
+    if (L.h <= 0 || L.w <= 0 || 4LL * L.w * L.pitch >= (1LL << 31))
+      return static_cast<int>(cudaErrorInvalidValue);
+    L.vs = reinterpret_cast<float4*>(vs + used);
+    used += 4LL * frames * L.w * L.pitch;
+    L.v_block0 = static_cast<int>(vblocks);
+    L.h_block0 = static_cast<int>(hblocks);
+    vblocks += (long long)kh::cdiv(L.w, 32) * kh::cdiv(L.h, kMemSpan);
+    hblocks += (long long)kh::cdiv(L.h, 32) * kh::cdiv(L.w, kMemSpan);
+  }
+  if (used > scratch_floats || vblocks > 0x7fffffff || hblocks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 vgrid(static_cast<unsigned>(vblocks), frames);
+  polyexp_mem_v_kernel<<<vgrid, kMemThreads, 0, s>>>(p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(hblocks), frames);
   if (out_bf16)
-    return run_mem(src, frames, h, w, t, td, vs,
-                   static_cast<__nv_bfloat16*>(out), s);
-  return run_mem(src, frames, h, w, t, td, vs, static_cast<float*>(out), s);
+    polyexp_mem_h_kernel<__nv_bfloat16><<<grid, kMemThreads, 0, s>>>(p);
+  else
+    polyexp_mem_h_kernel<float><<<grid, kMemThreads, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // img (frames, h, w) f32 -> out (frames, 5, h, w), replicate border, at

@@ -19,7 +19,7 @@
 | flow_iter.flow_iters_pipelined (K13) | csrc/flow_iters_pipe.cu | flow_iter_pallas.py::flow_iters_pipelined |
 | flow_update.flow_update_pairs (K8-pairs) | csrc/flow_update.cu | no Pallas kernel: the pair-batched exact warp's plain XLA, gather included (ops/farneback.py:633-640) |
 | K3/K7a past POLY_N_MAX (counts in polyexp.mem_route) | csrc/polyexp.cu (kh_polyexp_mem) | polyexp_pallas.py::poly_expansion_planar(_batch) at any odd poly_n |
-| K4/K7b past POLY_N_MAX (counts in level_image.mem_route) | csrc/level_image.cu (K11's kernel over the frames), csrc/polyexp.cu (kh_polyexp_mem a level) | level_image_pallas.py::coarse_polyexp_fused(_batch) at any odd poly_n |
+| K4/K7b past POLY_N_MAX (counts in level_image.mem_route) | csrc/level_image.cu (K11's kernel over the frames), csrc/polyexp.cu (kh_polyexp_mem over the levels) | level_image_pallas.py::coarse_polyexp_fused(_batch) at any odd poly_n |
 
 Each wrapper dispatches by device: a CPU tensor takes the plain PyTorch
 version beside it, a CUDA tensor launches the kernel or raises. Each

@@ -111,6 +111,23 @@ def flow_iter_plain(R0, R1, flow, winsize: int, max_disp: int,
                         row0=row0, img_h=img_h)
 
 
+def normal_matrices(R0, R1w, flow, damp) -> torch.Tensor:
+    """Step 2 of an iteration: the per-pixel normal equations M = (G11,
+    G12, G22, h1, h2) of f32 (5, h, w) planes R0 and R1 warped, in the
+    absolute-flow form, each factor tapered by `damp` (h, w)."""
+    dx, dy = flow[0], flow[1]
+    a_xx = (R0[2] + R1w[2]) * 0.5
+    a_yy = (R0[3] + R1w[3]) * 0.5
+    axy = (R0[4] + R1w[4]) * 0.25
+    db_x = (R0[0] - R1w[0]) * 0.5 + a_xx * dx + axy * dy
+    db_y = (R0[1] - R1w[1]) * 0.5 + axy * dx + a_yy * dy
+    a_xx, a_yy, axy, db_x, db_y = (t * damp
+                                   for t in (a_xx, a_yy, axy, db_x, db_y))
+    return torch.stack([a_xx * a_xx + axy * axy, (a_xx + a_yy) * axy,
+                        a_yy * a_yy + axy * axy, a_xx * db_x + axy * db_y,
+                        axy * db_x + a_yy * db_y])
+
+
 def solve_warped(R0, R1w, flow, wts, post: float, round_m: bool = False,
                  row0=None, img_h: int = 0) -> torch.Tensor:
     """Steps 2-4 of an iteration, given R1 already warped: the damped
@@ -124,19 +141,9 @@ def solve_warped(R0, R1w, flow, wts, post: float, round_m: bool = False,
     band = row0 is not None
     if band:
         lo, hi = band_rows(h, int(row0), img_h)
-    dx, dy = flow[0], flow[1]
-    a_xx = (R0[2] + R1w[2]) * 0.5
-    a_yy = (R0[3] + R1w[3]) * 0.5
-    axy = (R0[4] + R1w[4]) * 0.25
-    db_x = (R0[0] - R1w[0]) * 0.5 + a_xx * dx + axy * dy
-    db_y = (R0[1] - R1w[1]) * 0.5 + axy * dx + a_yy * dy
     damp = (border_damp(h, w, R0.device, int(row0), img_h) if band
             else border_damp(h, w, R0.device))
-    a_xx, a_yy, axy, db_x, db_y = (t * damp
-                                   for t in (a_xx, a_yy, axy, db_x, db_y))
-    M = torch.stack([a_xx * a_xx + axy * axy, (a_xx + a_yy) * axy,
-                     a_yy * a_yy + axy * axy, a_xx * db_x + axy * db_y,
-                     axy * db_x + a_yy * db_y])
+    M = normal_matrices(R0, R1w, flow, damp)
     if band and (lo > 0 or hi < h - 1):
         M = M.index_select(1, torch.arange(h, device=M.device).clamp(lo, hi))
     if round_m:

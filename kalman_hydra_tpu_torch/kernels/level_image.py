@@ -40,8 +40,9 @@ its taps in device memory and its tile rows widened to n). Past it, where
 the level tile no longer fits half a block, K4/K7b take the
 device-memory route (`level_route`, `_launch_mem`): K11's kernel builds
 the level images of every frame, then K3/K7a's device-memory polyexp
-(csrc/polyexp.cu::kh_polyexp_mem) expands each level; those launches
-count in `mem_route`, not in the wrappers' own counters.
+(csrc/polyexp.cu::kh_polyexp_mem) expands every level in one call (two
+kernel launches, the levels in a table); those launches count in
+`mem_route`, not in the wrappers' own counters.
 """
 
 from __future__ import annotations
@@ -399,7 +400,7 @@ def level_route(n: int) -> str:
 
 
 # launches of K4/K7b's device-memory route (K11's level images, then
-# kh_polyexp_mem a level), past POLY_N_MAX
+# kh_polyexp_mem over the levels), past POLY_N_MAX
 mem_route = SimpleNamespace(launches=0)
 
 
@@ -439,14 +440,18 @@ def _launch_mem(imgs: torch.Tensor, levels: int, pyr_scale: float, n: int,
                 poly_sigma: float, out_dtype):
     """K4/K7b past POLY_N_MAX: the coarse level images of every frame
     (K11's kernel, one launch a run of MAX_LEVELS levels), then
-    kh_polyexp_mem on each level, its (N, 3, lh, lw) scratch allocated
-    per call -> (list of (N, 5, lh, lw), coarsest first; launches
-    made). The level images are K4's level tiles at padding 0 and
-    kh_polyexp_mem's clamped taps are the n-row replicate pad, so this is
-    the plain version's arithmetic in its order."""
+    kh_polyexp_mem over all of them (one call a run of
+    polyexp.MEM_MAX_LEVELS levels, each call's scratch allocated here)
+    -> (list of (N, 5, lh, lw), coarsest first; launches made). The level
+    images are K4's level tiles at padding 0 and kh_polyexp_mem's clamped
+    taps are the n-row replicate pad, so this is the plain version's
+    arithmetic in its order."""
     lvls, runs = _launch_images(imgs, levels, pyr_scale)
-    return ([polyexp._launch_mem(lv, n, poly_sigma, out_dtype)
-             for lv in lvls], runs + len(lvls))
+    if not lvls:
+        return lvls, runs
+    outs, launches = polyexp._launch_mem_levels(lvls, n, poly_sigma,
+                                                out_dtype)
+    return outs, runs + launches
 
 
 def _count(wrapper, n: int, launches: int) -> None:

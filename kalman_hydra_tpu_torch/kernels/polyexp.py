@@ -13,10 +13,14 @@ build for each odd poly_n up to 7 (COMPILED_N); any other odd poly_n up
 to POLY_N_MAX takes the kernel's generic build, its taps in shared
 memory (copied from device memory) and its tile's halo sized from n.
 Past POLY_N_MAX, where the shared-memory plans stop fitting, the
-device-memory route (kh_polyexp_mem): a vertical pass into a (N, 3, H,
-W) f32 scratch that each call allocates on the image's device, then a
-horizontal pass, the taps read from device memory; its launches count
-in `mem_route`, not in the wrappers' own counters.
+device-memory route (kh_polyexp_mem): a vertical pass into a (N, W,
+pitch, 4) f32 scratch (the three moment planes transposed and
+interleaved; `mem_scratch_floats`) that each call allocates on the
+image's device, then a horizontal pass, MEM_R outputs a thread, the taps
+a (2n + 1, 4) table in device memory (`poly_taps4`); one call takes up
+to MEM_MAX_LEVELS image stacks (K4/K7b's coarse levels,
+`_launch_mem_levels`). Its launches count in `mem_route`, not in the
+wrappers' own counters.
 
 CPU tensors take the plain version (one function for both: it maps any
 leading dims); CUDA tensors launch the kernel, or raise.
@@ -174,10 +178,15 @@ def polyexp_route(n: int) -> str:
     return "generic" if n <= POLY_N_MAX else "mem"
 
 
+MEM_R = 8              # csrc/polyexp.cu::kMemR: outputs a thread
+MEM_MAX_LEVELS = 16    # csrc/polyexp.cu::kMemMaxLevels: levels a call
+
+
 def mem_scratch_floats(frames: int, h: int, w: int) -> int:
-    """The device-memory route's scratch: the three vertical-moment
-    planes of every frame, f32."""
-    return 3 * frames * h * w
+    """The device-memory route's scratch for one (frames, h, w) stack:
+    the three vertical-moment planes of every frame, f32, transposed and
+    interleaved to (frames, w, pitch, 4), pitch = h rounded up to MEM_R."""
+    return 4 * frames * w * (-(-h // MEM_R) * MEM_R)
 
 
 def polyexp_plan(n: int, out_dtype=torch.float32) -> PolyexpPlan:
@@ -204,16 +213,33 @@ def polyexp_plan(n: int, out_dtype=torch.float32) -> PolyexpPlan:
 _device_taps: dict = {}
 
 
-def poly_taps_on(device, n: int, sigma: float) -> torch.Tensor:
-    """`poly_taps` in device memory, cached per (device, n, sigma): the
-    generic builds of K3/K7a and K4/K7b read their taps from there."""
-    key = (str(device), n, float(sigma))
+def _on_device(device, table, n: int, sigma: float) -> torch.Tensor:
+    """table(n, sigma) in device memory, cached per (table, device, n,
+    sigma)."""
+    key = (table.__name__, str(device), n, float(sigma))
     t = _device_taps.get(key)
     if t is None:
-        t = torch.as_tensor(np.array(poly_taps(n, float(sigma))),
-                            device=device)
+        t = torch.as_tensor(np.array(table(n, float(sigma))), device=device)
         _device_taps[key] = t
     return t
+
+
+def poly_taps_on(device, n: int, sigma: float) -> torch.Tensor:
+    """`poly_taps` in device memory: the generic builds of K3/K7a and
+    K4/K7b read their taps from there."""
+    return _on_device(device, poly_taps, n, sigma)
+
+
+@lru_cache(maxsize=32)
+def poly_taps4(n: int, sigma: float) -> np.ndarray:
+    """The device-memory route's taps: (2n + 1, 4) f32 rows {g, xg, xxg,
+    0}, one 16-byte load a tap (the values of `poly_taps`)."""
+    t = 2 * n + 1
+    taps = poly_taps(n, float(sigma))
+    arr = np.zeros((t, 4), np.float32)
+    arr[:, :3] = taps[:3 * t].reshape(3, t).T
+    arr.setflags(write=False)
+    return arr
 
 
 def _launch(imgs: torch.Tensor, poly_n: int, poly_sigma: float,
@@ -223,7 +249,8 @@ def _launch(imgs: torch.Tensor, poly_n: int, poly_sigma: float,
     if out_dtype not in _DTYPES:
         raise TypeError(f"polyexp: out_dtype {out_dtype}")
     if polyexp_route(poly_n) == "mem":
-        return _launch_mem(imgs, poly_n, poly_sigma, out_dtype)
+        return _launch_mem_levels([imgs], poly_n, poly_sigma,
+                                  out_dtype)[0][0]
     N, h, w = imgs.shape
     plan = polyexp_plan(poly_n, out_dtype)
     out = torch.empty((N, 5, h, w), dtype=out_dtype, device=imgs.device)
@@ -239,24 +266,34 @@ def _launch(imgs: torch.Tensor, poly_n: int, poly_sigma: float,
     return out
 
 
-def _launch_mem(imgs: torch.Tensor, poly_n: int, poly_sigma: float,
-                out_dtype) -> torch.Tensor:
-    """kh_polyexp_mem over a (N, H, W) f32 stack -> (N, 5, H, W), with
-    its scratch allocated here, on the stack's device."""
-    N, h, w = imgs.shape
-    out = torch.empty((N, 5, h, w), dtype=out_dtype, device=imgs.device)
-    scratch = torch.empty(mem_scratch_floats(N, h, w), dtype=torch.float32,
-                          device=imgs.device)
+def _launch_mem_levels(stacks, poly_n: int, poly_sigma: float, out_dtype):
+    """kh_polyexp_mem over (N, h, w) f32 stacks of one device -> (list of
+    (N, 5, h, w), launches made): one call for every MEM_MAX_LEVELS
+    stacks, each call's scratch allocated here."""
+    dev = stacks[0].device
     taps = poly_taps(poly_n, float(poly_sigma))
-    taps_dev = poly_taps_on(imgs.device, poly_n, poly_sigma)
+    taps4 = _on_device(dev, poly_taps4, poly_n, poly_sigma)
     P, I, L = _build.P, _build.I, _build.L
-    fn = _build.function("kh_polyexp_mem", P, I, I, I, P, P, I, I, P, L, P,
-                         P)
-    rc = fn(imgs.data_ptr(), N, h, w, taps.ctypes.data, taps_dev.data_ptr(),
-            poly_n, int(out_dtype == torch.bfloat16), scratch.data_ptr(),
-            scratch.numel(), out.data_ptr(), _build.stream(imgs))
-    _build.check(rc, "kh_polyexp_mem")
-    return out
+    fn = _build.function("kh_polyexp_mem", I, I, P, P, P, P, I, I, P, L, P)
+    outs = [torch.empty((s.shape[0], 5, *s.shape[1:]), dtype=out_dtype,
+                        device=dev) for s in stacks]
+    runs = range(0, len(stacks), MEM_MAX_LEVELS)
+    for r0 in runs:
+        run = stacks[r0:r0 + MEM_MAX_LEVELS]
+        N = run[0].shape[0]
+        ptrs = np.array([[s.data_ptr(), o.data_ptr()] for s, o
+                         in zip(run, outs[r0:r0 + MEM_MAX_LEVELS])],
+                        dtype=np.uint64)
+        dims = np.array([s.shape[1:] for s in run], dtype=np.int32)
+        scratch = torch.empty(sum(mem_scratch_floats(N, *s.shape[1:])
+                                  for s in run), dtype=torch.float32,
+                              device=dev)
+        rc = fn(N, len(run), ptrs.ctypes.data, dims.ctypes.data,
+                taps.ctypes.data, taps4.data_ptr(), poly_n,
+                int(out_dtype == torch.bfloat16), scratch.data_ptr(),
+                scratch.numel(), _build.stream(run[0]))
+        _build.check(rc, "kh_polyexp_mem")
+    return outs, len(runs)
 
 
 # launches of K3/K7a's (and K4/K7b's) device-memory route, past POLY_N_MAX

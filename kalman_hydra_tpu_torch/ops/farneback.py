@@ -31,6 +31,11 @@ there; it has no K5 or K13 branch on the pair path either). The whole
 stack stays on the card; the TPU's chunks of at most 33 frames (a VMEM
 limit) are not ported. Flow is carried planar, (2, lh, lw); the public
 result is (H, W, 2).
+
+The reference's single-level ops keep their names, signatures and
+layouts: `poly_expansion` (H, W, 5) and `poly_expansion_p` (5, H, W)
+through K3's routes; `update_matrices(_p)` and `update_flow(_p)`, which
+the reference computes in XLA, in plain torch on either device.
 """
 
 from __future__ import annotations
@@ -40,15 +45,90 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import FlowConfig
-from ..kernels.flow_iter import (flow_iter, flow_iter_pairs,
-                                 flow_iters_pipelined, pair_count)
+from ..kernels.flow_iter import (border_damp, flow_iter, flow_iter_pairs,
+                                 flow_iters_pipelined, normal_matrices,
+                                 pair_count)
 from ..kernels.flow_level import fits, flow_levels, walk_fits
 from ..kernels.flow_update import flow_update, flow_update_pairs
 from ..kernels.level_image import (coarse_level_images, coarse_polyexp_fused,
                                    coarse_polyexp_fused_batch)
 from ..kernels.polyexp import (poly_expansion_planar,
                                poly_expansion_planar_batch)
+from .filters import box_filter, correlate1d, gaussian_kernel
 from .pyramid import gaussian_blur_level, resize_linear
+from .warp import warp_poly_planar, warp_selectsum
+
+
+def poly_expansion_p(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
+    """Quadratic-fit coefficient planes of an (H, W) image, (5, H, W)
+    f32 [b_x, b_y, a_xx, a_yy, axy] (axy the full xy coefficient): K3
+    (a stack (N, H, W) -> (N, 5, H, W) through K7a)."""
+    img = img.to(torch.float32).contiguous()
+    if img.ndim == 2:
+        return poly_expansion_planar(img, n, sigma)
+    flat = img.reshape(-1, *img.shape[-2:])
+    return poly_expansion_planar_batch(flat, n, sigma).reshape(
+        *img.shape[:-2], 5, *img.shape[-2:])
+
+
+def poly_expansion(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
+    """poly_expansion_p with the planes last: (H, W) -> (H, W, 5)."""
+    return poly_expansion_p(img, n, sigma).movedim(-3, -1)
+
+
+def update_matrices_p(R0p: torch.Tensor, R1p: torch.Tensor,
+                      flow_p: torch.Tensor, fast_warp: int = 0
+                      ) -> torch.Tensor:
+    """The per-pixel normal equations M (5, H, W) = (G11, G12, G22, h1,
+    h2) of two frames' (5, H, W) planes and a (2, H, W) flow: R1 warped
+    by the flow (exact bilinear gather, or at fast_warp > 0 the
+    select-sum warp clamped to +-fast_warp, its flow and fractions in
+    the planes' type), then the border-damped products in f32, stored in
+    the planes' type. Plain torch on either device, as the reference
+    computes it in XLA (K2 and K8 fuse it with the window and solve)."""
+    h, w = R0p.shape[-2:]
+    if fast_warp > 0:
+        fl = flow_p.to(R1p.dtype).to(torch.float32)
+        R1w = warp_selectsum(R1p.to(torch.float32), fl[0], fl[1], fast_warp,
+                             frac_dtype=R1p.dtype)
+    else:
+        R1w = warp_poly_planar(R1p, flow_p)
+    M = normal_matrices(R0p.to(torch.float32), R1w.to(torch.float32),
+                        flow_p, border_damp(h, w, R0p.device))
+    return M.to(R1p.dtype)
+
+
+def update_matrices(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
+                    fast_warp: int = 0) -> torch.Tensor:
+    """update_matrices_p with the planes last: (H, W, 5) x 2 and an
+    (H, W, 2) flow -> M (H, W, 5)."""
+    return update_matrices_p(R0.movedim(-1, 0), R1.movedim(-1, 0),
+                             flow.movedim(-1, 0), fast_warp).movedim(0, -1)
+
+
+def update_flow_p(Mp: torch.Tensor, winsize: int,
+                  gaussian: bool) -> torch.Tensor:
+    """M (5, H, W) smoothed over the winsize window (the cv2 Gaussian of
+    sigma (winsize // 2) 0.3, or a box), replicate border, then the 2x2
+    solve per pixel -> flow (2, H, W) f32. Plain torch on either device,
+    as the reference computes it in XLA."""
+    if gaussian:
+        m = winsize // 2
+        kern = gaussian_kernel(2 * m + 1, m * 0.3)
+        Ms = correlate1d(correlate1d(Mp, kern, -2, border="replicate"),
+                         kern, -1, border="replicate")
+    else:
+        Ms = box_filter(box_filter(Mp, winsize, -2, border="replicate"),
+                        winsize, -1, border="replicate")
+    g11, g12, g22, h1, h2 = Ms.to(torch.float32).unbind(-3)
+    idet = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
+    return torch.stack([(g22 * h1 - g12 * h2) * idet,
+                        (g11 * h2 - g12 * h1) * idet], dim=-3)
+
+
+def update_flow(M: torch.Tensor, winsize: int, gaussian: bool) -> torch.Tensor:
+    """update_flow_p with the planes last: M (H, W, 5) -> flow (H, W, 2)."""
+    return update_flow_p(M.movedim(-1, -3), winsize, gaussian).movedim(-3, -1)
 
 
 def _plane_dtype(cfg: FlowConfig):

@@ -107,3 +107,11 @@ def box_filter(x: torch.Tensor, size: int, dim: int,
     for t in taps[1:]:
         out = out + t
     return out / size if normalize else out
+
+
+def box_blur2d(x: torch.Tensor, size: int, border: str = "replicate",
+               normalize: bool = True):
+    """size x size box filter over the last two dims (cv2.blur twin):
+    `box_filter` down the rows, then along them."""
+    x = box_filter(x, size, -2, border=border, normalize=normalize)
+    return box_filter(x, size, -1, border=border, normalize=normalize)

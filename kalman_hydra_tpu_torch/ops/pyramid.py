@@ -1,6 +1,7 @@
 """Gaussian pyramids and OpenCV-compatible linear resize (port of
 kalman_hydra_tpu/ops/pyramid.py).
 
+`pyr_down`: one cv2.pyrDown level (K9's one-level call on the card);
 `build_pyramid`: cv2.pyrDown levels (one K9 launch on the card), the
 pyramid of both Lucas-Kanade flows. `farneback_images` builds each level
 the way cv2.calcOpticalFlowFarneback does — GaussianBlur of the ORIGINAL
@@ -16,6 +17,18 @@ import numpy as np
 import torch
 
 from .filters import cv_round, gaussian_blur
+
+
+def pyr_down(img: torch.Tensor) -> torch.Tensor:
+    """cv2.pyrDown twin on (..., H, W) f32: K9's one-level call
+    (kernels/pyramid.py::pyr_down) on each (H, W) image."""
+    from ..kernels.pyramid import pyr_down as k9
+    img = img.to(torch.float32)
+    if img.ndim == 2:
+        return k9(img)
+    flat = img.reshape(-1, *img.shape[-2:])
+    out = torch.stack([k9(im) for im in flat])
+    return out.reshape(*img.shape[:-2], *out.shape[-2:])
 
 
 def build_pyramid(img: torch.Tensor, levels: int) -> List[torch.Tensor]:

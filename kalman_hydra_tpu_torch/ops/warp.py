@@ -55,14 +55,16 @@ def warp_image(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 
 def warp_selectsum(planes: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
-                   max_disp: int) -> torch.Tensor:
+                   max_disp: int, frac_dtype=None) -> torch.Tensor:
     """The fast warp (FlowConfig.fast_warp > 0) of (C, h, w) planes by an
     (h, w) flow (dx, dy): the displacement clamped to +-max_disp, a
     vertical lerp at each pixel's own column, then a horizontal lerp of
     that vertically warped plane at the shifted columns (so a pixel's
     horizontal neighbours bring their own vertical shift), edges
     replicated. What the reference's select-sum over shifted copies
-    computes, as two indexed loads."""
+    computes, as two indexed loads. frac_dtype rounds the lerp fractions
+    to that type first, as the reference's planar select-sum does with
+    the planes' type."""
     C, h, w = planes.shape
     D = float(max_disp)
     dev = planes.device
@@ -70,6 +72,8 @@ def warp_selectsum(planes: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
     dyc = torch.clamp(dy, -D, D)
     xf, yf = torch.floor(dxc), torch.floor(dyc)
     ax, ay = dxc - xf, dyc - yf
+    if frac_dtype is not None:
+        ax, ay = ax.to(frac_dtype).to(ax.dtype), ay.to(frac_dtype).to(ay.dtype)
     rows = torch.arange(h, device=dev)[:, None]
     cols = torch.arange(w, device=dev)[None, :]
     ra = torch.clamp(rows + yf.to(torch.int64), 0, h - 1)

@@ -1,13 +1,14 @@
 """poly_n past 7: the generic builds of K3/K7a and K4/K7b (the taps in
 shared memory, copied from device memory; the tile's halo and rows sized
 from n) and, past POLY_N_MAX, their device-memory route (K11's level
-images, then kh_polyexp_mem's two passes with their moment planes in a
-scratch buffer) planned through their wrappers on CPU tensors with the
-library call recorded, and the expansion and the Farneback setting at
-poly_n up to 257 against the JAX package (Pallas in interpret mode) on
-the CPU, its results from the store (torch_ref_store.py) past POLY_N_MAX
-and at n = 11, computed live when an entry is stale or missing. The
-kernels run on the card, in chip_smoke.py's F4 phase."""
+images, then kh_polyexp_mem's two passes over every level, their moment
+planes in a scratch buffer) planned through their wrappers on CPU
+tensors with the library call recorded, and the expansion and the
+Farneback setting at poly_n up to 257 against the JAX package (Pallas in
+interpret mode) on the CPU, its results from the store
+(torch_ref_store.py) past POLY_N_MAX and at n = 11, computed live when
+an entry is stale or missing. The kernels run on the card, in
+chip_smoke.py's F4 phase."""
 
 from __future__ import annotations
 
@@ -117,44 +118,97 @@ def test_generic_builds_call_the_c_interface(monkeypatch, n, frames):
 BIG_N = (53, 75, 101, 257)
 
 
+def _ints(ptr, n, ctype=ctypes.c_int):
+    return np.ctypeslib.as_array((ctype * n).from_address(ptr)).copy()
+
+
+def _record_mem(monkeypatch):
+    """_record, with each kh_polyexp_mem call's level table (ptrs, dims:
+    two a level) read while the call's arrays live."""
+    calls = []
+
+    def function(fname, *argtypes):
+        def fn(*args):
+            table = None
+            if fname == "kh_polyexp_mem":
+                lv = args[1]
+                table = (_ints(args[2], 2 * lv, ctypes.c_uint64)
+                         .reshape(lv, 2).tolist(),
+                         [tuple(d) for d in _ints(args[3], 2 * lv)
+                          .reshape(lv, 2).tolist()])
+            calls.append((fname, args, table))
+            return 0
+        return fn
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(_build, "stream", lambda t: 0)
+    return calls
+
+
 @pytest.mark.parametrize("frames", (1, 2))
 @pytest.mark.parametrize("n", BIG_N)
 def test_routes_past_poly_n_max_take_device_memory(monkeypatch, n, frames):
     """Past POLY_N_MAX both K3/K7a and K4/K7b take the device-memory
-    route: K3/K7a one kh_polyexp_mem call with the taps in host and
-    device memory and a (frames, 3, h, w) f32 scratch; K4/K7b the level
-    images of every frame (kh_level_images_batch, K11's plan) and then
-    one kh_polyexp_mem call a coarse level, each with its level's
-    scratch. No shared-memory plan is asked for: the tiled plan refuses
-    such an n, and no fused level plan is made."""
+    route: K3/K7a one kh_polyexp_mem call over one level, with the taps
+    in host memory and as the (2n + 1, 4) {g, xg, xxg, 0} table in device
+    memory, and a (frames, w, pitch, 4) f32 scratch, pitch = h rounded
+    up to MEM_R; K4/K7b the level images of every frame
+    (kh_level_images_batch, K11's plan) and then one kh_polyexp_mem call
+    over every coarse level, its scratch each level's block after the
+    last. No shared-memory plan is asked for: the tiled plan refuses such
+    an n, and no fused level plan is made."""
     assert pe.polyexp_route(n) == "mem" and li.level_route(n) == "mem"
     assert pe.polyexp_route(pe.POLY_N_MAX) == "generic"
     assert li.level_route(pe.POLY_N_MAX) == "fused"
     with pytest.raises(ValueError):
         pe.polyexp_plan(n)
-    calls = _record(monkeypatch)
+    calls = _record_mem(monkeypatch)
     h, w, sg = 70, 100, 0.2 * n
     imgs = torch.zeros(frames, h, w)
     out = pe._launch(imgs, n, sg, torch.bfloat16)
     assert out.shape == (frames, 5, h, w) and out.dtype == torch.bfloat16
-    (name, a), = calls
-    taps = pe.poly_taps(n, sg)
-    assert name == "kh_polyexp_mem" and a[1:4] == (frames, h, w)
+    (name, a, (ptrs, dims)), = calls
+    taps, t = pe.poly_taps(n, sg), 2 * n + 1
+    assert name == "kh_polyexp_mem" and a[:2] == (frames, 1)
+    assert ptrs == [[imgs.data_ptr(), out.data_ptr()]] and dims == [(h, w)]
     assert a[6] == n and a[7] == 1
-    assert a[9] == pe.mem_scratch_floats(frames, h, w) == 3 * frames * h * w
+    assert a[9] == pe.mem_scratch_floats(frames, h, w) == 4 * frames * w * 72
     assert np.array_equal(_floats(a[4], len(taps)), taps)
-    assert np.array_equal(_floats(a[5], len(taps)), taps)
+    taps4 = _floats(a[5], 4 * t).reshape(t, 4)
+    assert np.array_equal(taps4[:, :3].T.ravel(), taps[:3 * t])
+    assert not taps4[:, 3].any()
     calls.clear()
     outs, launches = li._launch(imgs, 3, 0.5, n, sg, torch.float32)
     plan = li.fused_plan(h, w, 3, 0.5, 0, frames, li.IMG_SPLIT_MAX)
-    assert [c[0] for c in calls] == (["kh_level_images_batch"]
-                                     + ["kh_polyexp_mem"] * len(plan.levels))
-    assert launches == len(calls) == 1 + len(plan.levels)
-    assert calls[0][1][1:4] == (frames, h, w)
-    for lv, (_, a), o in zip(plan.levels, calls[1:], outs):
-        assert a[1:4] == (frames, lv.lh, lv.lw) and a[6] == n and a[7] == 0
-        assert a[9] == 3 * frames * lv.lh * lv.lw
+    assert [c[0] for c in calls] == ["kh_level_images_batch",
+                                     "kh_polyexp_mem"]
+    assert launches == 2 and calls[0][1][1:4] == (frames, h, w)
+    _, a, (ptrs, dims) = calls[1]
+    assert a[:2] == (frames, len(plan.levels)) and a[6:8] == (n, 0)
+    assert dims == [(lv.lh, lv.lw) for lv in plan.levels]
+    assert [p[1] for p in ptrs] == [o.data_ptr() for o in outs]
+    assert a[9] == sum(pe.mem_scratch_floats(frames, lv.lh, lv.lw)
+                       for lv in plan.levels)
+    for lv, o in zip(plan.levels, outs):
         assert o.shape == (frames, 5, lv.lh, lv.lw)
+
+
+def test_device_memory_route_takes_levels_in_runs(monkeypatch):
+    """K4/K7b's device-memory route at 20 coarse levels (levels 20,
+    pyr_scale 0.9): K11's level images in runs of MAX_LEVELS (12 + 8),
+    then kh_polyexp_mem in runs of MEM_MAX_LEVELS (16 + 4), each call
+    with its run's levels in plan order; the wrapper counts the four."""
+    calls = _record_mem(monkeypatch)
+    imgs = torch.zeros(1, 600, 800)
+    outs, launches = li._launch(imgs, 20, 0.9, 101, 20.2, torch.bfloat16)
+    plan = li.fused_plan(600, 800, 20, 0.9, 0, 1, li.IMG_SPLIT_MAX)
+    assert len(plan.levels) == len(outs) == 20
+    assert [c[0] for c in calls] == ["kh_level_images_batch"] * 2 \
+        + ["kh_polyexp_mem"] * 2 and launches == 4
+    shapes = [(lv.lh, lv.lw) for lv in plan.levels]
+    assert calls[2][2][1] == shapes[:16] and calls[3][2][1] == shapes[16:]
+    assert [c[1][1] for c in calls[2:]] == [16, 4]
+    assert [p[1] for c in calls[2:] for p in c[2][0]] == \
+        [o.data_ptr() for o in outs]
 
 
 _C_TYPES = {"const void*": _build.P, "void*": _build.P, "int": _build.I,
@@ -174,7 +228,8 @@ def test_device_memory_route_calls_the_c_interface_as_declared(
     """The device-memory route's two C entry points are called with the
     argument types of their C signatures (csrc/polyexp.cu's
     kh_polyexp_mem, csrc/level_image.cu's kh_level_images_batch), one
-    argument for each."""
+    argument for each; the wrapper's MEM_R and MEM_MAX_LEVELS are the
+    kernel's constants."""
     calls = []
 
     def function(fname, *argtypes):
@@ -193,6 +248,11 @@ def test_device_memory_route_calls_the_c_interface_as_declared(
         assert len(args) == len(argtypes)
         seen.add(fname)
     assert seen == {"kh_polyexp_mem", "kh_level_images_batch"}
+    src = (CSRC / "polyexp.cu").read_text()
+    for name, value in (("kMemR", pe.MEM_R),
+                        ("kMemMaxLevels", pe.MEM_MAX_LEVELS)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1)) == value, name
 
 
 @pytest.mark.parametrize("n", (53, 101, 257))
