@@ -16,6 +16,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 def open_video(path: str) -> "FrameStream":
     return FrameStream(path)
@@ -183,15 +185,25 @@ def device_prefetch(frames, depth: int = 2, *, device="cuda"):
 
 
 def _consume(relay: _Relay, dev: torch.device):
-    for item in relay:
-        if dev.type != "cuda":
-            yield item
-            continue
-        frame, ready = item
-        stream = torch.cuda.current_stream(dev)
-        stream.wait_event(ready)
-        frame.record_stream(stream)
-        yield frame
+    """The consumer's side: each wait for the next frame is one
+    kh.prefetch.wait span."""
+    items = iter(relay)
+    try:
+        while True:
+            with span("kh.prefetch.wait"):
+                item = next(items, None)
+            if item is None:
+                return
+            if dev.type != "cuda":
+                yield item
+                continue
+            frame, ready = item
+            stream = torch.cuda.current_stream(dev)
+            stream.wait_event(ready)
+            frame.record_stream(stream)
+            yield frame
+    finally:
+        items.close()
 
 
 def _card_frames(frames, depth: int, dev: torch.device):

@@ -58,6 +58,10 @@ Inside `utils.debug.debug_checks()` each frame step checks that the
 outputs of its stages are finite and raises FloatingPointError naming
 the stage and the frame; outside it the step adds nothing.
 
+Under `torch.profiler` each call of `track_clip`, `track_clips` and
+`track_stream`, and each stage inside it, is a span
+(`utils.profiling.SPANS`); with no profiler a span is one flag read.
+
 Every setting the reference's config accepts runs (`check_slice`
 refuses none since F4's repair). TPU-only knobs that do not change
 results (impl, pallas_interpret, fi_tile_h, fi_shift_skip, pe_tile_h)
@@ -67,6 +71,7 @@ are ignored.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import os
 from typing import Iterator, List, NamedTuple, Optional, Tuple
@@ -97,6 +102,7 @@ from .ops.segment import segment_body
 from .ops.warp import sample_flow
 from .utils import debug
 from .utils.checkpoint import load_state, save_state
+from .utils.profiling import span
 
 _ROWS = ("pos", "alive", "nis", "track_id")
 _HISTORY = ("x_filt", "P_filt", "x_pred", "P_pred")
@@ -220,23 +226,27 @@ def init_from_frame(frame0: torch.Tensor, cfg: RunConfig) -> Carry:
     segmented body with seed_in_body) and cache its flow pyramid (and,
     with reinit_every > 1, its corner pool); prime the fixed-lag window
     and the cold warm-start field where configured."""
-    gray0 = grayscale_u8(frame0)
-    mask = _seed_mask(gray0, cfg)
-    pts, score = corner_pool(gray0, cfg.tracks,
-                             pool_size=cfg.tracks.num_tracks, mask=mask)
-    state = init_tracks(cfg.ekf, pts, valid=score > 0)
-    corner_cache = ()
-    if cfg.tracks.reinit and cfg.tracks.reinit_every > 1:
-        corner_cache = corner_pool(gray0, cfg.tracks, mask=mask)
-    lag_buf = _lag_buf_init(state, _lag(cfg)) if _lag(cfg) else ()
-    # pair 0 -> 1 is a cold start (zeros == cv2 USE_INITIAL_FLOW with a
-    # zero field); the photometric and render channels compute no flow
-    prev_flow = (torch.zeros(gray0.shape + (2,), dtype=torch.float32,
-                             device=gray0.device)
-                 if cfg.flow.temporal_init and not _no_flow(cfg)
-                 else None)
-    return Carry(tracks=state, prev_gray=gray0,
-                 prev_rpyr=_flow_pyramid(gray0, cfg),
+    with span("kh.flow"):
+        gray0 = grayscale_u8(frame0)
+    with span("kh.lifecycle"):
+        mask = _seed_mask(gray0, cfg)
+        pts, score = corner_pool(gray0, cfg.tracks,
+                                 pool_size=cfg.tracks.num_tracks, mask=mask)
+        state = init_tracks(cfg.ekf, pts, valid=score > 0)
+        corner_cache = ()
+        if cfg.tracks.reinit and cfg.tracks.reinit_every > 1:
+            corner_cache = corner_pool(gray0, cfg.tracks, mask=mask)
+        lag_buf = _lag_buf_init(state, _lag(cfg)) if _lag(cfg) else ()
+    with span("kh.flow"):
+        # pair 0 -> 1 is a cold start (zeros == cv2 USE_INITIAL_FLOW with
+        # a zero field); the photometric and render channels compute no
+        # flow
+        prev_flow = (torch.zeros(gray0.shape + (2,), dtype=torch.float32,
+                                 device=gray0.device)
+                     if cfg.flow.temporal_init and not _no_flow(cfg)
+                     else None)
+        rpyr0 = _flow_pyramid(gray0, cfg)
+    return Carry(tracks=state, prev_gray=gray0, prev_rpyr=rpyr0,
                  corner_cache=corner_cache, frame_idx=0, lag_buf=lag_buf,
                  prev_flow=prev_flow)
 
@@ -255,14 +265,16 @@ def _prime_init_velocity(carry0: Carry, frame1: torch.Tensor,
     seeds (TrackConfig.init_velocity), reusing frame 0's cached polyexp
     pyramid with Farneback where there is one; prev_flow is left as it
     was."""
-    gray1 = grayscale_u8(frame1)
-    if cfg.flow.method == "farneback" and carry0.prev_rpyr:
-        flow01 = farneback_from_pyramids(
-            carry0.prev_rpyr, polyexp_pyramid(gray1, cfg.flow), cfg.flow)
-    else:
-        flow01 = _flow_field(carry0.prev_gray, gray1, cfg)
-    return carry0._replace(tracks=_with_velocity(carry0.tracks, flow01,
-                                                 cfg.ekf))
+    with span("kh.flow"):
+        gray1 = grayscale_u8(frame1)
+        if cfg.flow.method == "farneback" and carry0.prev_rpyr:
+            flow01 = farneback_from_pyramids(
+                carry0.prev_rpyr, polyexp_pyramid(gray1, cfg.flow), cfg.flow)
+        else:
+            flow01 = _flow_field(carry0.prev_gray, gray1, cfg)
+    with span("kh.filter"):
+        tracks = _with_velocity(carry0.tracks, flow01, cfg.ekf)
+    return carry0._replace(tracks=tracks)
 
 
 def make_filter_tail(cfg: RunConfig, F: torch.Tensor):
@@ -308,8 +320,11 @@ def make_flow_scan_step(cfg: RunConfig, device):
     F, Q, tail = _filter_model(cfg, device)
 
     def step(tracks: TrackState, lag_buf: Tuple, flow: torch.Tensor, pool):
-        state, aux = ekf_step(tracks, flow, cfg.ekf, F, Q)
-        return tail(state, aux, lag_buf, pool, flow.shape[0], flow.shape[1])
+        with span("kh.filter"):
+            state, aux = ekf_step(tracks, flow, cfg.ekf, F, Q)
+        with span("kh.lifecycle"):
+            return tail(state, aux, lag_buf, pool, flow.shape[0],
+                        flow.shape[1])
 
     return step
 
@@ -342,72 +357,85 @@ def make_step(cfg: RunConfig, device, render_tmpl: RenderTemplate = None):
     method = cfg.flow.method
     meas = cfg.ekf.measurement
 
+    # a dense flow field is the measurement but in the render,
+    # photometric and lk_sparse branches
+    dense = meas not in ("render", "photometric") and method != "lk_sparse"
+
     def step(carry: Carry, frame: torch.Tensor):
         frame_idx = carry.frame_idx + 1
         checks = debug.enabled()
-        gray = grayscale_u8(frame)
-        if checks:
-            debug.check_finite("grayscale", frame_idx, gray)
-        rpyr = _flow_pyramid(gray, cfg)
-        if checks:
-            debug.check_finite("flow pyramid", frame_idx, rpyr)
+        with span("kh.flow"):
+            gray = grayscale_u8(frame)
+            if checks:
+                debug.check_finite("grayscale", frame_idx, gray)
+            rpyr = _flow_pyramid(gray, cfg)
+            if checks:
+                debug.check_finite("flow pyramid", frame_idx, rpyr)
         corner_cache = carry.corner_cache
         pool = None
         if cfg.tracks.reinit:
-            if cfg.tracks.reinit_every <= 1 or not corner_cache:
-                pool = _fresh_corner_pool(gray, cfg)
-            else:
-                if frame_idx % cfg.tracks.reinit_every == 0:
-                    corner_cache = _fresh_corner_pool(gray, cfg)
-                pool = corner_cache
+            with span("kh.lifecycle"):
+                if cfg.tracks.reinit_every <= 1 or not corner_cache:
+                    pool = _fresh_corner_pool(gray, cfg)
+                else:
+                    if frame_idx % cfg.tracks.reinit_every == 0:
+                        corner_cache = _fresh_corner_pool(gray, cfg)
+                    pool = corner_cache
         flow = None
-        if meas == "render":
-            # the deformed-mesh appearance alone: no flow
-            state, aux = render_step(carry.tracks, gray, cfg.ekf, F, Q,
-                                     render_tmpl)
-        elif meas == "photometric":
-            # the appearance channel alone: Gauss-Newton on the frames
-            state, aux = photometric_step(carry.tracks, carry.prev_gray,
-                                          gray, cfg.ekf, F, Q)
-        elif method == "lk_sparse":
-            # the tracks' own positions, tracked by sparse LK, are the
-            # measurement of a plain position update; a point LK lost
-            # (status False) counts as a miss
-            pos = carry.tracks.x[:, 0:2]
-            new_pts, ok = lk_sparse(carry.prev_gray, gray, pos, cfg.flow,
-                                    prev_pyr=carry.prev_rpyr or None,
-                                    next_pyr=rpyr)
-            state = carry.tracks
-            x_pred, P_pred = predict(state.x, state.P, F, Q, state.q_scale)
-            y = pos + (new_pts - pos) - x_pred[:, 0:2]
-            x_new, P_new, nis = update(x_pred, P_pred, y, H, R)
-            state, aux = commit_update(state, x_pred, P_pred, x_new, P_new,
-                                       nis, cfg.ekf, valid=ok)
-        else:
-            flow = (farneback_from_pyramids(carry.prev_rpyr, rpyr, cfg.flow,
-                                            flow0=carry.prev_flow)
-                    if method == "farneback"
-                    else _flow_field(carry.prev_gray, gray, cfg))
+        if dense:
+            with span("kh.flow"):
+                flow = (farneback_from_pyramids(carry.prev_rpyr, rpyr,
+                                                cfg.flow,
+                                                flow0=carry.prev_flow)
+                        if method == "farneback"
+                        else _flow_field(carry.prev_gray, gray, cfg))
+                if checks:
+                    debug.check_finite("flow", frame_idx, flow)
+        with span("kh.filter"):
+            if meas == "render":
+                # the deformed-mesh appearance alone: no flow
+                state, aux = render_step(carry.tracks, gray, cfg.ekf, F, Q,
+                                         render_tmpl)
+            elif meas == "photometric":
+                # the appearance channel alone: Gauss-Newton on the frames
+                state, aux = photometric_step(carry.tracks, carry.prev_gray,
+                                              gray, cfg.ekf, F, Q)
+            elif method == "lk_sparse":
+                # the tracks' own positions, tracked by sparse LK, are the
+                # measurement of a plain position update; a point LK lost
+                # (status False) counts as a miss
+                pos = carry.tracks.x[:, 0:2]
+                new_pts, ok = lk_sparse(carry.prev_gray, gray, pos,
+                                        cfg.flow,
+                                        prev_pyr=carry.prev_rpyr or None,
+                                        next_pyr=rpyr)
+                state = carry.tracks
+                x_pred, P_pred = predict(state.x, state.P, F, Q,
+                                         state.q_scale)
+                y = pos + (new_pts - pos) - x_pred[:, 0:2]
+                x_new, P_new, nis = update(x_pred, P_pred, y, H, R)
+                state, aux = commit_update(state, x_pred, P_pred, x_new,
+                                           P_new, nis, cfg.ekf, valid=ok)
+            else:
+                state, aux = ekf_step(carry.tracks, flow, cfg.ekf, F, Q)
+            if meas == "flow_photometric":
+                # the second, photometric update of the flow-updated state
+                state, aux = photometric_refine(state, aux, carry.prev_gray,
+                                                gray, carry.tracks.x[:, 0:2],
+                                                cfg.ekf)
+            elif meas == "flow_render":
+                # the second, render update of the flow-updated state
+                state, aux = render_refine(state, aux, gray, cfg.ekf,
+                                           render_tmpl)
             if checks:
-                debug.check_finite("flow", frame_idx, flow)
-            state, aux = ekf_step(carry.tracks, flow, cfg.ekf, F, Q)
-        if meas == "flow_photometric":
-            # the second, photometric update of the flow-updated state
-            state, aux = photometric_refine(state, aux, carry.prev_gray,
-                                            gray, carry.tracks.x[:, 0:2],
-                                            cfg.ekf)
-        elif meas == "flow_render":
-            # the second, render update of the flow-updated state
-            state, aux = render_refine(state, aux, gray, cfg.ekf,
-                                       render_tmpl)
-        if checks:
-            debug.check_finite("measurement update", frame_idx, state.x,
-                               state.P, aux["nis"])
-        state, lag_buf, out = tail(state, aux, carry.lag_buf, pool,
-                                   gray.shape[0], gray.shape[1])
-        if checks:
-            debug.check_finite("lifecycle", frame_idx, state.x, state.P,
-                               out.get("smoothed_lag"))
+                debug.check_finite("measurement update", frame_idx, state.x,
+                                   state.P, aux["nis"])
+        with span("kh.lifecycle"):
+            state, lag_buf, out = tail(state, aux, carry.lag_buf, pool,
+                                       gray.shape[0], gray.shape[1])
+            if checks:
+                debug.check_finite("lifecycle", frame_idx, state.x, state.P,
+                                   out.get("smoothed_lag"))
         # temporal warm start: this pair's flow seeds the next pair's
         # coarsest level
         prev_flow = None if carry.prev_flow is None else flow
@@ -444,18 +472,20 @@ def _finalize_track_outputs(state0: TrackState, final_lag_buf: Tuple,
         # whose entry i is frame T-1-L+i
         T = outs["pos"].shape[0]
         xf, Pf, xp, Pp, tid, alive = final_lag_buf
-        xs_tail, _ = rts_smooth(F, xf, Pf, xp, Pp,
-                                breaks=segment_breaks(tid, alive))
-        if T > lag:
-            outs["smoothed"] = torch.cat([outs["smoothed_lag"][lag:],
-                                          xs_tail[1:, :, 0:2]])
-        else:
-            outs["smoothed"] = xs_tail[lag + 1 - T:, :, 0:2]
+        with span("kh.lifecycle"):
+            xs_tail, _ = rts_smooth(F, xf, Pf, xp, Pp,
+                                    breaks=segment_breaks(tid, alive))
+            if T > lag:
+                outs["smoothed"] = torch.cat([outs["smoothed_lag"][lag:],
+                                              xs_tail[1:, :, 0:2]])
+            else:
+                outs["smoothed"] = xs_tail[lag + 1 - T:, :, 0:2]
     elif cfg.smooth.enabled:
-        xs, _ = rts_smooth(F, outs["x_filt"], outs["P_filt"],
-                           outs["x_pred"], outs["P_pred"],
-                           breaks=segment_breaks(outs["track_id"],
-                                                 outs["alive"]))
+        with span("kh.lifecycle"):
+            xs, _ = rts_smooth(F, outs["x_filt"], outs["P_filt"],
+                               outs["x_pred"], outs["P_pred"],
+                               breaks=segment_breaks(outs["track_id"],
+                                                     outs["alive"]))
         outs["smoothed"] = xs[..., 0:2]
     if not with_history:
         outs = {k: v for k, v in outs.items() if k in _ROWS + ("smoothed",)}
@@ -476,12 +506,15 @@ def track_arrays(frames: torch.Tensor, cfg: RunConfig,
         return track_arrays_pairflow(frames, cfg, with_history, seeds)
     carry = init_from_frame(frames[0], cfg)
     if seeds is not None:
-        carry = carry._replace(tracks=init_tracks(cfg.ekf, seeds))
+        with span("kh.lifecycle"):
+            carry = carry._replace(tracks=init_tracks(cfg.ekf, seeds))
     if cfg.tracks.init_velocity:
         carry = _prime_init_velocity(carry, frames[1], cfg)
     if carry.lag_buf and (seeds is not None or cfg.tracks.init_velocity):
         # re-prime the window from the replaced seed state
-        carry = carry._replace(lag_buf=_lag_buf_init(carry.tracks, _lag(cfg)))
+        with span("kh.lifecycle"):
+            carry = carry._replace(lag_buf=_lag_buf_init(carry.tracks,
+                                                         _lag(cfg)))
     s0 = carry.tracks
     step = make_step(cfg, frames.device, render_tmpl)
     rows = []
@@ -511,19 +544,22 @@ def _track_from_pair_flows(grays: torch.Tensor, flows: torch.Tensor,
     (within the segmented body with seed_in_body) or `seeds`, prime
     velocities from the first flow with init_velocity, then one
     EKF/lifecycle step per precomputed flow (T - 1, H, W, 2)."""
-    if seeds is None:
-        pts, score = corner_pool(grays[0], cfg.tracks,
-                                 pool_size=cfg.tracks.num_tracks,
-                                 mask=_seed_mask(grays[0], cfg))
-        state0 = init_tracks(cfg.ekf, pts, valid=score > 0)
-    else:
-        state0 = init_tracks(cfg.ekf, seeds)
+    with span("kh.lifecycle"):
+        if seeds is None:
+            pts, score = corner_pool(grays[0], cfg.tracks,
+                                     pool_size=cfg.tracks.num_tracks,
+                                     mask=_seed_mask(grays[0], cfg))
+            state0 = init_tracks(cfg.ekf, pts, valid=score > 0)
+        else:
+            state0 = init_tracks(cfg.ekf, seeds)
     if cfg.tracks.init_velocity:
-        state0 = _with_velocity(state0, flows[0], cfg.ekf)
-    lag_buf = _lag_buf_init(state0, _lag(cfg)) if _lag(cfg) else ()
+        with span("kh.filter"):
+            state0 = _with_velocity(state0, flows[0], cfg.ekf)
     T = grays.shape[0]
-    pools = (_corner_pool_sequence(grays, cfg) if cfg.tracks.reinit
-             else [None] * (T - 1))
+    with span("kh.lifecycle"):
+        lag_buf = _lag_buf_init(state0, _lag(cfg)) if _lag(cfg) else ()
+        pools = (_corner_pool_sequence(grays, cfg) if cfg.tracks.reinit
+                 else [None] * (T - 1))
     step = make_flow_scan_step(cfg, grays.device)
     state, rows = state0, []
     for t in range(T - 1):
@@ -554,9 +590,10 @@ def track_arrays_pairflow(frames: torch.Tensor, cfg: RunConfig,
     trajectories as the per-frame path at fi_level_fused=False and
     fi_pipeline=False (at fast_warp=0 with f32 planes; with bf16 planes
     the pair path rounds M to bf16, as the reference's does)."""
-    grays = grayscale_u8(frames)
-    return _track_from_pair_flows(grays, _pair_flows(grays, cfg), cfg,
-                                  with_history, seeds)
+    with span("kh.flow"):
+        grays = grayscale_u8(frames)
+        flows = _pair_flows(grays, cfg)
+    return _track_from_pair_flows(grays, flows, cfg, with_history, seeds)
 
 
 def track_clips_pairflow(frames_b: torch.Tensor, cfg: RunConfig,
@@ -570,9 +607,10 @@ def track_clips_pairflow(frames_b: torch.Tensor, cfg: RunConfig,
     (B, K, 2). Returns the per-clip outputs stacked over B."""
     check_slice(cfg)
     B, T = frames_b.shape[0], frames_b.shape[1]
-    grays_b = grayscale_u8(frames_b)
-    flat = grays_b.reshape((B * T,) + grays_b.shape[2:])
-    flows = _pair_flows(flat, cfg, clip_len=T)
+    with span("kh.flow"):
+        grays_b = grayscale_u8(frames_b)
+        flat = grays_b.reshape((B * T,) + grays_b.shape[2:])
+        flows = _pair_flows(flat, cfg, clip_len=T)
     flows_b = flows.reshape((B, T - 1) + flows.shape[1:])
     if seeds is not None and seeds.ndim == 2:
         seeds = seeds.expand((B,) + seeds.shape)
@@ -612,8 +650,18 @@ def flow_sequence(frames: torch.Tensor, cfg: RunConfig,
     return flows
 
 
+def _request(fn):
+    """An entry point whose every call is one kh.call span."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with span("kh.call"):
+            return fn(*args, **kwargs)
+    return call
+
+
 def upload(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(_device(device))
+    with span("kh.upload"):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(_device(device))
 
 
 def _seeds(seeds, device) -> Optional[torch.Tensor]:
@@ -622,7 +670,8 @@ def _seeds(seeds, device) -> Optional[torch.Tensor]:
 
 
 def _trajectories(outs: dict) -> Trajectories:
-    outs = {k: v.cpu().numpy() for k, v in outs.items()}
+    with span("kh.fetch"):
+        outs = {k: v.cpu().numpy() for k, v in outs.items()}
     return Trajectories(positions=outs["pos"], alive=outs["alive"],
                         nis=outs["nis"], track_id=outs["track_id"],
                         smoothed=outs.get("smoothed"))
@@ -633,11 +682,12 @@ def _smooth_history_chunked(outs: dict, cfg: RunConfig,
     """Chunked RTS over a host-resident filter history (segment breaks at
     re-seeds and dead frames), one chunk on `device` at a time."""
     chunk = cfg.smooth.chunk if cfg.smooth.chunk > 0 else 64
-    xs, _ = rts_smooth_chunked(
-        dynamics.transition(cfg.ekf), outs["x_filt"], outs["P_filt"],
-        outs["x_pred"], outs["P_pred"], chunk=chunk,
-        breaks=segment_breaks(outs["track_id"], outs["alive"]),
-        device=device)
+    with span("kh.lifecycle"):
+        xs, _ = rts_smooth_chunked(
+            dynamics.transition(cfg.ekf), outs["x_filt"], outs["P_filt"],
+            outs["x_pred"], outs["P_pred"], chunk=chunk,
+            breaks=segment_breaks(outs["track_id"], outs["alive"]),
+            device=device)
     return xs
 
 
@@ -668,6 +718,7 @@ def track_precomputed_flow(flows: np.ndarray, seeds: np.ndarray,
                           for k in _ROWS})
 
 
+@_request
 def track_clip(frames: np.ndarray, cfg: RunConfig,
                seeds: Optional[np.ndarray] = None,
                with_history: bool = False, render_tmpl=None, *,
@@ -686,9 +737,10 @@ def track_clip(frames: np.ndarray, cfg: RunConfig,
     if cfg.smooth.enabled and cfg.smooth.chunk > 0 and cfg.smooth.lag == 0:
         filt = cfg.replace(smooth=dataclasses.replace(cfg.smooth,
                                                       enabled=False))
-        outs = {k: v.cpu() for k, v in track_arrays(
-            frames_d, filt, with_history=True, seeds=seeds_d,
-            render_tmpl=tmpl).items()}
+        outs = track_arrays(frames_d, filt, with_history=True,
+                            seeds=seeds_d, render_tmpl=tmpl)
+        with span("kh.fetch"):
+            outs = {k: v.cpu() for k, v in outs.items()}
         outs["smoothed"] = _smooth_history_chunked(
             outs, cfg, frames_d.device)[..., 0:2]
         return _trajectories({k: outs[k] for k in _ROWS + ("smoothed",)})
@@ -722,11 +774,13 @@ def track_clips_arrays(clips: torch.Tensor, cfg: RunConfig,
 def batch_trajectories(outs: dict) -> List[Trajectories]:
     """Rows stacked over a batch (track_clips_arrays) -> one Trajectories
     a clip."""
-    outs = {k: v.cpu() for k, v in outs.items()}
+    with span("kh.fetch"):
+        outs = {k: v.cpu() for k, v in outs.items()}
     return [_trajectories({k: v[b] for k, v in outs.items()})
             for b in range(outs["pos"].shape[0])]
 
 
+@_request
 def track_clips(clips: np.ndarray, cfg: RunConfig,
                 seeds: Optional[np.ndarray] = None, render_tmpl=None, *,
                 device="cuda") -> List[Trajectories]:
@@ -777,22 +831,26 @@ class _RowFetch:
 
     def flush(self) -> Optional[dict]:
         """The queued row, read out (None if there is none)."""
-        prev, self.pending = self.pending, None
-        if prev is None or not self.cuda:
-            return prev
-        bufs, done = self.slots[prev]
-        done.synchronize()
-        return {k: v.numpy().copy() for k, v in bufs.items()}
+        with span("kh.rows.wait"):
+            prev, self.pending = self.pending, None
+            if prev is None or not self.cuda:
+                return prev
+            bufs, done = self.slots[prev]
+            done.synchronize()
+            return {k: v.numpy().copy() for k, v in bufs.items()}
 
 
 def _state_row(carry: Carry, cfg: RunConfig, fetch_keys) -> dict:
     """Host row of a bare filter state (frame 0, or a resume at the end
     of the stream): nis 0, the state itself as its prediction."""
-    x = carry.tracks.x.cpu().numpy()
-    P = carry.tracks.P.cpu().numpy()
-    row = {"pos": x[:, 0:2], "alive": carry.tracks.alive.cpu().numpy(),
+    with span("kh.fetch"):
+        x = carry.tracks.x.cpu().numpy()
+        P = carry.tracks.P.cpu().numpy()
+        alive = carry.tracks.alive.cpu().numpy()
+        track_id = carry.tracks.track_id.cpu().numpy()
+    row = {"pos": x[:, 0:2], "alive": alive,
            "nis": np.zeros(cfg.tracks.num_tracks, np.float32),
-           "track_id": carry.tracks.track_id.cpu().numpy()}
+           "track_id": track_id}
     if "x_filt" in fetch_keys:
         row.update({"x_filt": x, "P_filt": P, "x_pred": x, "P_pred": P})
     if "smoothed_lag" in fetch_keys:
@@ -814,9 +872,12 @@ def _assemble_lag_smoothed(rows: List[dict], carry: Carry,
         smoothed[t - L] = rows[t]["smoothed_lag"]
     # the final window: entry i is frame T - 1 - L + i
     xf, Pf, xp, Pp, tid, alive = carry.lag_buf
-    F = torch.as_tensor(dynamics.transition(cfg.ekf), device=xf.device)
-    xs, _ = rts_smooth(F, xf, Pf, xp, Pp, breaks=segment_breaks(tid, alive))
-    xs = xs[..., 0:2].cpu().numpy()
+    with span("kh.lifecycle"):
+        F = torch.as_tensor(dynamics.transition(cfg.ekf), device=xf.device)
+        xs, _ = rts_smooth(F, xf, Pf, xp, Pp,
+                           breaks=segment_breaks(tid, alive))
+    with span("kh.fetch"):
+        xs = xs[..., 0:2].cpu().numpy()
     for i in range(L + 1):
         f = T - 1 - L + i
         if 0 <= f < T:
@@ -836,27 +897,35 @@ def _resume_carry(path: str, cfg: RunConfig, dev: torch.device) -> Carry:
                           for a in state])
     corner_cache = ()
     if cfg.tracks.reinit and cfg.tracks.reinit_every > 1:
-        corner_cache = (tuple(upload(a, dev) for a in ccache)
-                        if ccache is not None
-                        else _fresh_corner_pool(prev_gray, cfg))
+        if ccache is not None:
+            corner_cache = tuple(upload(a, dev) for a in ccache)
+        else:
+            with span("kh.lifecycle"):
+                corner_cache = _fresh_corner_pool(prev_gray, cfg)
     lag = _lag(cfg)
     lag_buf = ()
     if lag:
-        lag_buf = (tuple(upload(a, dev) for a in lbuf)
-                   if lbuf is not None and lbuf[0].shape[0] == lag + 1
-                   else _lag_buf_init(tracks, lag))
+        if lbuf is not None and lbuf[0].shape[0] == lag + 1:
+            lag_buf = tuple(upload(a, dev) for a in lbuf)
+        else:
+            with span("kh.lifecycle"):
+                lag_buf = _lag_buf_init(tracks, lag)
     prev_flow = None
     if cfg.flow.temporal_init and not _no_flow(cfg):
-        prev_flow = (upload(np.asarray(pflow, np.float32), dev)
-                     if pflow is not None
-                     else torch.zeros(prev_gray.shape + (2,),
-                                      dtype=torch.float32, device=dev))
-    return Carry(tracks=tracks, prev_gray=prev_gray,
-                 prev_rpyr=_flow_pyramid(prev_gray, cfg),
+        if pflow is not None:
+            prev_flow = upload(np.asarray(pflow, np.float32), dev)
+        else:
+            with span("kh.flow"):
+                prev_flow = torch.zeros(prev_gray.shape + (2,),
+                                        dtype=torch.float32, device=dev)
+    with span("kh.flow"):
+        prev_rpyr = _flow_pyramid(prev_gray, cfg)
+    return Carry(tracks=tracks, prev_gray=prev_gray, prev_rpyr=prev_rpyr,
                  corner_cache=corner_cache, frame_idx=frame_idx,
                  lag_buf=lag_buf, prev_flow=prev_flow)
 
 
+@_request
 def track_stream(frame_iter: Iterator[np.ndarray], cfg: RunConfig,
                  frame0: np.ndarray = None,
                  checkpoint_path: Optional[str] = None,
@@ -906,8 +975,9 @@ def track_stream(frame_iter: Iterator[np.ndarray], cfg: RunConfig,
             frame0 = next(it)
         carry = init_from_frame(upload(frame0, dev), cfg)
         if seeds is not None:
-            carry = carry._replace(tracks=init_tracks(cfg.ekf,
-                                                      _seeds(seeds, dev)))
+            seeds_d = _seeds(seeds, dev)
+            with span("kh.lifecycle"):
+                carry = carry._replace(tracks=init_tracks(cfg.ekf, seeds_d))
         if cfg.tracks.init_velocity:
             # peek at frame 1 to prime the velocities as track_arrays
             # does, then replay it through the loop
@@ -917,8 +987,9 @@ def track_stream(frame_iter: Iterator[np.ndarray], cfg: RunConfig,
                 it = itertools.chain([frame1], it)
         if carry.lag_buf and (seeds is not None or cfg.tracks.init_velocity):
             # re-prime the window from the replaced seed state
-            carry = carry._replace(lag_buf=_lag_buf_init(carry.tracks,
-                                                         _lag(cfg)))
+            with span("kh.lifecycle"):
+                carry = carry._replace(lag_buf=_lag_buf_init(carry.tracks,
+                                                             _lag(cfg)))
         rows.append(_state_row(carry, cfg, fetch_keys))
 
     step = make_step(cfg, dev, render_tmpl)

@@ -1,5 +1,5 @@
 """Debug and profiling (utils/debug.py, utils/profiling.py, the CLI's
-`track --profile`) on the CPU: cost, trace and timed to the bars of
+`track --profile`) on the CPU: cost and trace to the bars of
 tests/unit/test_profiling_utils.py; checked_update raising on a negative
 P, as tests/integration/test_fault_injection.py does, and equal to the
 plain update (and to the reference's checked update) on sound input;
@@ -20,7 +20,7 @@ from kalman_hydra_tpu_torch.config import FlowConfig, RunConfig, TrackConfig
 from kalman_hydra_tpu_torch.io.synthetic import moving_blob_clip
 from kalman_hydra_tpu_torch.models import ekf as tekf
 from kalman_hydra_tpu_torch.utils import debug
-from kalman_hydra_tpu_torch.utils.profiling import cost, timed, trace
+from kalman_hydra_tpu_torch.utils.profiling import cost, trace
 import torch_threads  # noqa: F401  (one torch thread a worker)
 
 _SMALL = RunConfig(flow=FlowConfig(levels=2),
@@ -43,12 +43,6 @@ def test_trace_writes_profile(tmp_path):
     with trace(d):
         torch.ones((8, 8)).sum()
     assert os.path.isdir(d) and os.listdir(d)
-
-
-def test_timed_reports(capsys):
-    with timed("op"):
-        pass
-    assert "op:" in capsys.readouterr().out
 
 
 def _update_inputs(P):

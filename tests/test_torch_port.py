@@ -150,6 +150,9 @@ _NOT_PORTED_NAMES = {
     "pipeline._effective_impl": "private, so out of the check anyway: "
     "the reference's choice between its XLA and Pallas routes; the port "
     "has one route",
+    "utils.profiling.timed": "an unsynchronised host timer that nothing "
+    "read: the port times its stages with profiler spans "
+    "(utils.profiling.span), on the clock of the card's kernels",
 }
 
 
