@@ -31,7 +31,12 @@ prints no result line):
      route they replaced (K12_WITNESS) and the walk against that route on
      the card (bit for bit) and its plain version, K11 (one launch for a
      frame's coarse levels) and K1 (a group of lanes a track) against
-     the bytes of their first designs (K11_WITNESS, K1_WITNESS); run the
+     the bytes of their first designs (K11_WITNESS, K1_WITNESS); hold
+     the lifecycle tail (gate, kill, reseed in one launch) against its
+     plain version bit for bit in all six outputs at the main path's
+     shapes (K = P = 1024, n = 6, 1080p), at K = 2500, P = 3000, n = 4
+     with adaptive_q and without a pool, and over every step of a
+     clip9-shaped api.track_video call (8 launches); run the
      settings past the kernels' old limits at 1080p (F2: 16 levels at
      pyr_scale 0.8; F5: lk_sparse and lk_dense at 10 levels; F4: poly_n
      9, 11, 13 and, past POLY_N_MAX on the kernels' device-memory route,
@@ -443,6 +448,167 @@ def check_k1(dev, results):
     record(results, "ekf_fused_step", err, ms["kernel"], ms["plain"],
            4 * (2 * K * n + 2 * K * n * n + 2 * K + 2 * n + K),
            K * (4 * n ** 3 + 10 * n * n), dev=ms)
+
+
+def lifecycle_case(dev, k, p, n, aq, h, w, pool=True, seed=0):
+    """The arguments of one lifecycle-tail call on the card, seeded:
+    about a third of the slots dead, gated tracks, escapees, positions
+    exactly at 0 and at w - 1 / h - 1 and just past them, nis at
+    f32(gate_chi2) and its neighbours, tied corner scores (one decimal),
+    and candidates exactly min_distance from a living track."""
+    from kalman_hydra_tpu_torch.config import EkfConfig, TrackConfig
+    from kalman_hydra_tpu_torch.models.ekf import (TrackState,
+                                                   initial_covariance_on)
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    ecfg = EkfConfig(state_dim=n, adaptive_q=aq)
+    tcfg = TrackConfig(num_tracks=k, corner_pool=max(p, 1))
+    md = f32(tcfg.min_distance)
+    x = np.zeros((k, n), f32)
+    x[:, 0:2] = rng.uniform(-8, [w + 7, h + 7], (k, 2))
+    x[:, 2:] = rng.normal(size=(k, n - 2))
+    below = -f32(2.0 ** -20)
+    x[:8, 0] = [0, w - 1, -0.0, np.nextafter(f32(w - 1), f32(w)), below,
+                0, w - 1, 3]
+    x[:8, 1] = [h - 1, 0, 5, 5, 5, np.nextafter(f32(h - 1), f32(h)), below,
+                -0.0]
+    x_pred = (x + rng.normal(size=x.shape)).astype(f32)
+    x_pred[8:12, 0:2] = x[:4, 0:2]
+    P = rng.normal(size=(k, n, n)).astype(f32)
+    P_pred = rng.normal(size=(k, n, n)).astype(f32)
+    g = f32(ecfg.gate_chi2)
+    nis = rng.uniform(0, 20, k).astype(f32)
+    nis[8:14] = [g, np.nextafter(g, f32(0)), np.nextafter(g, f32(99)), g,
+                 np.nextafter(g, f32(0)), np.nextafter(g, f32(99))]
+    alive = rng.random(k) < 0.7
+    alive[:14] = True
+    misses = rng.integers(0, 6, k).astype(np.int32)
+    misses[:8] = 0
+    tid = rng.integers(0, 3, k).astype(np.int32)
+    qs = rng.uniform(0.1, 10, k).astype(f32) if aq > 0 else None
+    pts = rng.uniform(0, [w, h], (p, 2)).astype(f32)
+    score = np.round(rng.uniform(-0.2, 1, p), 1).astype(f32)
+    inside = (x[:, 0] >= 0) & (x[:, 0] <= w - 1) & (x[:, 1] >= 0) \
+        & (x[:, 1] <= h - 1)
+    for j, i in enumerate(np.nonzero(alive[14:] & inside[14:])[0]
+                          [:min(64, p)] + 14):
+        x[i, 0:2] = np.round(x[i, 0:2])
+        nis[i], misses[i] = 1, 0
+        step = (md * (-1) ** j, 0) if j % 4 < 2 else (0, md * (-1) ** j)
+        pts[j] = x[i, 0:2] + np.array(step, f32)
+        score[j] = 0.9
+    t = lambda a: None if a is None else torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(dev)
+    state = TrackState(t(x), t(P), t(alive), t(misses), t(tid), t(qs))
+    return (state, t(x_pred), t(P_pred), t(nis),
+            (t(pts), t(score)) if pool else None,
+            initial_covariance_on(ecfg, dev), ecfg, tcfg, h, w)
+
+
+def state_diff(a, b) -> list:
+    """The TrackState fields in which a and b differ (floats by their
+    bits)."""
+    bad = []
+    for f in ("x", "P", "alive", "misses", "track_id", "q_scale"):
+        u, v = getattr(a, f), getattr(b, f)
+        if u is None or v is None:
+            if (u is None) != (v is None):
+                bad.append(f)
+            continue
+        if u.dtype.is_floating_point and v.dtype == u.dtype:
+            u, v = u.contiguous().view(torch.int32), \
+                v.contiguous().view(torch.int32)
+        if u.dtype != v.dtype or u.shape != v.shape or not torch.equal(u, v):
+            bad.append(f)
+    return bad
+
+
+LIFECYCLE_CASES = {   # label: lifecycle_case's (k, p, n, aq, h, w, pool)
+    "main path K=P=1024 n=6 1080p": (1024, 1024, 6, 0.0, H, W, True),
+    "K=2500 P=3000 n=4 adaptive_q": (2500, 3000, 4, 0.3, H, W, True),
+    "K=256 P=256 n=4 RunConfig() 1080p": (256, 256, 4, 0.0, H, W, True),
+    "K=1024 P=64 n=6 (more dead slots than candidates)": (1024, 64, 6, 0.0,
+                                                          H, W, True),
+    "K=1024 n=6 no pool": (1024, 0, 6, 0.0, H, W, False),
+    "K=2500 n=4 adaptive_q no pool": (2500, 0, 4, 0.3, H, W, False),
+}
+
+
+@phase("lifecycle tail (gate, kill, reseed in one launch) vs its plain "
+       "version")
+def check_lifecycle(dev, results):
+    """The kernel against lifecycle_tail_plain on the same card tensors,
+    bit for bit in x, P, alive, misses, track_id and q_scale, 3 seeds a
+    case; one device launch a call; times at the main path's shapes."""
+    from kalman_hydra_tpu_torch.kernels.lifecycle import (
+        lifecycle_tail, lifecycle_tail_plain)
+    for label, c in LIFECYCLE_CASES.items():
+        for seed in (0, 1, 2):
+            args = lifecycle_case(dev, *c, seed=seed)
+            n0 = lifecycle_tail.launches
+            got = lifecycle_tail(*args)
+            ref = lifecycle_tail_plain(*args)
+            torch.cuda.synchronize()
+            bad = state_diff(got, ref)
+            st = args[0]
+            log(f"  lifecycle {label} seed {seed}: alive in "
+                f"{int(st.alive.sum())}, out {int(ref.alive.sum())}; "
+                f"re-seeded "
+                f"{int((ref.track_id != st.track_id).sum())}; gated "
+                f"{int((ref.misses > st.misses).sum())}; fields that differ "
+                f"from the plain version: {bad}")
+            assert not bad and lifecycle_tail.launches == n0 + 1
+    main = lifecycle_case(dev, *LIFECYCLE_CASES["main path K=P=1024 n=6 "
+                                                "1080p"])
+    ev = device_launches(lambda: lifecycle_tail(*main))
+    log(f"  lifecycle tail: {len(ev)} device launch(es) a call: "
+        + "; ".join(f"{nm[:48]} {us:.1f} us" for nm, us in ev))
+    assert len(ev) == 1
+    ms = time_turns({"plain": lambda: lifecycle_tail_plain(*main),
+                     "kernel": lambda: lifecycle_tail(*main)})
+    k, p, n = 1024, 1024, 6
+    # x, P, x_pred, P_pred, nis, alive, misses, track_id, pts, score, P0
+    # in; x, P, alive, misses, track_id out
+    nbytes = (4 * (2 * k * n + 2 * k * n * n + k + 3 * p + n * n) + 9 * k
+              + 4 * (k * n + k * n * n) + 9 * k)
+    record(results, "lifecycle_tail", 0.0, ms["kernel"], ms["plain"],
+           nbytes, 0, dev=ms)
+
+
+@phase("lifecycle tail over every step of a clip9-shaped api.track_video "
+       "call (path A, 1080p T=9)")
+def check_lifecycle_steps(dev, clip, cfg):
+    """Each step's tail call recorded (pipeline.lifecycle_tail wrapped
+    here, the program unchanged): the kernel's TrackState against
+    lifecycle_tail_plain on the same card tensors, bit for bit; the call
+    adds exactly T - 1 launches."""
+    from kalman_hydra_tpu_torch import api, pipeline
+    from kalman_hydra_tpu_torch.kernels.lifecycle import (
+        lifecycle_tail, lifecycle_tail_plain)
+    calls = []
+    real = pipeline.lifecycle_tail
+
+    def recorded(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+    n0 = lifecycle_tail.launches
+    pipeline.lifecycle_tail = recorded
+    try:
+        api.track_video(clip, cfg, device=dev)
+    finally:
+        pipeline.lifecycle_tail = real
+    torch.cuda.synchronize()
+    added = lifecycle_tail.launches - n0
+    bad, seeded = [], []
+    for i, (args, out) in enumerate(calls):
+        diff = state_diff(out, lifecycle_tail_plain(*args))
+        if diff:
+            bad.append((i + 1, diff))
+        seeded.append(int((out.track_id != args[0].track_id).sum()))
+    log(f"  {len(calls)} tail calls, {added} launches; re-seeded a step "
+        f"{seeded}; steps that differ from the plain version: {bad}")
+    assert added == len(calls) == T - 1 and not bad
 
 
 @phase("K3 poly_expansion_planar")
@@ -1554,10 +1720,11 @@ def flow_pair(dev, clip, f, expect, what):
 
 def flow_expected(f, h, w) -> dict:
     """Launches of one api.flow call: two frames' pyramids and one pair
-    step of per_frame_expected, without K1."""
+    step of per_frame_expected, without K1 and the lifecycle tail."""
     from kalman_hydra_tpu_torch.config import EkfConfig, RunConfig
     e = per_frame_expected(RunConfig(flow=f, ekf=EkfConfig(
         measurement="implicit_flow")), h, w, 2)
+    e["lifecycle_tail"] = 0
     return {k: v for k, v in e.items() if k != "ekf_fused_step"}
 
 
@@ -1596,23 +1763,30 @@ def fault_f2(dev, clip, cfg):
 @contextlib.contextmanager
 def plain_lk_route():
     """The Lucas-Kanade flows through the plain versions of K9, K10 and
-    K12 on the card, patched into ops.lk: the plain route a fault's
+    K12 on the card, patched into ops.lk, and the lifecycle tail's plain
+    version, patched into the pipeline: the plain route a fault's
     kernels are held against."""
+    from kalman_hydra_tpu_torch import pipeline
+    from kalman_hydra_tpu_torch.kernels.lifecycle import \
+        lifecycle_tail_plain
     from kalman_hydra_tpu_torch.kernels.lk import lk_sparse_levels_plain
     from kalman_hydra_tpu_torch.kernels.pyramid import pyr_down_levels_plain
     from kalman_hydra_tpu_torch.kernels.scharr import scharr_gradients_plain
     from kalman_hydra_tpu_torch.ops import lk
     saved = lk.build_pyramid, lk.scharr_gradients_levels, lk.lk_sparse_levels
+    saved_tail = pipeline.lifecycle_tail
     lk.build_pyramid = lambda img, n: [img] + pyr_down_levels_plain(img,
                                                                     n - 1)
     lk.scharr_gradients_levels = lambda pyr: tuple(
         scharr_gradients_plain(a) for a in pyr)
     lk.lk_sparse_levels = lk_sparse_levels_plain
+    pipeline.lifecycle_tail = lifecycle_tail_plain
     try:
         yield
     finally:
         (lk.build_pyramid, lk.scharr_gradients_levels,
          lk.lk_sparse_levels) = saved
+        pipeline.lifecycle_tail = saved_tail
 
 
 @phase("F5: lk_sparse and lk_dense at levels 10 (1080p) through "
@@ -2166,6 +2340,7 @@ def check_oracle(dev, clip, cfg_a, name):
     # one step of a frame pair: both frames' pyramids, the first's Scharr
     e = per_frame_expected(RunConfig(flow=fs), h, w, 2)
     e["scharr_gradients_levels"] //= 2
+    e["lifecycle_tail"] = 0
     got_pts, got_st = drive(
         "OC-LK sparse", lambda: lk.lk_sparse(
             ta, tb, torch.from_numpy(pts).to(dev), fs), e, {})
@@ -2837,8 +3012,9 @@ def per_frame_expected(cfg, h, w, t) -> dict:
     level at pe_fused=False); per step each level runs `iterations` K8
     (exact warp), one K5 (fast warp under the gate), one K13
     (fi_pipeline, iterations >= 2) or `iterations` K2, and one K1 where
-    `takes_k1`. measurement="photometric" computes no flow and launches
-    nothing, nor does "render" (the mesh-render channel); "flow_render"
+    `takes_k1`, and one lifecycle tail on every channel.
+    measurement="photometric" computes no flow and launches nothing
+    else, nor does "render" (the mesh-render channel); "flow_render"
     takes the flow's launches and the implicit-flow update (no K1).
     Lucas-Kanade: see the branches below. Past POLY_N_MAX the polyexp
     takes its device-memory route: K3's launches count as polyexp_mem,
@@ -2854,6 +3030,7 @@ def per_frame_expected(cfg, h, w, t) -> dict:
     from kalman_hydra_tpu_torch.ops.pyramid import farneback_levels
     f = cfg.flow
     e = dict.fromkeys(kernels.WRAPPERS, 0)
+    e["lifecycle_tail"] = t - 1          # every channel's tail, a step
     if cfg.ekf.measurement in ("photometric", "render"):
         return e
     if f.method in ("lk_sparse", "lk_dense"):
@@ -2908,9 +3085,9 @@ def per_frame_expected(cfg, h, w, t) -> dict:
 def pair_expected(cfg, h, w, clips, t) -> dict:
     """Launches of a pair-batched run over `clips` clips of t frames: one
     K7b and one K7a for all frames, one K6 (fast warp) or K8-pairs (exact
-    warp) per level iteration, and K1 once per step of each clip where
-    `takes_k1` (the clips are filtered in turn; clips=0 for flow
-    alone)."""
+    warp) per level iteration, K1 once per step of each clip where
+    `takes_k1` and the lifecycle tail once per step of each clip (the
+    clips are filtered in turn; clips=0 for flow alone)."""
     from kalman_hydra_tpu_torch import kernels
     from kalman_hydra_tpu_torch.kernels.level_image import MAX_LEVELS
     from kalman_hydra_tpu_torch.kernels.polyexp import (MEM_MAX_LEVELS,
@@ -2928,7 +3105,8 @@ def pair_expected(cfg, h, w, clips, t) -> dict:
     else:
         e.update(poly_expansion_planar_batch=1, coarse_polyexp_fused_batch=1)
     e.update({flow_kernel: levels * f.iterations,
-              "ekf_fused_step": clips * (t - 1) * takes_k1(cfg)})
+              "ekf_fused_step": clips * (t - 1) * takes_k1(cfg),
+              "lifecycle_tail": clips * (t - 1)})
     return e
 
 
@@ -3486,9 +3664,9 @@ def path_i(dev, clip, cfgs_i, counts_by_path, name):
        "adaptive_q + seed_in_body, 1080p T=9)")
 def path_p(dev, clip, cfgs_p, counts_by_path, name):
     """measurement="photometric": Gauss-Newton on the frames, no flow and
-    no kernel launch; then flow_photometric with adaptive_q 0.3 and
-    seed_in_body: D's flow launches (K8 after the exact gather, K3, K4),
-    no K1 (per-track Q)."""
+    no kernel launch but the lifecycle tail's; then flow_photometric
+    with adaptive_q 0.3 and seed_in_body: D's flow launches (K8 after the
+    exact gather, K3, K4), no K1 (per-track Q)."""
     from kalman_hydra_tpu_torch import api
     med = None
     for label, c in cfgs_p.items():
@@ -3522,14 +3700,16 @@ def path_w(dev, clip, cfg_w, counts_by_path, name):
 @phase("path Q (pipeline.track_precomputed_flow over AP's 8 flows)")
 def path_q(dev, clip, cfg_ap, counts_by_path, name):
     """The filter alone over AP's own frame-pair flows from AP's 1024
-    seeds: K1 once a step; held against the same call on the CPU."""
+    seeds: K1 and the lifecycle tail (gate and kill) once a step; held
+    against the same call on the CPU."""
     from kalman_hydra_tpu_torch import api, pipeline
     flows = api.flow_sequence(clip, cfg_ap, device=dev)
     seeds = api.track_video(clip, cfg_ap, device=dev).positions[0]
     cfg_q = cfg_ap.replace(tracks=dataclasses.replace(cfg_ap.tracks,
                                                       reinit=False))
     e = per_frame_expected(cfg_q, H, W, T)
-    e = {k: (v if k == "ekf_fused_step" else 0) for k, v in e.items()}
+    e = {k: (v if k in ("ekf_fused_step", "lifecycle_tail") else 0)
+         for k, v in e.items()}
     tr = drive("Q", lambda: pipeline.track_precomputed_flow(
         flows, seeds, cfg_q, device=dev), e, counts_by_path)
     check_tracks(tr, T, K)
@@ -3975,8 +4155,8 @@ def path_r_bench(dev, clip):
        f"V={V_R})")
 def path_r_s(dev, clip, r_tracks, counts_by_path, name):
     """R streamed (frame 0 apart, frames 1.. one at a time): no kernel
-    launch, and R's array run bit for bit (positions, alive, nis,
-    track_id), as S is to A."""
+    launch but the lifecycle tail's, and R's array run bit for bit
+    (positions, alive, nis, track_id), as S is to A."""
     from kalman_hydra_tpu_torch import api
     cfg = mesh_config("render")
     fn = lambda: api.track_mesh(clip, cfg, n_vertices=V_R,  # noqa: E731
@@ -4316,7 +4496,7 @@ def sharded_flow_expected(f, h, w, n) -> dict:
                                            f.pyr_scale)[-1]
     assert not fits(lh, lw, 2 if f.bf16_poly else 4)
     e = per_frame_expected(RunConfig(flow=f), h, w, 2)
-    e["ekf_fused_step"] = 0
+    e["ekf_fused_step"] = e["lifecycle_tail"] = 0
     if f.fi_pipeline and f.iterations >= 2:
         e["flow_iters_pipelined"] -= 1
     else:
@@ -4531,7 +4711,8 @@ def path_dp_c(dev, clips_c, pair_cfg, counts_by_path):
 def path_dp_r(dev, counts_by_path):
     """R-480's clip (480x640, T=9) 4 times with its mesh (V=64) and one
     render template, copied to the card once, on 4 shards: against
-    track_clips_batch (< 5e-4 px, alive identical; no kernel)."""
+    track_clips_batch (< 5e-4 px, alive identical; no kernel but the
+    lifecycle tail)."""
     from kalman_hydra_tpu_torch import pipeline
     from kalman_hydra_tpu_torch.models.mesh import mesh_from_mask
     from kalman_hydra_tpu_torch.models.render import make_template
@@ -4550,7 +4731,8 @@ def path_dp_r(dev, counts_by_path):
     clips = np.stack([clip] * 4)
     trs = drive("DP-R", lambda: track_clips_sharded(
         clips, cfg, Mesh([dev] * 4), mesh.vertices, render_tmpl=tmpl),
-        dict.fromkeys(per_frame_expected(cfg, H_R480, W_R480, T), 0),
+        {k: 4 * v for k, v in per_frame_expected(cfg, H_R480, W_R480,
+                                                   T).items()},
         counts_by_path)
     ref = track_clips_batch(clips, cfg, mesh.vertices, tmpl, device=dev)
     dp_compare("DP-R", trs, ref, 5e-4)
@@ -4621,6 +4803,9 @@ _KERNELS = {   # wrapper: (CUDA source, TPU entry point it replaces, in
     # (kh_polyexp_mem; for K4/K7b after K11's level images)
     "polyexp_mem": ("polyexp.cu", "polyexp_pallas.py:140"),
     "level_polyexp_mem": ("level_image.cu", "level_image_pallas.py:195"),
+    # no Pallas kernel: the reference's XLA glue gate, kill_lost, reseed
+    "lifecycle_tail": ("lifecycle.cu",
+                       "kalman_hydra_tpu/models/lifecycle.py:20"),
 }
 
 
@@ -4744,6 +4929,7 @@ def main() -> int:
     counts_by_path: dict = {}
     check_launches(dev, clip, clip_b, cfg, cfgs["H"])
     check_k1(dev, results)
+    check_lifecycle(dev, results)
     check_k3(dev, gray, cfg, results)
     check_k4(dev, gray, cfg, results)
     check_k7b_witness(dev)
@@ -4772,6 +4958,7 @@ def main() -> int:
     check_golden(dev)
     check_oracle(dev, clip, cfg, name)
     path_a(dev, clip, cfg, counts_by_path)
+    check_lifecycle_steps(dev, clip, cfg)
     flow_vs_plain(dev, clip, {k: cfgs[k]
                               for k in ("A", "D", "D2", "E", "AP")})
     small_vs_cpu(dev, cfg, pair_cfg, cfgs)

@@ -20,6 +20,7 @@
 | flow_update.flow_update_pairs (K8-pairs) | csrc/flow_update.cu | no Pallas kernel: the pair-batched exact warp's plain XLA, gather included (ops/farneback.py:633-640) |
 | K3/K7a past POLY_N_MAX (counts in polyexp.mem_route) | csrc/polyexp.cu (kh_polyexp_mem) | polyexp_pallas.py::poly_expansion_planar(_batch) at any odd poly_n |
 | K4/K7b past POLY_N_MAX (counts in level_image.mem_route) | csrc/level_image.cu (K11's kernel over the frames), csrc/polyexp.cu (kh_polyexp_mem over the levels) | level_image_pallas.py::coarse_polyexp_fused(_batch) at any odd poly_n |
+| lifecycle.lifecycle_tail | csrc/lifecycle.cu | no Pallas kernel: the reference's XLA glue models/lifecycle.py (gate, kill_lost, reseed), one launch a frame step |
 
 Each wrapper dispatches by device: a CPU tensor takes the plain PyTorch
 version beside it, a CUDA tensor launches the kernel or raises. Each
@@ -41,6 +42,7 @@ from .flow_update import flow_update, flow_update_pairs
 from . import level_image, polyexp
 from .level_image import (coarse_level_images, coarse_polyexp_fused,
                           coarse_polyexp_fused_batch)
+from .lifecycle import lifecycle_tail
 from .lk import lk_level, lk_sparse_levels
 from .polyexp import poly_expansion_planar, poly_expansion_planar_batch
 from .pyramid import pyr_down, pyr_down_levels
@@ -65,6 +67,7 @@ WRAPPERS = {
     "flow_iter_band": flow_iter.band,
     "polyexp_mem": polyexp.mem_route,
     "level_polyexp_mem": level_image.mem_route,
+    "lifecycle_tail": lifecycle_tail,
 }
 
 

@@ -143,6 +143,20 @@ def position_H_on(cfg: EkfConfig, device) -> torch.Tensor:
     return H
 
 
+_P0_on: dict = {}
+
+
+def initial_covariance_on(cfg: EkfConfig, device) -> torch.Tensor:
+    """dynamics.initial_covariance on `device`, uploaded once per
+    (config, device): the lifecycle tail's P0."""
+    key = (cfg, str(device))
+    P0 = _P0_on.get(key)
+    if P0 is None:
+        P0 = _P0_on[key] = torch.as_tensor(
+            dynamics.initial_covariance(cfg), device=device)
+    return P0
+
+
 @lru_cache(maxsize=32)
 def transition_noise(cfg: EkfConfig):
     """(dynamics.transition, dynamics.process_noise) of a config, built

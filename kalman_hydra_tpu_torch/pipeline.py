@@ -84,8 +84,10 @@ from .config import EkfConfig, FlowConfig, RunConfig, TrackConfig
 from .io import Trajectories
 from .io.video import device_prefetch
 from .kernels.flow_iter import pair_count, pair_frames
-from .models import dynamics, lifecycle
-from .models.ekf import (TrackState, commit_update, ekf_step, init_tracks,
+from .kernels.lifecycle import lifecycle_tail
+from .models import dynamics
+from .models.ekf import (TrackState, commit_update, ekf_step,
+                         initial_covariance_on, init_tracks,
                          measurement_noise, predict, update)
 from .models.photometric import photometric_refine, photometric_step
 from .models.render import RenderTemplate, render_refine, render_step
@@ -281,17 +283,18 @@ def make_filter_tail(cfg: RunConfig, F: torch.Tensor):
     """The lifecycle and output tail of every step, after the measurement
     update: (state, aux, lag_buf, corner pool (pts, score) or None, h, w)
     -> (state, lag_buf, out). Gate, kill the tracks that left the (h, w)
-    frame, reseed from the pool; with smooth.lag it also pushes the
+    frame, reseed from the pool (one `kernels.lifecycle.lifecycle_tail`
+    call, P0 cached on the device); with smooth.lag it also pushes the
     fixed-lag window and emits the smoothed position of the frame leaving
     it."""
 
     def tail(state: TrackState, aux: dict, lag_buf: Tuple, pool, h: int,
              w: int):
-        state = lifecycle.gate(state, aux["x_pred"], aux["P_pred"],
-                               aux["nis"], cfg.ekf)
-        state = lifecycle.kill_lost(state, cfg.ekf, h, w)
-        if cfg.tracks.reinit:
-            state = lifecycle.reseed(state, *pool, cfg.ekf, cfg.tracks)
+        state = lifecycle_tail(
+            state, aux["x_pred"], aux["P_pred"], aux["nis"],
+            pool if cfg.tracks.reinit else None,
+            initial_covariance_on(cfg.ekf, state.x.device), cfg.ekf,
+            cfg.tracks, h, w)
         out = {"pos": state.x[:, 0:2], "alive": state.alive,
                "nis": aux["nis"], "track_id": state.track_id,
                "x_filt": state.x, "P_filt": state.P,
@@ -709,9 +712,9 @@ def track_precomputed_flow(flows: np.ndarray, seeds: np.ndarray,
              "track_id": state.track_id}]
     for flow in flows_d:
         state, aux = ekf_step(state, flow, cfg.ekf, F, Q)
-        state = lifecycle.gate(state, aux["x_pred"], aux["P_pred"],
-                               aux["nis"], cfg.ekf)
-        state = lifecycle.kill_lost(state, cfg.ekf, h, w)
+        state = lifecycle_tail(state, aux["x_pred"], aux["P_pred"],
+                               aux["nis"], None, None, cfg.ekf, cfg.tracks,
+                               h, w)
         rows.append({"pos": state.x[:, 0:2], "alive": state.alive,
                      "nis": aux["nis"], "track_id": state.track_id})
     return _trajectories({k: torch.stack([r[k] for r in rows])

@@ -186,5 +186,5 @@ def test_cpu_wrappers_do_not_count_launches(rng):
     # poly_n past POLY_N_MAX: the device-memory route's counters
     poly_expansion_planar(img, 53, 10.6)
     kernels.coarse_polyexp_fused_batch(imgs, 2, 0.5, 53, 10.6)
-    assert len(kernels.WRAPPERS) == 18
+    assert len(kernels.WRAPPERS) == 19
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
